@@ -15,12 +15,25 @@
    B = 16 structured 256^2 images three times, checking shapes, finite
    symbols and that the kernels' launch counters moved by K1 +1, K2 +1 and
    K3 +2 per call;
-6. prints a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
+6. holds K3b (the quantizer's backward) against its twin at the training
+   path's shapes (B = 16, D = 1024 and 512, float32 and bf16) and times it;
+7. checks two GAN training steps (with and without D) of a tiny codec on the
+   card against the same steps on the CPU: losses, per-component gradients,
+   parameters and BatchNorm statistics;
+8. trains at full width (TrainConfig() defaults, random VGG19 for the
+   perceptual loss): masks of 32 synthetic images through K1, a
+   device-resident dataset, GANTrainer.fit for 4 steps after one warm-up
+   step, and the rate-control probe, checking finite metrics, moved
+   parameters and BatchNorm statistics, and the launch counts (K1 +1; per
+   step K2 +1, K3 +2, K3b +2; per probe point K2 +1, K3 +2), then times
+   steps with and without D;
+9. prints a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. Without CUDA, or without the port package beside it, it exits 1.
 """
 
+import copy
 import json
 import math
 import sys
@@ -238,8 +251,8 @@ def run_full_pipeline(dev, card):
         times.append(time.perf_counter() - t)
         after = ops.launch_counts()
         delta = {k: after[k] - before[k] for k in after}
-        if delta != {"K1": 1, "K2": 1, "K3": 2}:
-            raise AssertionError(f"call {i}: kernel launches {delta}, want K1 1, K2 1, K3 2")
+        if delta != {"K1": 1, "K2": 1, "K3": 2, "K3b": 0}:
+            raise AssertionError(f"call {i}: kernel launches {delta}, want K1 1, K2 1, K3 2, K3b 0")
         if dec.shape != (B, 256, 256, 3) or dec.dtype != np.uint8:
             raise AssertionError(f"decoded {dec.shape} {dec.dtype}")
         for key, shape in (("hq_symbols", (B, 1024)), ("lq_symbols", (B, 512)),
@@ -256,6 +269,266 @@ def run_full_pipeline(dev, card):
     log(f"decoded mean {dec.mean():.2f}, std {dec.std():.2f}; |hq symbols| mean "
         f"{info['hq_symbols'].abs().mean().item():.3f}; mask mean {info['mask'].mean().item():.4f}")
     return counts, med
+
+
+def check_k3b(dev, B):
+    from contextual_image_compression_tpu_torch.measure import event_ms
+    from contextual_image_compression_tpu_torch.ops.quantize import (
+        adaptive_quantize_bwd, adaptive_quantize_bwd_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = []
+    for d in (1024, 512):  # the HQ and LQ latents of one training step
+        z = torch.randn(B, d, device=dev, generator=gen) * 2
+        g = torch.randn(B, d, device=dev, generator=gen) * 1e-3
+        s = torch.rand(B, 1, device=dev, generator=gen)
+        q = torch.rand(B, 1, device=dev, generator=gen) * 0.9
+        cases.append((z, s, q, g))
+    err, worst32, worst16 = 0.0, 0.0, 0.0
+    for z, s, q, g in cases:
+        scale = torch.exp(3.0 * (q * (1.0 - s)))
+        # |dsigma| and |dq| bars: the row's sum of |term| times the chain
+        # factor, term = g * rint(z * s) / s^2, chain = 3 s q or 3 s (1 - sigma)
+        mag = (g * torch.round(z * scale)).abs().sum(1, keepdim=True) / scale * 3.0
+        for dt in (torch.float32, torch.bfloat16):
+            zd, gd = z.to(dt), g.to(dt)
+            got = adaptive_quantize_bwd(zd, s, q, gd)
+            want = adaptive_quantize_bwd_plain(zd, s, q, gd)
+            for x, y, chain in zip(got, want, (q, 1.0 - s)):
+                diff = (x - y).abs()
+                err = max(err, diff.max().item())
+                if dt == torch.float32:
+                    worst32 = max(worst32, (diff / (mag * chain.abs())).max().item())
+                else:
+                    worst16 = max(worst16, (diff / y.abs().clamp(min=1e-30)).max().item())
+    torch.cuda.synchronize()
+    log(f"K3b quantizer backward (16,1024)+(16,512): max |kernel - twin| = {err:.3e}; float32 "
+        f"{worst32:.2e} of sum |term| x chain (bar 1e-5), bf16 {worst16:.2e} relative (bar 1e-2)")
+    if not (worst32 <= 1e-5 and worst16 <= 1e-2):
+        raise AssertionError(f"K3b disagrees with its twin: float32 {worst32}, bf16 {worst16}")
+
+    def pair(fn):
+        return lambda: [fn(z, s, q, g) for z, s, q, g in cases]
+
+    ms = event_ms(pair(adaptive_quantize_bwd))
+    plain = event_ms(pair(adaptive_quantize_bwd_plain))
+    # float32 training path: z and g read once, sigma and q read, dsigma and
+    # dq written; ~6 operations per element (z s, rint, divide, negate,
+    # multiply by g, add)
+    nbytes = sum(z.numel() * 4 * 2 + B * 4 * 4 for z, _, _, _ in cases)
+    ops = sum(z.numel() * 6 for z, _, _, _ in cases)
+    b_ms, b_by = bound_ms(nbytes, ops, H100_FP32_TFLOPS)
+    log(f"K3b times (two launches of one step, float32): kernel {ms:.4f} ms, twin {plain:.4f} ms, "
+        f"bound {b_ms:.6f} ms ({b_by}), library none")
+    return dict(name="K3b adaptive_quantize_bwd", route="cuda",
+                source="contextual_image_compression_tpu_torch/csrc/quantize.cu",
+                replaces="contextual_image_compression_tpu/ops/quantize.py:127",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+# The tiny codec of the CPU training tests, with 64 channels at the attention
+# stage (K2 takes value widths of 64..256 in steps of 64).
+TINY_TRAIN = dict(img_size=(32, 32), base_latent_dim=16, encoder_channels=(8, 16, 64, 32),
+                  generator_channels=(24, 16, 8, 8), generator_base_hw=2, generator_base_ch=32)
+
+
+def _component_grads(codec):
+    from contextual_image_compression_tpu_torch.models.adaptive import ALL_CODEC_COMPONENTS
+
+    return {n: torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                          for p in getattr(codec, n).parameters()]).double().cpu()
+            for n in ALL_CODEC_COMPONENTS}
+
+
+def _train_snapshot(state):
+    """Weights, BatchNorm statistics, optimizer states and step of a train state."""
+    opts = (state.g_opt, state.ls_opt, state.rd_opt, state.d_opt)
+    return dict(codec={k: v.detach().cpu().clone() for k, v in state.codec.state_dict().items()},
+                disc={k: v.detach().cpu().clone() for k, v in state.disc.state_dict().items()},
+                opts=[copy.deepcopy(o.adam.state_dict()) for o in opts], step=state.step)
+
+
+def _train_restore(state, snap):
+    state.codec.load_state_dict(snap["codec"])
+    state.disc.load_state_dict(snap["disc"])
+    for o, sd in zip((state.g_opt, state.ls_opt, state.rd_opt, state.d_opt), snap["opts"]):
+        o.adam.load_state_dict(copy.deepcopy(sd))
+    state.step = snap["step"]
+
+
+def _small_train_step_agreement(dev, label):
+    """Two steps (with D, then without) of a tiny codec (TINY_TRAIN) on the
+    CPU (twins), with seeded weights, batch and random VGG19 in bn_mode
+    'train'; the card (kernels) runs each step from the CPU's state before
+    it. Bars, as the CPU tests against JAX state them: losses within 1e-4
+    relative, each component's gradient within 1e-4 relative L2, the
+    parameters after the step within 1e-6 on >= 99.9% of elements and 2 lr
+    everywhere (Adam's first steps move a parameter by ~lr whatever the size
+    of its gradient, so gradients at rounding level, such as those of a bias
+    feeding a batch-statistics BatchNorm, flip), BatchNorm statistics within
+    1e-6. Returns (loss, gradient, share, worst, statistics) errors."""
+    from contextual_image_compression_tpu_torch.config import (
+        ModelConfig, QuantizerConfig, TrainConfig)
+    from contextual_image_compression_tpu_torch.measure import randomize_stats
+    from contextual_image_compression_tpu_torch.models.vgg import load_vgg19_features
+    from contextual_image_compression_tpu_torch.train.gan_trainer import Batch, GANStepBuilder
+
+    mcfg = ModelConfig(**TINY_TRAIN, quantizer=QuantizerConfig(grad_mode="reference"))
+    cfg = TrainConfig(model=mcfg, batch_size=4, vgg_weights_path="random:0")
+    rng = np.random.RandomState(7)
+    arrays = (rng.rand(4, 3, 32, 32).astype(np.float32) * 2 - 1,
+              rng.rand(4, 1, 32, 32).astype(np.float32),
+              np.array([[0.1], [1.0], [2.0], [1.0]], np.float32))
+    cpu_vgg = load_vgg19_features(cfg.vgg_weights_path, device="cpu")
+    sides = []
+    for d in (torch.device("cpu"), dev):
+        vgg = load_vgg19_features(cfg.vgg_weights_path, device=d)
+        vgg.load_state_dict(cpu_vgg.state_dict())
+        builder = GANStepBuilder(cfg, vgg=vgg, bn_mode="train", device=d)
+        sides.append((builder, builder.init_state(0),
+                      Batch(*(torch.from_numpy(a).to(d) for a in arrays))))
+    randomize_stats(sides[0][1].codec, 3)
+
+    def step(side, do_d):
+        builder, state, batch = side
+        out = builder.codec_forward(state, batch)
+        m = {"d_loss": builder.d_phase(state, batch, out)} if do_d else {}
+        m.update(builder.g_backward(state, batch, out))
+        grads = _component_grads(state.codec)
+        builder.g_update(state)
+        sd = {**{f"codec.{k}": v for k, v in state.codec.state_dict().items()},
+              **{f"disc.{k}": v for k, v in state.disc.state_dict().items()}}
+        return ({k: v.item() for k, v in m.items()}, grads,
+                {k: v.double().cpu() for k, v in sd.items()})
+
+    loss_rel = grad_rel = stat_err = worst = 0.0
+    share = 1.0
+    for do_d in (True, False):
+        _train_restore(sides[1][1], _train_snapshot(sides[0][1]))
+        (mc, gc, pc), (mg, gg, pg) = step(sides[0], do_d), step(sides[1], do_d)
+        loss_rel = max([loss_rel] + [abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc])
+        rels = {n: float((gg[n] - gc[n]).norm() / gc[n].norm().clamp(min=1e-30)) for n in gc}
+        log(f"  step {'with' if do_d else 'without'} D, gradients relative L2: "
+            + ", ".join(f"{n} {r:.1e}" for n, r in rels.items()))
+        grad_rel = max([grad_rel] + list(rels.values()))
+        stats = [k for k in pc if k.endswith(("running_mean", "running_var"))]
+        perr = torch.cat([(pg[k] - pc[k]).abs().reshape(-1) for k in pc if k not in stats])
+        share = min(share, float((perr <= 1e-6).double().mean()))
+        worst = max(worst, float(perr.max()))
+        stat_err = max([stat_err] + [float((pg[k] - pc[k]).abs().max()) for k in stats])
+    log(f"small train step card vs CPU ({label}; 32^2, with and without D, bn train, "
+        f"perceptual on): losses {loss_rel:.2e} relative, gradients {grad_rel:.2e} relative L2, "
+        f"params within 1e-6 on {share:.5f}, max {worst:.2e}, BN statistics {stat_err:.2e}")
+    return loss_rel, grad_rel, share, worst, stat_err
+
+
+def check_small_train_step_against_cpu(dev):
+    """The tiny train step on the card against the CPU, at the bars of
+    _small_train_step_agreement, with convolutions outside cuDNN. cuDNN's
+    float32 convolution algorithms (TF32 off, deterministic or not) move the
+    step's codec gradients by up to ~3e-4 relative L2 from the CPU's through
+    the VGG19 and train-mode BatchNorm backward, and by different amounts
+    from run to run; that run is printed for information. Without cuDNN the
+    card's convolutions are float32 GEMMs and the step is held to 1e-4; K2,
+    K3 and K3b launch in both runs."""
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        _small_train_step_agreement(dev, "cuDNN convolutions, information only")
+    with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+        loss_rel, grad_rel, share, worst, stat_err = _small_train_step_agreement(
+            dev, "convolutions without cuDNN")
+    from contextual_image_compression_tpu_torch.config import TrainConfig
+
+    lr = TrainConfig().learning_rate
+    log(f"  bars: losses 1e-4, gradients 1e-4, params 0.999 within 1e-6 and {2 * lr:.0e} "
+        f"everywhere, BN statistics 1e-6")
+    if not (loss_rel <= 1e-4 and grad_rel <= 1e-4 and share >= 0.999 and worst <= 2 * lr
+            and stat_err <= 1e-6):
+        raise AssertionError("the training step on the card disagrees with the CPU step")
+
+
+def run_full_training(dev, card):
+    """The training main path at full width; returns its launch counts."""
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.config import TrainConfig
+    from contextual_image_compression_tpu_torch.data.images import synthetic_images
+    from contextual_image_compression_tpu_torch.data.pipeline import (
+        CompressionDataset, prepare_masks)
+    from contextual_image_compression_tpu_torch.train.loop import GANTrainer
+
+    cfg = TrainConfig(vgg_weights_path="random:0")
+    imgs = synthetic_images(32, cfg.model.img_size, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    masks = prepare_masks(imgs, cfg.saliency, device=dev)
+    t_mask = time.perf_counter() - t0
+    ds = CompressionDataset(imgs, masks, batch_size=cfg.batch_size, seed=cfg.seed,
+                            device_resident=True, device=dev)
+    trainer = GANTrainer(cfg, device=dev, log_fn=log)
+    state = trainer.init_state(resume=False)
+    n_params = sum(p.numel() for m in (state.codec, state.disc) for p in m.parameters())
+    comps = ("hq_encoder", "hq_generator", "lq_encoder", "lq_generator", "latent_saliency_hq",
+             "latent_saliency_lq", "rd_optimizer")
+    before = {n: [p.detach().clone() for p in getattr(state.codec, n).parameters()]
+              for n in comps}
+    before["discriminator"] = [p.detach().clone() for p in state.disc.parameters()]
+    stats_before = state.codec.hq_generator.bn0.running_mean.clone()
+    t0 = time.perf_counter()
+    trainer.builder.train_step(state, next(ds.epoch()), True)  # warm-up: cuDNN autotuning
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hist = trainer.fit(ds, epochs=1, steps_per_epoch=4, artifacts=False)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    probe = trainer.rate_control_probe(ds.first_samples())
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"K1": 1, "K2": 5 + 3, "K3": 2 * 5 + 2 * 3, "K3b": 2 * 5}
+    if counts != want:
+        raise AssertionError(f"training launches {counts}, want {want}")
+    bad = [k for k, v in hist.items() if not all(math.isfinite(x) for x in v)]
+    bad += [f"probe {b}" for b, r, g in probe if not (math.isfinite(r) and math.isfinite(g))]
+    if bad:
+        raise AssertionError(f"non-finite training metrics: {bad}")
+    params = dict(state.codec.named_children())
+    params["discriminator"] = state.disc
+    still = [n for n, ps in before.items()
+             if all(torch.equal(a, b) for a, b in zip(ps, params[n].parameters()))]
+    if still:
+        raise AssertionError(f"parameters did not move: {still}")
+    if torch.equal(stats_before, state.codec.hq_generator.bn0.running_mean):
+        raise AssertionError("BatchNorm running statistics did not move in bn_mode 'train'")
+    if state.step != 5:
+        raise AssertionError(f"step counter {state.step}, want 5")
+
+    # step times outside the counted main path, alternating D / no D
+    t_d, t_nd = [], []
+    it = ds.epoch()
+    for i in range(6):
+        batch = next(it, None)
+        if batch is None:
+            it = ds.epoch()
+            batch = next(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.builder.train_step(state, batch, i % 2 == 0)
+        torch.cuda.synchronize()
+        (t_d if i % 2 == 0 else t_nd).append(time.perf_counter() - t0)
+    md, mnd = float(np.median(t_d)), float(np.median(t_nd))
+    bsz = cfg.batch_size
+    log(f"full-width GAN training on {card} (TrainConfig() defaults, float32, TF32 off, "
+        f"random VGG19 perceptual): {n_params / 1e6:.1f}M trainable parameters; masks of "
+        f"{len(imgs)} images {t_mask * 1e3:.1f} ms; warm-up step {t_warm:.2f} s; fit 4 steps {t_fit:.3f} s")
+    log(f"step with D {md * 1e3:.2f} ms, without D {mnd * 1e3:.2f} ms (median of 3 each, "
+        f"CUDA-synchronized host clock); {2 * bsz / (md + mnd):.1f} img/s on the alternating "
+        f"schedule; peak memory {peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated); "
+        f"launches {counts}")
+    log(f"history {json.dumps(hist)}; probe {probe}")
+    return counts
 
 
 def main():
@@ -287,12 +560,17 @@ def main():
     B = 16
     records = [check_k1(dev, rng, B), check_k2(dev, B), check_k3(dev, B)]
     check_small_pipeline_against_cpu(dev)
-    counts, med = run_full_pipeline(dev, card)
-    for rec, key in zip(records, ("K1", "K2", "K3")):
-        rec["launches"] = counts[key]
-        if counts[key] == 0:
-            raise AssertionError(f"{key} was not launched on the main path")
-        rec["status"] = "ported; within its bar against the twin; launched on the main path"
+    serving, med = run_full_pipeline(dev, card)
+    records.append(check_k3b(dev, B))
+    check_small_train_step_against_cpu(dev)
+    training = run_full_training(dev, card)
+    for rec, key in zip(records, ("K1", "K2", "K3", "K3b")):
+        rec["launches_serving"] = serving.get(key, 0)
+        rec["launches_training"] = training[key]
+        rec["launches"] = rec["launches_serving"] + rec["launches_training"]
+        if training[key] == 0 or (key != "K3b" and serving[key] == 0):
+            raise AssertionError(f"{key} was not launched on a path that runs it")
+        rec["status"] = "ported; within its bar against the twin; launched on the main paths"
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = {"kernels": [{**{k: rec[k] for k in keys}, **rec} for rec in records]}

@@ -1,10 +1,10 @@
 """Configuration dataclasses of the PyTorch port.
 
 Field names and defaults are those of `contextual_image_compression_tpu.config`
-(`SaliencyConfig`, `QuantizerConfig`, `ModelConfig`), so a default-constructed
-config describes the same codec in both packages. Only what the serving path
-reads is carried over; the training, evaluation and DCT configs come with the
-slices that port those subsystems.
+(`SaliencyConfig`, `QuantizerConfig`, `ModelConfig`, `LossConfig`,
+`TrainConfig`), so a default-constructed config describes the same codec and
+the same GAN training run in both packages. The evaluation, autoencoder and
+DCT configs come with the slices that port those subsystems.
 """
 
 from __future__ import annotations
@@ -16,6 +16,11 @@ import torch
 
 IMG_SIZE: Tuple[int, int] = (256, 256)
 BASE_LATENT_DIM: int = 512
+BATCH_SIZE: int = 16
+EPOCHS: int = 20
+LEARNING_RATE: float = 1e-4
+BPP_RANGE: Tuple[float, ...] = (0.1, 1.0, 2.0)
+SEED: int = 42
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,6 +133,63 @@ class ModelConfig:
             return q
         mode = "reference" if self.skip_mode == "encoder" else "ste"
         return dataclasses.replace(q, grad_mode=mode)
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Generator, latent-saliency and RD loss weights and formula switches."""
+
+    recon_weight: float = 0.35
+    l1_weight: float = 0.15
+    perceptual_weight: float = 0.15
+    adv_weight: float = 0.15
+    bitrate_weight: float = 0.20
+    g_loss_floor: float = 0.5  # floor-offset hack: g += max(0, floor - g) * coeff
+    g_loss_floor_coeff: float = 0.5
+    ls_loss_weight: float = 0.1
+    rd_loss_weight: float = 0.3
+    rd_bitrate_weight: float = 0.7
+    perceptual_layer_weights: Tuple[float, ...] = (0.1, 0.1, 0.2, 0.3, 0.3)
+    perceptual_scale: float = 0.5
+    d_real_label: float = 0.9  # label smoothing
+    d_fake_label: float = 0.1
+    rd_target_bpp_divisor: float = 4.0
+    rd_target_clip: Tuple[float, float] = (0.1, 0.9)
+    # True reproduces the (B, 1) - (B,) broadcast of the reference's TF code,
+    # which turns the latent-saliency and bitrate terms into (B, B) means.
+    reference_broadcast_quirk: bool = False
+    # weight * (MSE(img, hq_out) + MSE(img, lq_out)) added to the generator
+    # loss; 0.0 leaves the term out.
+    branch_recon_weight: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """GAN training run. Checkpoint and artifact fields are kept so configs
+    round-trip between packages; the port writes neither yet."""
+
+    model: ModelConfig = ModelConfig()
+    loss: LossConfig = LossConfig()
+    saliency: SaliencyConfig = SaliencyConfig()
+    batch_size: int = BATCH_SIZE
+    epochs: int = EPOCHS
+    learning_rate: float = LEARNING_RATE
+    ls_lr_scale: float = 0.5  # latent-saliency optimizer learning rate scale
+    rd_lr_scale: float = 0.5  # RD optimizer learning rate scale
+    clipnorm: float = 1.0  # per-tensor L2 clip, keras semantics
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-7  # keras default
+    bpp_range: Tuple[float, ...] = BPP_RANGE
+    d_every_n_steps: int = 2  # D trained every other step
+    fine_tune_epochs: int = 3
+    seed: int = SEED
+    use_perceptual: bool = True
+    vgg_weights_path: str = ""  # .npz of VGG19 conv weights, or 'random[:seed]'
+    checkpoint_every: int = 5
+    results_dir: str = "results"
+    model_dir: str = "models_ckpt"
+    sample_visualizations: int = 4
 
 
 def torch_dtype(name: str) -> torch.dtype:

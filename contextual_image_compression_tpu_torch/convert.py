@@ -1,9 +1,11 @@
-"""Weight carrier: JAX codec variables -> the port's state dict.
+"""Weight carrier: JAX variables -> the port's state dicts.
 
-Input: the JAX codec's variables as a nested dict of numpy arrays,
+Input: JAX variables as nested dicts of numpy arrays: the codec's
 `{component: {"params": ..., "batch_stats": ...}}` (what
-`AdaptiveCodec.init` returns, leaves as numpy). Output: a flat state dict for
-`contextual_image_compression_tpu_torch.models.AdaptiveCodec`. Rules:
+`AdaptiveCodec.init` returns), the discriminator's and the VGG19 tower's
+`{"params": ..., ["batch_stats": ...]}`. Output: flat state dicts for the
+port's `AdaptiveCodec`, `Discriminator` and `VGG19Features`. Optimizer
+states are not carried: both packages start them fresh. Rules:
 
   * conv kernels HWIO -> OIHW;
   * ConvTranspose kernels (kh, kw, Cin, Cout) are flipped on both spatial
@@ -12,9 +14,10 @@ Input: the JAX codec's variables as a nested dict of numpy arrays,
   * Dense (in, out) -> (out, in);
   * BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
     running_mean/running_var (eps 1e-3 lives in the module);
-  * the encoder flattens and the generator reshapes in NHWC order in JAX:
-    the encoders' latent_dense rows and the generators' fc columns and bias
-    are permuted to NCHW order here, so the port needs no run-time permute.
+  * the encoder and the discriminator flatten and the generator reshapes in
+    NHWC order in JAX: the encoders' latent_dense rows, the discriminator's
+    dense rows and the generators' fc columns and bias are permuted to NCHW
+    order here, so the port needs no run-time permute.
     The w8 scales are per output column, so quantizing after the
     permutation gives the same numbers.
 
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from contextual_image_compression_tpu_torch.config import ModelConfig
+from contextual_image_compression_tpu_torch.models.discriminator import disc_geometry
 
 
 def _t(a) -> torch.Tensor:
@@ -113,4 +117,25 @@ def convert_codec_variables(variables: Dict, cfg: ModelConfig) -> Dict[str, torc
         f"{comp}.{key}": val
         for comp, tree in variables.items()
         for key, val in component_state(comp, tree, cfg).items()
+    }
+
+
+def convert_discriminator_variables(variables: Dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """JAX discriminator variables (numpy leaves) -> state dict of the port's
+    Discriminator, with the NHWC-order `dense` rows permuted to NCHW."""
+    sd = _component_state(variables)
+    filters, hw = disc_geometry(cfg.img_size, cfg.disc_base_filters, cfg.disc_max_filters,
+                                cfg.disc_max_stages)
+    sd["dense.weight"] = _nhwc_rows_to_nchw(sd["dense.weight"], hw, hw, filters[-1])
+    return sd
+
+
+def convert_vgg_variables(variables: Dict) -> Dict[str, torch.Tensor]:
+    """JAX VGG19Features variables {"params": {block{i}_conv{j}: {kernel
+    (HWIO), bias}}} -> state dict of the port's VGG19Features (OIHW)."""
+    return {
+        f"{name}.{key}": (_t(leaf["kernel"]).permute(3, 2, 0, 1).contiguous()
+                          if key == "weight" else _t(leaf["bias"]))
+        for name, leaf in variables["params"].items()
+        for key in ("weight", "bias")
     }

@@ -1,4 +1,5 @@
-// K3 (forward): saliency-adaptive latent quantization.
+// K3 (forward) and K3b (backward, reference mode): saliency-adaptive latent
+// quantization.
 //
 // Replaces the forward of contextual_image_compression_tpu/ops/quantize.py::
 // _adaptive_quantize_pallas (_pallas_quant_forward, body _quant_fwd_kernel).
@@ -36,6 +37,52 @@ quant_fwd_kernel(const T* __restrict__ z, const float* __restrict__ score,
     orow[d] = cic::from_f32<T>(rintf(cic::to_f32(zr[d]) * s) / s);
 }
 
+// K3b replaces contextual_image_compression_tpu/ops/quantize.py::
+// _pallas_quant_bwd_scalepath (body _quant_bwd_ref_kernel): the 'reference'
+// gradient mode, where rint has zero derivative, so the latent gets none and
+// only the scale path carries gradient. Per row b, with s as in K3:
+//   g_s     = sum_d g * (-rint(z * s) / (s * s))
+//   g_eff   = g_s * c * s
+//   dsigma  = g_eff * (-q),   dq = g_eff * (1 - sigma)
+// in float32 whatever the storage type of z and g.
+//
+// Bound on the H100: bytes. It reads z and g once (B x D x 2 tensors, 128 KB
+// in float32 at B = 16, D = 1024: ~40 ns of HBM time) and writes 2 x B
+// floats; ~6 flops per element. One block per row: each thread sums its
+// strided share of the row, then a warp-shuffle and shared-memory reduction
+// forms g_s and thread 0 writes both outputs. At B = 16 the launch, not the
+// row, is the cost.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+quant_bwd_kernel(const T* __restrict__ z, const T* __restrict__ g,
+                 const float* __restrict__ score, const float* __restrict__ strength,
+                 float coeff, float* __restrict__ dscore, float* __restrict__ dstrength, int D) {
+  const int b = blockIdx.x;
+  const float q = strength[b];
+  const float sigma = score[b];
+  const float s = expf(coeff * (q * (1.0f - sigma)));
+  const float s2 = s * s;
+  const T* zr = z + (size_t)b * D;
+  const T* gr = g + (size_t)b * D;
+  float acc = 0.0f;
+  for (int d = threadIdx.x; d < D; d += THREADS)
+    acc += cic::to_f32(gr[d]) * (-rintf(cic::to_f32(zr[d]) * s) / s2);
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+  __shared__ float warp_sums[THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    acc = lane < THREADS / 32 ? warp_sums[lane] : 0.0f;
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+    if (lane == 0) {
+      const float g_eff = acc * coeff * s;
+      dscore[b] = g_eff * (-q);
+      dstrength[b] = g_eff * (1.0f - sigma);
+    }
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 latents; score and strength are float32 (B,).
@@ -51,6 +98,28 @@ extern "C" int cic_adaptive_quantize(int dtype, const void* z, const float* scor
     quant_fwd_kernel<__nv_bfloat16><<<B, THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(z), score, strength, coeff,
         static_cast<__nv_bfloat16*>(out), D);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// dtype: 0 = float32, 1 = bfloat16 latents and gradients (one type for both);
+// score and strength are float32 (B,); dscore and dstrength float32 (B,).
+extern "C" int cic_adaptive_quantize_bwd(int dtype, const void* z, const void* g,
+                                         const float* score, const float* strength, float coeff,
+                                         float* dscore, float* dstrength, int B, int D,
+                                         void* stream) {
+  if (B < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    quant_bwd_kernel<float><<<B, THREADS, 0, st>>>(static_cast<const float*>(z),
+                                                   static_cast<const float*>(g), score, strength,
+                                                   coeff, dscore, dstrength, D);
+  } else if (dtype == 1) {
+    quant_bwd_kernel<__nv_bfloat16><<<B, THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(z), static_cast<const __nv_bfloat16*>(g), score,
+        strength, coeff, dscore, dstrength, D);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,7 +1,8 @@
 """The adaptive (saliency-guided, rate-controlled) dual-branch codec.
 
-Counterpart of `contextual_image_compression_tpu/models/adaptive.py`,
-inference only (`apply(train=False)`):
+Counterpart of `contextual_image_compression_tpu/models/adaptive.py`, for
+inference (`apply(train=False)`) and float32 training (`apply(train=True,
+detach_for_training=True)`):
 
     hq_latent, hq_skips = hq_encoder(img)        # with self-attention (K2)
     lq_latent, lq_skips = lq_encoder(img)
@@ -9,12 +10,14 @@ inference only (`apply(train=False)`):
     rd_params = rd_optimizer(mask, bpp)          # reported, not applied
     b = clip(bpp / 5, 0, 1); thr = 0.9 - 0.85 b; qs = schedule(b)
     dyn_thr = sigmoid(20 * (mask^0.7 - thr))     # or the hard threshold
-    zq = quantize(latent, s, qs)                 # K3, both branches
+    zq = quantize(latent, s, qs)                 # K3 (backward K3b), both branches
     out = hq_gen(zq_hq, skips) * dyn_thr + lq_gen(zq_lq, skips) * (1 - dyn_thr)
 
 The components are submodules named like the JAX codec's components, so a
 converted state dict (convert.py) loads with `load_state_dict`. Images and
 masks cross `apply` in NHWC, latents as (B, D); inside, everything is NCHW.
+Gradients flow through `apply`; callers that only infer wrap it in
+`torch.no_grad()`.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn as nn
+from torch.func import functional_call
 
 from contextual_image_compression_tpu_torch.config import ModelConfig
 from contextual_image_compression_tpu_torch.models.encoder import Encoder
@@ -36,10 +40,11 @@ from contextual_image_compression_tpu_torch.ops.saliency import (
     resize_op_matrix,
 )
 
-ALL_CODEC_COMPONENTS = (
-    "hq_encoder", "hq_generator", "lq_encoder", "lq_generator",
-    "latent_saliency_hq", "latent_saliency_lq", "rd_optimizer",
-)
+# The three disjoint parameter groups of GAN training, one optimizer each.
+GENERATOR_COMPONENTS = ("hq_encoder", "hq_generator", "lq_encoder", "lq_generator")
+LATENT_SALIENCY_COMPONENTS = ("latent_saliency_hq", "latent_saliency_lq")
+RD_COMPONENTS = ("rd_optimizer",)
+ALL_CODEC_COMPONENTS = GENERATOR_COMPONENTS + LATENT_SALIENCY_COMPONENTS + RD_COMPONENTS
 
 
 class CodecOutput(NamedTuple):
@@ -50,9 +55,9 @@ class CodecOutput(NamedTuple):
     dynamic_threshold: torch.Tensor  # (B, H, W, 1)
     hq_latent: torch.Tensor
     lq_latent: torch.Tensor
-    hq_saliency_quant: torch.Tensor  # (B, 1)
+    hq_saliency_quant: torch.Tensor  # (B, 1); LS params detached in training
     lq_saliency_quant: torch.Tensor
-    hq_saliency_loss: torch.Tensor
+    hq_saliency_loss: torch.Tensor   # (B, 1); latent detached in training
     lq_saliency_loss: torch.Tensor
     hq_output: torch.Tensor          # (B, H, W, C)
     lq_output: torch.Tensor
@@ -63,6 +68,13 @@ class CodecOutput(NamedTuple):
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+def _with_detached_params(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """module(x) with its parameters cut from the graph: gradients reach x
+    but not the parameters (JAX: apply on stop_gradient(params))."""
+    params = {k: p.detach() for k, p in module.named_parameters()}
+    return functional_call(module, params, (x,))
 
 
 class AdaptiveCodec(nn.Module):
@@ -163,20 +175,29 @@ class AdaptiveCodec(nn.Module):
         return tuple(skips)
 
     # ------------------------------------------------------------------ apply
-    @torch.no_grad()
     def apply(self, img: torch.Tensor, mask: torch.Tensor, target_bpp: torch.Tensor,
-              train: bool = False) -> CodecOutput:
-        """img (B, H, W, C) in [-1, 1], mask (B, H, W, 1), target_bpp (B, 1)."""
-        if train:
-            raise NotImplementedError("the port runs the codec for inference only so far")
+              train: bool = False, detach_for_training: bool = False) -> CodecOutput:
+        """img (B, H, W, C) in [-1, 1], mask (B, H, W, 1), target_bpp (B, 1).
+
+        train=True runs BatchNorm on batch statistics; they wait in each
+        layer until `layers.commit_batch_stats(codec)`. detach_for_training=True routes
+        one backward of g + ls + rd losses into the three parameter groups
+        as the reference's three gradient tapes would: the quantizer's score
+        comes from the latent-saliency MLPs with detached parameters, the
+        LS-loss score from the detached latent."""
         cfg = self.cfg
         ct = cfg.compute_dtype()
+        if train and (ct != torch.float32 or cfg.dense_w8):
+            raise NotImplementedError(
+                "the port trains in float32 without the w8 serving lowering; "
+                "mixed precision comes with a later slice"
+            )
         x = img.to(ct).permute(0, 3, 1, 2)
         m = mask.to(ct).permute(0, 3, 1, 2)
         target_bpp = target_bpp.to(ct)
 
-        hq_latent, hq_skips = self.hq_encoder(x)
-        lq_latent, lq_skips = self.lq_encoder(x)
+        hq_latent, hq_skips = self.hq_encoder(x, train)
+        lq_latent, lq_skips = self.lq_encoder(x, train)
         overall, threshold, quant_strength = self.rd_schedule(target_bpp)
         dyn_thr = self.dynamic_threshold(m, threshold)
         if cfg.skip_mode == "zero":
@@ -184,8 +205,15 @@ class AdaptiveCodec(nn.Module):
         elif cfg.skip_mode == "mask":
             hq_skips = lq_skips = self._mask_skips(m, dyn_thr, ct)
 
-        s_hq = self.latent_saliency_hq(hq_latent)
-        s_lq = self.latent_saliency_lq(lq_latent)
+        if detach_for_training:
+            s_hq = _with_detached_params(self.latent_saliency_hq, hq_latent)
+            s_lq = _with_detached_params(self.latent_saliency_lq, lq_latent)
+            s_hq_loss = self.latent_saliency_hq(hq_latent.detach())
+            s_lq_loss = self.latent_saliency_lq(lq_latent.detach())
+        else:
+            s_hq = self.latent_saliency_hq(hq_latent)
+            s_lq = self.latent_saliency_lq(lq_latent)
+            s_hq_loss, s_lq_loss = s_hq, s_lq
         rd_params = self.rd_optimizer(m, target_bpp)
 
         if cfg.quant_bypass:
@@ -195,8 +223,8 @@ class AdaptiveCodec(nn.Module):
             zq_hq = adaptive_quantize(hq_latent, s_hq, quant_strength, qcfg)
             zq_lq = adaptive_quantize(lq_latent, s_lq, quant_strength, qcfg)
 
-        hq_out = self.hq_generator(zq_hq, hq_skips)
-        lq_out = self.lq_generator(zq_lq, lq_skips)
+        hq_out = self.hq_generator(zq_hq, hq_skips, train)
+        lq_out = self.lq_generator(zq_lq, lq_skips, train)
         blended = hq_out * dyn_thr + lq_out * (const(1.0, ct, x.device) - dyn_thr)
         return CodecOutput(
             blended=_nhwc(blended),
@@ -208,8 +236,8 @@ class AdaptiveCodec(nn.Module):
             lq_latent=lq_latent,
             hq_saliency_quant=s_hq,
             lq_saliency_quant=s_lq,
-            hq_saliency_loss=s_hq,
-            lq_saliency_loss=s_lq,
+            hq_saliency_loss=s_hq_loss,
+            lq_saliency_loss=s_lq_loss,
             hq_output=_nhwc(hq_out),
             lq_output=_nhwc(lq_out),
             quant_strength=quant_strength,

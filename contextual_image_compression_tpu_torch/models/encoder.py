@@ -57,15 +57,16 @@ class Encoder(nn.Module):
         if self.attention is not None:
             self.attention.reset_parameters(gen)
 
-    def forward(self, x: torch.Tensor):
-        """x: (B, 3, H, W) -> latent (B, D), skips (NCHW)."""
+    def forward(self, x: torch.Tensor, train: bool = False):
+        """x: (B, 3, H, W) -> latent (B, D), skips (NCHW). train: BatchNorm
+        on batch statistics (see KBatchNorm)."""
         s = self.leaky_slope
         x1 = leaky_relu(self.conv1(x), s)
-        x2 = leaky_relu(self.bn2(self.conv2(x1)), s)
-        x3 = leaky_relu(self.bn3(self.conv3(x2)), s)
+        x2 = leaky_relu(self.bn2(self.conv2(x1), train), s)
+        x3 = leaky_relu(self.bn3(self.conv3(x2), train), s)
         skips = (x1, x2, x3)
         if self.attention is not None:
             x3 = self.attention(x3)
-        x4 = leaky_relu(self.bn4(self.conv4(x3)), s)
+        x4 = leaky_relu(self.bn4(self.conv4(x3), train), s)
         latent = self.latent_dense(x4.reshape(x4.shape[0], -1))
         return latent, skips

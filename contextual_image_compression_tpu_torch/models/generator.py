@@ -4,7 +4,9 @@ Counterpart of `contextual_image_compression_tpu/models/generator.py`:
     Dense(hw*hw*C0) -> reshape -> BN -> LeakyReLU
     ConvT k4 s2 -> BN -> LReLU -> concat skip3 ; likewise skip2, skip1
     ConvT k4 s2 -> BN -> LReLU -> Conv k4 s1 -> tanh       (native tail)
-or, at inference with packed_tail, the folded tail of models/packed_tail.py.
+or, at inference with packed_tail, the folded tail of models/packed_tail.py
+(train-mode calls take the native tail, as the JAX generator does: batch
+statistics cannot be folded).
 The fc output is reshaped in NCHW order; `convert.py` permutes the JAX
 (NHWC-order) fc columns and bias to match.
 """
@@ -63,16 +65,17 @@ class Generator(nn.Module):
             getattr(self, f"deconv{i}").reset_parameters(gen)
         self.out_conv.reset_parameters(gen)
 
-    def forward(self, latent: torch.Tensor, skips) -> torch.Tensor:
-        """latent (B, D), skips (skip1, skip2, skip3) NCHW -> (B, C, H, W) in [-1, 1]."""
+    def forward(self, latent: torch.Tensor, skips, train: bool = False) -> torch.Tensor:
+        """latent (B, D), skips (skip1, skip2, skip3) NCHW -> (B, C, H, W) in
+        [-1, 1]. train: BatchNorm on batch statistics (see KBatchNorm)."""
         skip1, skip2, skip3 = skips
         s = self.leaky_slope
         x = self.fc(latent).reshape(latent.shape[0], self.base_ch, self.base_hw, self.base_hw)
-        x = leaky_relu(self.bn0(x), s)
+        x = leaky_relu(self.bn0(x, train), s)
         for i, skip in enumerate((skip3, skip2, skip1)):
-            x = leaky_relu(getattr(self, f"bn{i + 1}")(getattr(self, f"deconv{i + 1}")(x)), s)
-            x = torch.cat([x, skip.to(x.dtype)], dim=1)
-        if self.packed_tail:
+            x = getattr(self, f"bn{i + 1}")(getattr(self, f"deconv{i + 1}")(x), train)
+            x = torch.cat([leaky_relu(x, s), skip.to(x.dtype)], dim=1)
+        if self.packed_tail and not train:
             bn = self.bn4
             return packed_tail_forward(
                 x, self.deconv4.weight.to(x.dtype), self.deconv4.bias.to(x.dtype),
@@ -80,5 +83,5 @@ class Generator(nn.Module):
                 self.out_conv.weight, self.out_conv.bias.to(x.dtype),
                 bn_eps=bn.eps, leaky_slope=s, int8_planar=self.packed_tail_int8,
             )
-        x = leaky_relu(self.bn4(self.deconv4(x)), s)
+        x = leaky_relu(self.bn4(self.deconv4(x), train), s)
         return torch.tanh(self.out_conv(x))

@@ -165,8 +165,19 @@ def prepare_w8(model: nn.Module) -> None:
 
 
 class KBatchNorm(nn.Module):
-    """BatchNorm in inference mode (eps 1e-3), step by step as flax:
-    y = x - mean; mul = rsqrt(var + eps) * scale; y = y * mul + bias."""
+    """BatchNorm over (N, C, H, W) with flax's numerics (eps 1e-3, momentum
+    0.99), step by step: y = x - mean; mul = rsqrt(var + eps) * scale;
+    y = y * mul + bias.
+
+    train=False uses the running statistics. train=True uses the batch mean
+    and the biased batch variance max(E[x^2] - E[x]^2, 0) in float32 over
+    N, H and W (flax's fast variance; `F.batch_norm` would update the running
+    variance with the unbiased one). The running update
+    running = 0.99 * running + 0.01 * batch is not applied in the forward:
+    the batch statistics wait in `pending` until `commit_batch_stats()`, so
+    the caller decides which forward's statistics count."""
+
+    momentum = 0.99
 
     def __init__(self, features: int, eps: float = 1e-3):
         super().__init__()
@@ -175,16 +186,44 @@ class KBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.pending = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         def v(t):
             return t.to(x.dtype)[:, None, None]
 
-        y = x - v(self.running_mean)
-        mul = torch.rsqrt(v(self.running_var) + const(self.eps, x.dtype, x.device))
+        if train:
+            if x.dtype != torch.float32:
+                raise NotImplementedError("train-mode BatchNorm runs in float32 only")
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            self.pending = (mean.detach(), var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = x - v(mean)
+        mul = torch.rsqrt(v(var) + const(self.eps, x.dtype, x.device))
         mul = mul * v(self.weight)
         y = y * mul
         return y + v(self.bias)
+
+    @torch.no_grad()
+    def commit_batch_stats(self) -> None:
+        """Fold the last train-mode forward's batch statistics into the
+        running ones (no-op when there are none)."""
+        if self.pending is None:
+            return
+        mean, var = self.pending
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        self.pending = None
+
+
+def commit_batch_stats(module: nn.Module) -> None:
+    """Commit the pending batch statistics of every KBatchNorm in `module`."""
+    for mod in module.modules():
+        if isinstance(mod, KBatchNorm):
+            mod.commit_batch_stats()
 
 
 def cast_floats(module: nn.Module, dtype: torch.dtype, skip=("w8_scale",)) -> nn.Module:

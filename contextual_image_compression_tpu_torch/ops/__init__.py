@@ -7,12 +7,16 @@ sets them to 0.
 
 from contextual_image_compression_tpu_torch.ops.attention import attention_block
 from contextual_image_compression_tpu_torch.ops.fused_mask import contextual_mask
-from contextual_image_compression_tpu_torch.ops.quantize import adaptive_quantize
+from contextual_image_compression_tpu_torch.ops.quantize import (
+    adaptive_quantize,
+    adaptive_quantize_bwd,
+)
 
 KERNEL_WRAPPERS = {
     "K1": contextual_mask,
     "K2": attention_block,
     "K3": adaptive_quantize,
+    "K3b": adaptive_quantize_bwd,
 }
 
 

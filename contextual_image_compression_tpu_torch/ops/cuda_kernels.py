@@ -59,6 +59,12 @@ _SIGNATURES = {
         _P, _P, _P, _F, _P,          # latent, score(f32), strength(f32), coeff, out
         _I, _I, _P,                  # B, D, stream
     ],
+    "cic_adaptive_quantize_bwd": [
+        _I,                          # dtype code of latent and gradient
+        _P, _P, _P, _P, _F,          # latent, grad, score(f32), strength(f32), coeff
+        _P, _P,                      # dscore(f32), dstrength(f32)
+        _I, _I, _P,                  # B, D, stream
+    ],
 }
 
 

@@ -1,11 +1,20 @@
-"""Saliency-adaptive latent quantization: kernel K3 (forward) and its twin.
+"""Saliency-adaptive latent quantization: kernels K3 (forward) and K3b
+(backward) and their plain twins.
 
 K3 replaces the forward of `contextual_image_compression_tpu/ops/quantize.py::
 _adaptive_quantize_pallas`. Per row: scale = exp(c * (q * (1 - sigma))),
 out = rint(latent * scale) / scale, all in float32 whatever the storage
-dtype, then cast back. The 'reference' and 'ste' gradient modes share this
-forward; their backward (the K3b kernel) is training work and not part of
-this module yet, so the quantizer runs under no_grad only.
+dtype, then cast back.
+
+K3b replaces `_pallas_quant_bwd_scalepath`, the backward of the 'reference'
+gradient mode: rint has zero derivative, so the latent gets no gradient and
+only the scale path carries one, g_s = sum_d g * (-rint(latent * scale) /
+scale^2), dsigma = g_s * c * scale * (-q), dq = g_s * c * scale * (1 - sigma).
+The 'ste' mode passes the gradient straight to the latent and gives score and
+strength none, so it needs no kernel.
+
+`adaptive_quantize` runs both through one autograd Function: on CUDA tensors
+it launches the kernels, on CPU tensors it runs the twins.
 """
 
 from __future__ import annotations
@@ -26,17 +35,39 @@ def adaptive_quantize_plain(latent, saliency_score, quant_strength,
     return (torch.round(latent.float() * scale) / scale).to(latent.dtype)
 
 
-def _quantize_kernel(latent, saliency_score, quant_strength, scale_coeff):
+def adaptive_quantize_bwd_plain(latent, saliency_score, quant_strength, g,
+                                scale_coeff: float = DEFAULT_SCALE_COEFF):
+    """The 'reference'-mode scale-path gradient in plain PyTorch, float32
+    inside. Returns (dscore, dstrength) in the shapes and dtypes of score
+    and strength."""
+    q = quant_strength.float()
+    sigma = saliency_score.float()
+    scale = torch.exp(scale_coeff * (q * (1.0 - sigma)))
+    rounded = torch.round(latent.float() * scale)
+    g_scale = torch.sum(g.float() * (-rounded / (scale * scale)), dim=1, keepdim=True)
+    g_eff = g_scale * scale_coeff * scale
+    return ((g_eff * (-q)).to(saliency_score.dtype).reshape(saliency_score.shape),
+            (g_eff * (1.0 - sigma)).to(quant_strength.dtype).reshape(quant_strength.shape))
+
+
+def _rows(name, latent, saliency_score, quant_strength):
+    """Check a (B, D) latent on the card with (B, 1) score and strength;
+    returns B, D and the score and strength as contiguous float32 (B,)."""
     if latent.device.type != "cuda":
-        raise ValueError(f"adaptive_quantize: unsupported device {latent.device}")
+        raise ValueError(f"{name}: unsupported device {latent.device}")
     if latent.ndim != 2:
-        raise ValueError("adaptive_quantize: latent must be (B, D)")
+        raise ValueError(f"{name}: latent must be (B, D)")
     b, d = latent.shape
     if saliency_score.numel() != b or quant_strength.numel() != b:
-        raise ValueError("adaptive_quantize: score and strength must be (B, 1)")
-    latent = latent.contiguous()
+        raise ValueError(f"{name}: score and strength must be (B, 1)")
     score = saliency_score.reshape(b).float().contiguous()
     strength = quant_strength.reshape(b).float().contiguous()
+    return b, d, score, strength
+
+
+def _quantize_kernel(latent, saliency_score, quant_strength, scale_coeff):
+    b, d, score, strength = _rows("adaptive_quantize", latent, saliency_score, quant_strength)
+    latent = latent.contiguous()
     ck.require_cuda("adaptive_quantize", latent, score, strength)
     out = torch.empty_like(latent)
     err = ck.library().cic_adaptive_quantize(
@@ -48,10 +79,64 @@ def _quantize_kernel(latent, saliency_score, quant_strength, scale_coeff):
     return out
 
 
+def adaptive_quantize_bwd(latent, saliency_score, quant_strength, g,
+                          scale_coeff: float = DEFAULT_SCALE_COEFF):
+    """(dscore, dstrength) of the 'reference' mode for the upstream gradient
+    g of the quantized (B, D) latent. Launches K3b for CUDA tensors; the
+    plain twin runs for CPU tensors."""
+    if latent.device.type == "cpu":
+        return adaptive_quantize_bwd_plain(latent, saliency_score, quant_strength, g, scale_coeff)
+    b, d, score, strength = _rows("adaptive_quantize_bwd", latent, saliency_score,
+                                  quant_strength)
+    if g.shape != latent.shape or g.dtype != latent.dtype:
+        raise ValueError("adaptive_quantize_bwd: g must have the latent's shape and dtype")
+    latent, g = latent.contiguous(), g.contiguous()
+    ck.require_cuda("adaptive_quantize_bwd", latent, g, score, strength)
+    dscore = torch.empty(b, dtype=torch.float32, device=latent.device)
+    dstrength = torch.empty_like(dscore)
+    err = ck.library().cic_adaptive_quantize_bwd(
+        ck.dtype_code(latent.dtype), latent.data_ptr(), g.data_ptr(), score.data_ptr(),
+        strength.data_ptr(), float(scale_coeff), dscore.data_ptr(), dstrength.data_ptr(),
+        b, d, ck.stream_ptr(latent.device),
+    )
+    ck.check(err, "adaptive_quantize_bwd")
+    adaptive_quantize_bwd.launches += 1
+    return (dscore.to(saliency_score.dtype).reshape(saliency_score.shape),
+            dstrength.to(quant_strength.dtype).reshape(quant_strength.shape))
+
+
+adaptive_quantize_bwd.launches = 0
+
+
+class _AdaptiveQuantize(torch.autograd.Function):
+    """K3 forward; backward by grad_mode: 'reference' gives (0, K3b's dscore,
+    K3b's dstrength), 'ste' gives (g, 0, 0)."""
+
+    @staticmethod
+    def forward(ctx, latent, saliency_score, quant_strength, scale_coeff, grad_mode):
+        ctx.scale_coeff, ctx.grad_mode = scale_coeff, grad_mode
+        ctx.save_for_backward(latent, saliency_score, quant_strength)
+        if latent.device.type == "cpu":
+            return adaptive_quantize_plain(latent, saliency_score, quant_strength, scale_coeff)
+        return _quantize_kernel(latent, saliency_score, quant_strength, scale_coeff)
+
+    @staticmethod
+    def backward(ctx, g):
+        latent, score, strength = ctx.saved_tensors
+        if ctx.grad_mode == "ste":
+            return g, torch.zeros_like(score), torch.zeros_like(strength), None, None
+        dscore = dstrength = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dscore, dstrength = adaptive_quantize_bwd(latent, score, strength, g,
+                                                      ctx.scale_coeff)
+        return torch.zeros_like(latent), dscore, dstrength, None, None
+
+
 def adaptive_quantize(latent, saliency_score, quant_strength,
                       config: QuantizerConfig | None = None):
     """Quantize (B, D) latents with (B, 1) saliency scores and strengths.
-    Launches K3 for CUDA tensors; the plain twin runs for CPU tensors."""
+    Launches K3 for CUDA tensors and, in the backward of the 'reference'
+    mode, K3b; the plain twins run for CPU tensors."""
     cfg = config or QuantizerConfig()
     if not cfg.use_pallas:
         raise NotImplementedError(
@@ -63,15 +148,10 @@ def adaptive_quantize(latent, saliency_score, quant_strength,
             "grad_mode='auto' is a topology-level default; resolve it first via "
             "ModelConfig.resolved_quantizer()"
         )
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (latent, saliency_score, quant_strength)
-    ):
-        raise NotImplementedError(
-            "adaptive_quantize has no backward yet (the K3b kernel comes with training)"
-        )
-    if latent.device.type == "cpu":
-        return adaptive_quantize_plain(latent, saliency_score, quant_strength, cfg.scale_coeff)
-    return _quantize_kernel(latent, saliency_score, quant_strength, cfg.scale_coeff)
+    if cfg.grad_mode not in ("reference", "ste"):
+        raise ValueError(f"unknown grad_mode {cfg.grad_mode!r}")
+    return _AdaptiveQuantize.apply(latent, saliency_score, quant_strength,
+                                   float(cfg.scale_coeff), cfg.grad_mode)
 
 
 adaptive_quantize.launches = 0

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card, in
-the cases chip_smoke.py does not run: ragged sizes and K2's backward.
+the cases chip_smoke.py does not run: ragged sizes, B = 1, K2's backward and
+K3b under autograd.
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels build at
 first use); elsewhere they skip. The file imports torch only, so it runs on a
@@ -19,9 +20,15 @@ from contextual_image_compression_tpu_torch.ops.attention import (
     attention_block,
     attention_block_plain,
 )
+from contextual_image_compression_tpu_torch.config import QuantizerConfig
 from contextual_image_compression_tpu_torch.ops.fused_mask import (
     contextual_mask,
     contextual_mask_plain,
+)
+from contextual_image_compression_tpu_torch.ops.quantize import (
+    adaptive_quantize,
+    adaptive_quantize_bwd,
+    adaptive_quantize_bwd_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -80,3 +87,49 @@ def test_k2_backward_runs_through_plain_formula(dev):
     grads = torch.autograd.grad(attention_block_plain(q, k, v, v, g).sum(), (q, k, v, g))
     for got, want in zip((q.grad, k.grad, v.grad, g.grad), grads):
         assert torch.allclose(got, want, atol=1e-4)
+
+
+def _k3b_case(dev, b, d, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z = (torch.randn(b, d, device=dev, generator=gen) * 2).to(dtype)
+    g = torch.randn(b, d, device=dev, generator=gen).to(dtype)
+    s = torch.rand(b, 1, device=dev, generator=gen)
+    q = torch.rand(b, 1, device=dev, generator=gen) * 0.9 + 0.05
+    return z, s, q, g
+
+
+@pytest.mark.parametrize("b,d", [(16, 100), (16, 1000), (1, 1024), (1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3b_ragged_matches_twin(dev, b, d, dtype):
+    """D not a multiple of the 256-thread block, B = 1 and D = 1. The bar is
+    1e-5 of the row's sum of |terms| times the chain factor (the sums run in
+    other orders)."""
+    z, s, q, g = _k3b_case(dev, b, d, dtype, d)
+    before = adaptive_quantize_bwd.launches
+    got = adaptive_quantize_bwd(z, s, q, g)
+    assert adaptive_quantize_bwd.launches == before + 1
+    want = adaptive_quantize_bwd_plain(z, s, q, g)
+    scale = torch.exp(3.0 * (q * (1.0 - s)))
+    mag = (g.float() * torch.round(z.float() * scale)).abs().sum(1, keepdim=True) / scale
+    for x, y, chain in zip(got, want, (q, 1.0 - s)):
+        assert x.shape == y.shape == (b, 1) and x.dtype == torch.float32
+        bar = 1e-5 * 3.0 * mag * chain.abs() + 1e-30
+        assert bool(((x - y).abs() <= bar).all()), ((x - y).abs() / bar).max().item()
+
+
+def test_k3b_runs_in_autograd(dev):
+    """The quantizer's 'reference' backward launches K3b once and gives the
+    latent a zero gradient; 'ste' launches nothing and passes g through."""
+    z, s, q, g = _k3b_case(dev, 4, 512, torch.float32, 7)
+    zs = [t.clone().requires_grad_(True) for t in (z, s, q)]
+    before = adaptive_quantize_bwd.launches
+    adaptive_quantize(*zs, QuantizerConfig(grad_mode="reference")).backward(g)
+    assert adaptive_quantize_bwd.launches == before + 1
+    assert not zs[0].grad.any()
+    ds, dq = adaptive_quantize_bwd_plain(z, s, q, g)
+    assert torch.allclose(zs[1].grad, ds, rtol=1e-4, atol=1e-6)
+    assert torch.allclose(zs[2].grad, dq, rtol=1e-4, atol=1e-6)
+    zs = [t.clone().requires_grad_(True) for t in (z, s, q)]
+    adaptive_quantize(*zs, QuantizerConfig(grad_mode="ste")).backward(g)
+    assert adaptive_quantize_bwd.launches == before + 1
+    assert torch.equal(zs[0].grad, g) and not zs[1].grad.any()

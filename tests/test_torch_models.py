@@ -198,7 +198,8 @@ def _run_both(variables, **overrides):
                                  jnp.asarray(bpp), train=False)
     codec = AdaptiveCodec(tcfg)
     codec.load_state_dict(convert_codec_variables(variables, tcfg))
-    tout = codec.apply(torch.from_numpy(img), torch.from_numpy(mask), torch.from_numpy(bpp))
+    with torch.no_grad():  # apply is differentiable; inference runs without the graph
+        tout = codec.apply(torch.from_numpy(img), torch.from_numpy(mask), torch.from_numpy(bpp))
     return jout, tout
 
 
@@ -268,12 +269,16 @@ def test_convert_keeps_every_parameter(small_codec_variables):
 
 
 def test_codec_rejects_training_mode():
-    codec = AdaptiveCodec(ModelConfig(**SMALL_KW))
+    """Training runs in float32 on the native layers: train mode refuses the
+    bf16 serving dtype and the w8 serving lowering (mixed precision comes
+    with a later slice)."""
     img, mask, bpp = _codec_inputs()
-    with pytest.raises(NotImplementedError):
-        codec.apply(torch.from_numpy(img), torch.from_numpy(mask), torch.from_numpy(bpp),
-                    train=True)
-    assert dataclasses.replace(codec.cfg, skip_mode="zero").resolved_quantizer().grad_mode == "ste"
+    for cfg in (ModelConfig(**SMALL_KW, dtype="bfloat16"), ModelConfig(**SMALL_KW, dense_w8=True)):
+        with pytest.raises(NotImplementedError):
+            AdaptiveCodec(cfg).apply(torch.from_numpy(img), torch.from_numpy(mask),
+                                     torch.from_numpy(bpp), train=True)
+    cfg = ModelConfig(**SMALL_KW)
+    assert dataclasses.replace(cfg, skip_mode="zero").resolved_quantizer().grad_mode == "ste"
 
 
 @pytest.mark.parametrize("build", [

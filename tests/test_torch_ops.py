@@ -38,6 +38,7 @@ from contextual_image_compression_tpu_torch.ops.fused_mask import (
 )
 from contextual_image_compression_tpu_torch.ops.quantize import (
     adaptive_quantize,
+    adaptive_quantize_bwd,
     adaptive_quantize_plain,
 )
 from contextual_image_compression_tpu_torch.config import QuantizerConfig
@@ -235,7 +236,10 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         adaptive_quantize(torch.empty((2, 8), device="meta"), torch.empty((2, 1), device="meta"),
                           torch.empty((2, 1), device="meta"), QuantizerConfig(grad_mode="ste"))
-    assert set(tops.launch_counts()) == {"K1", "K2", "K3"}
+    with pytest.raises(ValueError):
+        adaptive_quantize_bwd(torch.empty((2, 8), device="meta"), torch.empty((2, 1), device="meta"),
+                              torch.empty((2, 1), device="meta"), torch.empty((2, 8), device="meta"))
+    assert set(tops.launch_counts()) == {"K1", "K2", "K3", "K3b"}
 
 
 def test_c_signatures_match_sources():
