@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the port's CUDA kernels from contextual_image_compression_tpu_torch/csrc;
+2. builds the port's CUDA kernels from contextual_image_compression_tpu_torch/csrc
+   and its range coder (g++) from contextual_image_compression_tpu_torch/native;
 3. holds each kernel (K1 contextual mask, K2 attention block, K3 quantizer)
    against its plain PyTorch twin on the card at the serving path's shapes
    (B = 16, 256^2, D = 512) and times kernel, twin and, where one exists, a
@@ -27,7 +28,21 @@
    parameters and BatchNorm statistics, and the launch counts (K1 +1; per
    step K2 +1, K3 +2, K3b +2; per probe point K2 +1, K3 +2), then times
    steps with and without D;
-9. prints a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
+9. holds K4 (the smooth mask) against its twin at B = 64, 256^2, on the
+   saliency maps of both non-'combined' methods, and times it;
+10. runs the mask path at full width: prepare_masks over 128 seeded rich
+   synthetic images at 256^2 in device batches of 64 for
+   method='spectral_residual' and 'fine_grained' (K4 +1 per batch, K1 0),
+   plus one batch of binary masks, checking the masks against the port on
+   the CPU on the first images, and times one batch's stages;
+11. holds K5 (the DCT transform and quantizer) against its twin at B = 128,
+   256^2, quality 75, and times it beside a cuBLAS formulation;
+12. runs the DCT baseline at full width on 128 seeded images: evaluate at
+   qualities 10..90 with PSNR / SSIM, entropy bpp and the measured bpp of 4
+   range-coded streams (the coder is built with g++ first), streams encoded
+   on the card and decoded on the CPU and the reverse, and the round trip's
+   images per second and stages (K5 +1 per codec call);
+13. prints a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. Without CUDA, or without the port package beside it, it exits 1.
@@ -251,8 +266,9 @@ def run_full_pipeline(dev, card):
         times.append(time.perf_counter() - t)
         after = ops.launch_counts()
         delta = {k: after[k] - before[k] for k in after}
-        if delta != {"K1": 1, "K2": 1, "K3": 2, "K3b": 0}:
-            raise AssertionError(f"call {i}: kernel launches {delta}, want K1 1, K2 1, K3 2, K3b 0")
+        if delta != {"K1": 1, "K2": 1, "K3": 2, "K3b": 0, "K4": 0, "K5": 0}:
+            raise AssertionError(f"call {i}: kernel launches {delta}, want K1 1, K2 1, K3 2, "
+                                 "and no other")
         if dec.shape != (B, 256, 256, 3) or dec.dtype != np.uint8:
             raise AssertionError(f"decoded {dec.shape} {dec.dtype}")
         for key, shape in (("hq_symbols", (B, 1024)), ("lq_symbols", (B, 512)),
@@ -487,7 +503,7 @@ def run_full_training(dev, card):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    want = {"K1": 1, "K2": 5 + 3, "K3": 2 * 5 + 2 * 3, "K3b": 2 * 5}
+    want = {"K1": 1, "K2": 5 + 3, "K3": 2 * 5 + 2 * 3, "K3b": 2 * 5, "K4": 0, "K5": 0}
     if counts != want:
         raise AssertionError(f"training launches {counts}, want {want}")
     bad = [k for k, v in hist.items() if not all(math.isfinite(x) for x in v)]
@@ -531,6 +547,259 @@ def run_full_training(dev, card):
     return counts
 
 
+MASK_METHODS = ("spectral_residual", "fine_grained")
+
+
+def check_k4(dev, B):
+    from contextual_image_compression_tpu_torch.data.images import rich_synthetic_images
+    from contextual_image_compression_tpu_torch.measure import event_ms
+    from contextual_image_compression_tpu_torch.ops import image_ops, saliency
+    from contextual_image_compression_tpu_torch.ops.fused_mask import (
+        smooth_mask, smooth_mask_plain)
+
+    imgs = torch.from_numpy(rich_synthetic_images(B, (256, 256), seed=40)).to(dev)
+    err, maps = 0.0, {}
+    for method in MASK_METHODS:
+        sal = saliency.compute_saliency_map(imgs, method).contiguous()
+        got = smooth_mask(sal)
+        want = smooth_mask_plain(sal)
+        torch.cuda.synchronize()
+        err = max(err, (got - want).abs().max().item())
+        maps[method] = sal
+    log(f"K4 smooth mask {tuple(sal.shape)}, maps of {' and '.join(MASK_METHODS)}: "
+        f"max |kernel - twin| = {err:.3e} (bar 1e-5)")
+    if not err <= 1e-5:
+        raise AssertionError(f"K4 disagrees with its twin: {err}")
+    sal = maps["fine_grained"]
+    ms = event_ms(lambda: smooth_mask(sal))
+    plain = event_ms(lambda: smooth_mask_plain(sal), reps=5, warmup=1)
+    # Operations the function needs per pixel: 7 per bilateral tap (the
+    # difference, its square, the weight, two accumulations) and the final
+    # division; a multiply-add per Gaussian tap in each of the two passes;
+    # the normalization and its max.
+    ntaps = len(image_ops.bilateral_taps(9, 75.0, 75.0))
+    ops_per_px = 7 * ntaps + 1 + 2 * 2 * 31 + 2
+    nbytes = sal.numel() * 4 * 2
+    b_ms, b_by = bound_ms(nbytes, ops_per_px * sal.numel(), H100_FP32_TFLOPS)
+    log(f"K4 times: kernel {ms:.4f} ms, twin {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        "library none")
+    return dict(name="K4 smooth_mask", route="cuda",
+                source="contextual_image_compression_tpu_torch/csrc/fused_mask.cu",
+                replaces="contextual_image_compression_tpu/ops/fused_mask.py:324",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def run_mask_path(dev, card):
+    """prepare_masks at full width for both methods, and a batch of binary
+    masks; the first images are checked against the port on the CPU.
+    Returns the launch counts of the path."""
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.config import SaliencyConfig
+    from contextual_image_compression_tpu_torch.data.images import rich_synthetic_images
+    from contextual_image_compression_tpu_torch.data.pipeline import prepare_masks
+    from contextual_image_compression_tpu_torch.ops import masks, saliency
+
+    n, batch, n_cpu = 128, 64, 4
+    imgs = rich_synthetic_images(n, (256, 256), seed=60)
+    for method in MASK_METHODS:  # warm-up of the batch shapes, outside the counted run
+        prepare_masks(imgs[:batch], SaliencyConfig(method=method), device_batch=batch, device=dev)
+    ops.reset_launch_counts()
+    results = {}
+    for method in MASK_METHODS:
+        cfg = SaliencyConfig(method=method)
+        t0 = time.perf_counter()
+        out = prepare_masks(imgs, cfg, device_batch=batch, device=dev)  # ends in a D2H copy
+        results[method] = (time.perf_counter() - t0, out)
+    x = torch.from_numpy(imgs[:batch]).to(dev)
+    sal = saliency.compute_saliency_map(x, "fine_grained")
+    binary = masks.create_saliency_mask(sal, smooth=False)
+    thresholds = masks.adaptive_threshold(sal)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {"K1": 0, "K2": 0, "K3": 0, "K3b": 0, "K4": 2 * (n // batch), "K5": 0}
+    if counts != want:
+        raise AssertionError(f"mask path launches {counts}, want {want}")
+    for method, (secs, out) in results.items():
+        if out.shape != (n, 256, 256, 1) or not np.all(np.isfinite(out)):
+            raise AssertionError(f"{method} masks: shape {out.shape} or non-finite values")
+        if not (out.min() >= 0.0 and abs(float(out.reshape(n, -1).max(1).min()) - 1.0) <= 1e-5):
+            raise AssertionError(f"{method} masks are not max-normalized maps in [0, 1]")
+        cpu = prepare_masks(imgs[:n_cpu], SaliencyConfig(method=method), device="cpu")
+        err = float(np.abs(out[:n_cpu] - cpu).max())
+        log(f"mask path {method}: {n} images in batches of {batch}, {secs * 1e3:.2f} ms, "
+            f"{secs * 1e3 / n:.4f} ms/image (host clock, [-1, 1] float numpy in, masks copied "
+            f"out) on {card}; card vs CPU port on {n_cpu} images {err:.3e} (bar 1e-4)")
+        if not err <= 1e-4:
+            raise AssertionError(f"{method} masks on the card disagree with the CPU port: {err}")
+    sal_cpu = saliency.compute_saliency_map(torch.from_numpy(imgs[:n_cpu]), "fine_grained")
+    bin_cpu = masks.create_saliency_mask(sal_cpu, smooth=False).numpy()
+    t_cpu = masks.adaptive_threshold(sal_cpu).numpy()
+    same_t = float(np.mean(thresholds[:n_cpu].cpu().numpy() == t_cpu))
+    same_b = float(np.mean(binary[:n_cpu].cpu().numpy() == bin_cpu))
+    log(f"binary masks (fine_grained, adaptive threshold) of {batch} images: mean threshold "
+        f"{thresholds.mean().item():.4f}, foreground {binary.mean().item():.4f}; card vs CPU "
+        f"port on {n_cpu} images: thresholds equal {same_t:.3f}, masks equal {same_b:.6f} "
+        "(bars 1.0, 0.999)")
+    if not (same_t == 1.0 and same_b >= 0.999 and set(binary.unique().tolist()) <= {0.0, 1.0}):
+        raise AssertionError("binary masks on the card disagree with the CPU port")
+    log(f"mask path launches {counts}")
+
+    # where one batch's time goes (CUDA events, outside the counted run)
+    from contextual_image_compression_tpu_torch.measure import event_ms
+    from contextual_image_compression_tpu_torch.ops.fused_mask import smooth_mask
+
+    host = np.ascontiguousarray(imgs[:batch])
+    stages = {"upload (pageable numpy -> card)": lambda: torch.from_numpy(host).to(dev)}
+    for method in MASK_METHODS:
+        sal = saliency.compute_saliency_map(x, method).contiguous()
+        stages[f"{method} saliency map"] = lambda m=method: saliency.compute_saliency_map(x, m)
+    stages["K4 smooth mask"] = lambda: smooth_mask(sal)
+    stages["download of the masks"] = lambda: sal[..., None].cpu()
+    log(f"mask path stages for B={batch} (CUDA events, median): " + "; ".join(
+        f"{name} {event_ms(fn, reps=10, warmup=2):.3f} ms" for name, fn in stages.items()))
+    return counts
+
+
+def _planes_of(imgs):
+    from contextual_image_compression_tpu_torch.ops.dct import rgb_to_ycbcr
+
+    return (rgb_to_ycbcr((imgs + 1.0) * 127.5) - 128.0).permute(0, 3, 1, 2).contiguous()
+
+
+def check_k5(dev, B):
+    from contextual_image_compression_tpu_torch.data.images import synthetic_images
+    from contextual_image_compression_tpu_torch.measure import event_ms
+    from contextual_image_compression_tpu_torch.ops.dct import (
+        _dct_matrix, dct_strips, dct_strips_plain, quality_tables)
+
+    imgs = torch.from_numpy(synthetic_images(B, (256, 256), seed=50)).to(dev)
+    planes = _planes_of(imgs)
+    tables = torch.from_numpy(quality_tables(75)).to(dev)
+    rec, sym = dct_strips(planes, tables)
+    rec_p, sym_p = dct_strips_plain(planes, tables)
+    torch.cuda.synchronize()
+    b, c, h, w = planes.shape
+    same = (sym == sym_p).float().mean().item()
+    sym_err = (sym - sym_p).abs().max().item()
+    agree = (sym == sym_p).reshape(b, c, h // 8, 8, w // 8, 8).all(5).all(3)
+    blk = (rec - rec_p).abs().reshape(b, c, h // 8, 8, w // 8, 8).amax((3, 5))
+    rec_err = blk[agree].max().item()
+    log(f"K5 DCT strips {tuple(planes.shape)} quality 75: symbols identical {same:.7f} "
+        f"(bar 0.9999), max |diff| {sym_err} (bar 1); rec on agreeing blocks {rec_err:.3e} "
+        f"(bar 1e-4), over all blocks {blk.max().item():.3e}")
+    if not (same >= 0.9999 and sym_err <= 1.0 and rec_err <= 1e-4):
+        raise AssertionError(f"K5 disagrees with its twin: {same}, {sym_err}, {rec_err}")
+
+    d = torch.from_numpy(_dct_matrix()).to(dev)
+    qt = tables[None, :, None, None]
+
+    def cublas():  # a yardstick the port never calls: batched 8x8 products + round
+        t = planes.reshape(b, c, h // 8, 8, w // 8, 8).permute(0, 1, 2, 4, 3, 5)
+        s = torch.round((d @ t @ d.T) / qt)
+        return d.T @ (s * qt) @ d, s
+
+    ms = event_ms(lambda: dct_strips(planes, tables))
+    plain = event_ms(lambda: dct_strips_plain(planes, tables), reps=5, warmup=1)
+    lib = event_ms(cublas)
+    # four 8-term products per coefficient (2 x 8 x 4 operations), the divide,
+    # the rounding and the dequantize
+    ops_per_px = 2 * 8 * 4 + 3
+    nbytes = planes.numel() * 4 * 3
+    b_ms, b_by = bound_ms(nbytes, ops_per_px * planes.numel(), H100_FP32_TFLOPS)
+    log(f"K5 times: kernel {ms:.4f} ms, twin {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"library none; cuBLAS yardstick (batched 8x8 products + round) {lib:.4f} ms")
+    return dict(name="K5 dct_strips", route="cuda",
+                source="contextual_image_compression_tpu_torch/csrc/dct.cu",
+                replaces="contextual_image_compression_tpu/ops/dct.py:152",
+                max_abs_err=rec_err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, cublas_yardstick_ms=lib, symbols_identical=same)
+
+
+def run_dct_path(dev, card):
+    """The DCT baseline at full width, as the codec shootout runs it;
+    returns the launch counts of the path."""
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.config import DCTCodecConfig
+    from contextual_image_compression_tpu_torch.data.images import synthetic_images
+    from contextual_image_compression_tpu_torch.ops.dct import DCTCodec
+    from contextual_image_compression_tpu_torch.ops.metrics import gan_metrics
+
+    n, size, n_streams = 128, (256, 256), 4
+    imgs = synthetic_images(n, size, seed=70)
+    x = torch.from_numpy(imgs).to(dev)
+    DCTCodec(DCTCodecConfig(), device=dev).evaluate(x)  # warm-up, outside the counted run
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rows = []
+    for q in (10, 20, 30, 50, 75, 90):
+        codec = DCTCodec(DCTCodecConfig(quality=q), device=dev)
+        ev = codec.evaluate(x)
+        m = gan_metrics(x, ev["reconstruction"])
+        sym = ev["symbols"][:n_streams].cpu().numpy()
+        measured = float(np.mean([codec.measured_bpp(sym[i], size) for i in range(n_streams)]))
+        row = dict(quality=q, bpp_entropy=ev["bpp"].mean().item(), bpp_measured=measured,
+                   psnr=m["psnr"].mean().item(), ssim=m["ssim"].mean().item())
+        if not all(math.isfinite(v) for v in row.values()) or not 0 < measured < 24:
+            raise AssertionError(f"DCT quality {q}: {row}")
+        rows.append(row)
+        log(f"dct {json.dumps(row)}")
+    psnrs = [r["psnr"] for r in rows]
+    if not all(a < b for a, b in zip(psnrs, psnrs[1:])):
+        raise AssertionError(f"PSNR does not rise with quality: {psnrs}")
+
+    card_codec = DCTCodec(DCTCodecConfig(), device=dev)
+    cpu_codec = DCTCodec(DCTCodecConfig(), device="cpu")
+    dec_err = 0.0
+    same_bytes = 0
+    for i in range(2):
+        on_card = card_codec.encode_stream(x[i])
+        on_cpu = cpu_codec.encode_stream(imgs[i])
+        same_bytes += on_card == on_cpu
+        for stream in (on_card, on_cpu):
+            a = card_codec.decode_stream(stream).cpu()
+            b = cpu_codec.decode_stream(stream)
+            dec_err = max(dec_err, (a - b).abs().max().item())
+    log(f"DCT streams: encoded on the card and on the CPU port, each decoded on both: max "
+        f"|card - CPU| {dec_err:.3e} (bar 1e-5); streams byte-identical {same_bytes}/2")
+    if not dec_err <= 1e-5:
+        raise AssertionError(f"DCT streams decode differently on the card and the CPU: {dec_err}")
+
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_codec.roundtrip(x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+    counts = ops.launch_counts()
+    want = {"K1": 0, "K2": 0, "K3": 0, "K3b": 0, "K4": 0, "K5": 6 + 2 + 5}
+    if counts != want:
+        raise AssertionError(f"DCT path launches {counts}, want {want}")
+    log(f"DCT round trip B={n}, 256x256, quality 75: median of 5 {med * 1e3:.3f} ms/call, "
+        f"{n / med:.1f} img/s (CUDA-synchronized host clock) on {card}; launches {counts}")
+
+    # where the round trip's time goes (CUDA events, outside the counted run)
+    from contextual_image_compression_tpu_torch.measure import event_ms
+    from contextual_image_compression_tpu_torch.ops.dct import (
+        _entropy_bits_per_symbol, dct_strips, quality_tables, ycbcr_to_rgb)
+
+    planes = _planes_of(x)
+    tables = torch.from_numpy(quality_tables(75)).to(dev)
+    rec_planes, sym = dct_strips(planes, tables)
+    stages = {
+        "RGB -> level-shifted YCbCr planes": lambda: _planes_of(x),
+        "K5": lambda: dct_strips(planes, tables),
+        "planes -> RGB in [-1, 1]": lambda: torch.clamp(
+            ycbcr_to_rgb(rec_planes.permute(0, 2, 3, 1) + 128.0) / 127.5 - 1.0, -1.0, 1.0),
+        "entropy bpp (evaluate only)": lambda: _entropy_bits_per_symbol(sym.reshape(n, -1)),
+    }
+    log(f"DCT stages for B={n} (CUDA events, median): " + "; ".join(
+        f"{name} {event_ms(fn, reps=10, warmup=2):.3f} ms" for name, fn in stages.items()))
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -555,6 +824,11 @@ def main():
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             log("  ptxas: " + line.strip())
+    from contextual_image_compression_tpu_torch import native
+
+    t0 = time.time()
+    coder_path = native.build()
+    log(f"range coder built in {time.time() - t0:.1f} s: {coder_path}")
 
     rng = np.random.RandomState(0)
     B = 16
@@ -564,11 +838,19 @@ def main():
     records.append(check_k3b(dev, B))
     check_small_train_step_against_cpu(dev)
     training = run_full_training(dev, card)
-    for rec, key in zip(records, ("K1", "K2", "K3", "K3b")):
-        rec["launches_serving"] = serving.get(key, 0)
-        rec["launches_training"] = training[key]
-        rec["launches"] = rec["launches_serving"] + rec["launches_training"]
-        if training[key] == 0 or (key != "K3b" and serving[key] == 0):
+    records.append(check_k4(dev, 64))
+    mask_path = run_mask_path(dev, card)
+    records.append(check_k5(dev, 128))
+    dct_path = run_dct_path(dev, card)
+    paths = {"serving": serving, "training": training, "masks": mask_path, "dct": dct_path}
+    runs_it = {"K1": ("serving", "training"), "K2": ("serving", "training"),
+               "K3": ("serving", "training"), "K3b": ("training",), "K4": ("masks",),
+               "K5": ("dct",)}
+    for rec, key in zip(records, ("K1", "K2", "K3", "K3b", "K4", "K5")):
+        for name, counts in paths.items():
+            rec[f"launches_{name}"] = counts[key]
+        rec["launches"] = sum(counts[key] for counts in paths.values())
+        if any(paths[name][key] == 0 for name in runs_it[key]):
             raise AssertionError(f"{key} was not launched on a path that runs it")
         rec["status"] = "ported; within its bar against the twin; launched on the main paths"
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,6 +1,6 @@
 """PyTorch / CUDA port of contextual_image_compression_tpu for the H100.
 
-Two paths run here with hand-written Hopper kernels:
+These paths run here with hand-written Hopper kernels:
 
   * serving (serve.py): uint8 -> contextual mask -> adaptive dual-branch GAN
     codec -> uint8, through K1 the fused contextual mask (ops/fused_mask.py),
@@ -9,13 +9,18 @@ Two paths run here with hand-written Hopper kernels:
   * GAN training (train/): masks precomputed through K1 (data/pipeline.py),
     the fused step of train/gan_trainer.py and the loop of train/loop.py,
     with K2 and K3 in the codec forward and K3b, the quantizer's backward,
-    in the one backward of each step.
+    in the one backward of each step;
+  * the masks of the other saliency methods (ops/masks.py), smoothed by K4
+    (ops/fused_mask.py), and the binary-threshold masks;
+  * the DCT baseline codec (ops/dct.py) with K5, the 8x8 transform and
+    quantizer, and range-coded streams (native/).
 
 Entry points run on the card unless the caller passes device="cpu", where
 each kernel's plain PyTorch twin runs instead.
 """
 
 from contextual_image_compression_tpu_torch.config import (
+    DCTCodecConfig,
     LossConfig,
     ModelConfig,
     QuantizerConfig,
@@ -23,4 +28,5 @@ from contextual_image_compression_tpu_torch.config import (
     TrainConfig,
 )
 
-__all__ = ["LossConfig", "ModelConfig", "QuantizerConfig", "SaliencyConfig", "TrainConfig"]
+__all__ = ["DCTCodecConfig", "LossConfig", "ModelConfig", "QuantizerConfig", "SaliencyConfig",
+           "TrainConfig"]

@@ -2,9 +2,10 @@
 
 Field names and defaults are those of `contextual_image_compression_tpu.config`
 (`SaliencyConfig`, `QuantizerConfig`, `ModelConfig`, `LossConfig`,
-`TrainConfig`), so a default-constructed config describes the same codec and
-the same GAN training run in both packages. The evaluation, autoencoder and
-DCT configs come with the slices that port those subsystems.
+`TrainConfig`, `DCTCodecConfig`), so a default-constructed config describes
+the same codec, mask engine, DCT baseline and GAN training run in both
+packages. The evaluation and autoencoder configs come with the slices that
+port those subsystems.
 """
 
 from __future__ import annotations
@@ -28,13 +29,16 @@ class SaliencyConfig:
     """Saliency and contextual-mask engine (spectral residual + fine-grained
     center-surround, combined 0.6/0.4, then bilateral -> Gaussian -> max-norm)."""
 
+    # 'combined' with mask_smooth runs kernel K1; every other method, and
+    # mask_smooth=False, runs compute_saliency_map -> create_saliency_mask
+    # (the smooth mask through kernel K4).
     method: str = "combined"  # 'spectral_residual' | 'fine_grained' | 'combined'
     combined_spectral_weight: float = 0.6
     combined_fine_weight: float = 0.4
     spectral_resolution: int = 64
     spectral_blur_sigma: float = 3.0
-    # The 64-point DFT pair as explicit matrix products (the port always runs
-    # this form; the field is kept so configs round-trip between packages).
+    # The 64-point DFT pair as explicit matrix products. The port computes
+    # only this form; False (the FFT core) raises.
     spectral_dft_matmul: bool = True
     # Feed the fused mask kernel the 64^2 spectral map; it upsamples inside.
     mask_spec_small: bool = True
@@ -44,10 +48,10 @@ class SaliencyConfig:
     mask_bilateral_sigma_color: float = 75.0
     mask_bilateral_sigma_space: float = 75.0
     mask_gaussian_ksize: int = 31  # sigma derived per the OpenCV rule => 5.0
-    # Kept so configs round-trip; the port always runs kernel K1 on the card
-    # and raises when this is False.
+    # Kept so configs round-trip; the port always runs kernels K1 / K4 on the
+    # card and raises when this is False.
     mask_use_pallas: bool = True
-    mask_engine_dtype: str = "float32"
+    mask_engine_dtype: str = "float32"  # 'bfloat16' raises: not ported
     mask_threshold_min: float = 0.05
     mask_threshold_max: float = 0.5
     mask_percentile: float = 0.7
@@ -190,6 +194,15 @@ class TrainConfig:
     results_dir: str = "results"
     model_dir: str = "models_ckpt"
     sample_visualizations: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class DCTCodecConfig:
+    """JPEG-style 8x8 DCT baseline codec (ops/dct.py)."""
+
+    quality: int = 75
+    block: int = 8
+    use_pallas: bool = True  # False raises: the port always runs K5 on the card
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -21,7 +21,9 @@ states are not carried: both packages start them fresh. Rules:
     The w8 scales are per output column, so quantizing after the
     permutation gives the same numbers.
 
-Reading flax msgpack checkpoint files comes with a later slice.
+The mask engine (K1, K4) and the DCT baseline codec (K5) have no
+parameters, so nothing here covers them. Reading flax msgpack checkpoint
+files comes with a later slice.
 """
 
 from __future__ import annotations

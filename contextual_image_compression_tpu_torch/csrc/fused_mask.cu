@@ -1,6 +1,6 @@
-// K1: the fused contextual mask engine.
+// K1: the fused contextual mask engine, and K4: the smooth mask.
 //
-// Replaces contextual_image_compression_tpu/ops/fused_mask.py::
+// K1 replaces contextual_image_compression_tpu/ops/fused_mask.py::
 // contextual_mask_pallas (Pallas body _make_contextual_kernel). Per image of
 // gray255 (B, H, W) and spectral map (B, RH, RW), all float32:
 //   fine  = sum_r |g - boxmean_{2r+1}(g)|, g = gray / 255     -> max-normalize
@@ -25,6 +25,13 @@
 // reduction folded in with one atomicMax on the float's bits (the values are
 // non-negative, so integer order is float order), and the next launch
 // normalizes on the fly as it reads.
+//
+// K4 replaces smooth_mask_pallas of the same file (Pallas body _make_kernel):
+// the bilateral, the two Gaussian passes and the final normalization above,
+// on a given saliency map read as it is (no division by its max first). It
+// reuses K1's last four launches; the bilateral takes that choice as an
+// explicit argument. Bound on the H100: ~470 float32 operations per pixel
+// against 8 bytes of device memory traffic, so operations bound it too.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -145,24 +152,25 @@ combine_kernel(const float* __restrict__ fine, const float* __restrict__ spec, i
   block_max_to(local_max, maxes + b * 4 + 1);
 }
 
-// Stage 3: disk bilateral of comb / max(comb) with the Taylor range weight.
+// Stage 3: disk bilateral with the Taylor range weight, of comb / max(comb)
+// when normalize_input is set (K1), of the input as it is otherwise (K4).
 // taps holds (sw, swc) per disk tap in (dy, dx) row-major order.
 __global__ void __launch_bounds__(TX * BY)
 bilateral_kernel(const float* __restrict__ comb, int H, int W, int radius,
                  const float* __restrict__ taps, int ntaps, const float* __restrict__ maxes,
-                 float* __restrict__ out) {
+                 int normalize_input, float* __restrict__ out) {
   __shared__ float tile[TY + 2 * MAXR][TX + 2 * MAXR];
   __shared__ float tw_s[2 * (2 * MAXR + 1) * (2 * MAXR + 1)];
   const int b = blockIdx.z, x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
   const int tid = threadIdx.y * TX + threadIdx.x;
   for (int i = tid; i < 2 * ntaps; i += TX * BY) tw_s[i] = taps[i];
-  const float cmax = maxes[b * 4 + 1];
   const float* c = comb + (size_t)b * H * W;
   const int th = TY + 2 * radius, tw = TX + 2 * radius;
   for (int i = tid; i < th * tw; i += TX * BY) {
     const int ty = i / tw, tx = i % tw;
     const int y = reflect101(y0 - radius + ty, H), x = reflect101(x0 - radius + tx, W);
-    tile[ty][tx] = norm_max(c[(size_t)y * W + x], cmax);
+    const float v = c[(size_t)y * W + x];
+    tile[ty][tx] = normalize_input ? norm_max(v, maxes[b * 4 + 1]) : v;
   }
   __syncthreads();
   const int x = x0 + threadIdx.x, X = threadIdx.x + radius;
@@ -261,9 +269,29 @@ extern "C" int cic_contextual_mask(
   fine_kernel<<<grid, block, 0, st>>>(gray, H, W, scale_mask, rmax, scratch1, maxes);
   combine_kernel<<<grid, block, 0, st>>>(scratch1, spec, H, W, RH, RW, idx_h, w_h, idx_w, w_w,
                                          spectral_weight, fine_weight, scratch2, maxes);
-  bilateral_kernel<<<grid, block, 0, st>>>(scratch2, H, W, radius, taps, ntaps, maxes, scratch1);
+  bilateral_kernel<<<grid, block, 0, st>>>(scratch2, H, W, radius, taps, ntaps, maxes,
+                                           /*normalize_input=*/1, scratch1);
   gauss_rows_kernel<<<grid, block, 0, st>>>(scratch1, H, W, gk, ksize, scratch2);
   gauss_cols_kernel<<<grid, block, 0, st>>>(scratch2, H, W, gk, ksize, out, maxes);
+  normalize_kernel<<<grid, block, 0, st>>>(out, H, W, maxes);
+  return (int)cudaGetLastError();
+}
+
+// K4: bilateral of the map as it is -> out, Gaussian rows -> scratch,
+// Gaussian columns -> out (max -> maxes[b * 4 + 2]), then normalize out.
+extern "C" int cic_smooth_mask(
+    const float* saliency, int B, int H, int W, int radius, const float* taps, int ntaps,
+    const float* gk, int ksize, float* scratch, float* maxes, float* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (radius > MAXR || ksize > 64) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(maxes, 0, sizeof(float) * 4 * (size_t)B, st);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(TX, BY);
+  const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
+  bilateral_kernel<<<grid, block, 0, st>>>(saliency, H, W, radius, taps, ntaps, maxes,
+                                           /*normalize_input=*/0, out);
+  gauss_rows_kernel<<<grid, block, 0, st>>>(out, H, W, gk, ksize, scratch);
+  gauss_cols_kernel<<<grid, block, 0, st>>>(scratch, H, W, gk, ksize, out, maxes);
   normalize_kernel<<<grid, block, 0, st>>>(out, H, W, maxes);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,13 @@
-"""Input pipeline: the mask precompute through K1, and the epoch batcher.
+"""Input pipeline: the mask precompute, and the epoch batcher.
 
 Counterpart of `contextual_image_compression_tpu/data/pipeline.py`:
 
-  * `prepare_masks` runs the contextual-mask engine (ops/masks.py, kernel K1
-    on the card) over the corpus in device batches;
+  * `prepare_masks` runs the contextual-mask engine (ops/masks.py) over the
+    corpus in device batches, for any SaliencyConfig the port computes:
+    method 'combined' with the smooth mask launches kernel K1 once per
+    batch; 'spectral_residual' and 'fine_grained' with the smooth mask
+    launch K4 once per batch after their saliency maps (plain PyTorch);
+    mask_smooth=False gives binary masks and launches no kernel;
   * `CompressionDataset` yields NCHW `Batch`es on the device with
     per-sample shuffling and a per-sample random target bpp, drawn from
     `np.random.RandomState(seed)` in the JAX dataset's order, so equal seeds
@@ -28,7 +32,8 @@ from contextual_image_compression_tpu_torch.train.gan_trainer import Batch
 
 
 def make_mask_fn(config: SaliencyConfig | None = None):
-    """(B, H, W, 3) images in [-1, 1] (or uint8) -> (B, H, W, 1) float32 masks."""
+    """(B, H, W, 3) images in [-1, 1] (or uint8) -> (B, H, W, 1) float32 masks
+    of `config` (kernel K1 or K4 on the card, see the module docstring)."""
     cfg = config or SaliencyConfig()
 
     @torch.no_grad()
@@ -41,7 +46,8 @@ def make_mask_fn(config: SaliencyConfig | None = None):
 def prepare_masks(images: np.ndarray, config: SaliencyConfig | None = None,
                   device_batch: int = 64, device="cuda") -> np.ndarray:
     """Masks of all images, (N, H, W, 1) float32 numpy, computed on `device`
-    in batches of `device_batch` (one K1 launch each on the card)."""
+    in batches of `device_batch` (one K1 or K4 launch each on the card for
+    the smooth masks)."""
     dev = resolve_device(device)
     fn = make_mask_fn(config)
     outs = []

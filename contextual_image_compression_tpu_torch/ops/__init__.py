@@ -6,7 +6,8 @@ sets them to 0.
 """
 
 from contextual_image_compression_tpu_torch.ops.attention import attention_block
-from contextual_image_compression_tpu_torch.ops.fused_mask import contextual_mask
+from contextual_image_compression_tpu_torch.ops.dct import dct_strips
+from contextual_image_compression_tpu_torch.ops.fused_mask import contextual_mask, smooth_mask
 from contextual_image_compression_tpu_torch.ops.quantize import (
     adaptive_quantize,
     adaptive_quantize_bwd,
@@ -17,6 +18,8 @@ KERNEL_WRAPPERS = {
     "K2": attention_block,
     "K3": adaptive_quantize,
     "K3b": adaptive_quantize_bwd,
+    "K4": smooth_mask,
+    "K5": dct_strips,
 }
 
 

@@ -49,6 +49,17 @@ _SIGNATURES = {
         _P, _I,                      # gaussian kernel, ksize
         _P, _P, _P, _P, _P,          # scratch1, scratch2, maxes, out, stream
     ],
+    "cic_smooth_mask": [
+        _P, _I, _I, _I,              # saliency, B, H, W
+        _I, _P, _I,                  # radius, bilateral taps, n taps
+        _P, _I,                      # gaussian kernel, ksize
+        _P, _P, _P, _P,              # scratch, maxes, out, stream
+    ],
+    "cic_dct_strips": [
+        _P, _P, _P,                  # planes, dct matrix (8x8), tables (3x8x8)
+        _P, _P,                      # rec, sym
+        _I, _I, _I, _I, _P,          # B, C, H, W, stream
+    ],
     "cic_attention_block": [
         _I,                          # dtype code (0 f32, 1 bf16)
         _P, _P, _P, _P, _P, _P,      # q, k, v, residual, gamma (f32 on device), out

@@ -1,4 +1,5 @@
-"""Contextual mask engine: kernel K1 and its plain PyTorch twin.
+"""Mask engine kernels K1 (contextual mask) and K4 (smooth mask), each with
+its plain PyTorch twin.
 
 K1 replaces `contextual_image_compression_tpu/ops/fused_mask.py::
 contextual_mask_pallas` (kernel body `_make_contextual_kernel`). Per image,
@@ -12,10 +13,14 @@ from gray255 (B, H, W) and the spectral-residual map (B, r, r), it computes
      Taylor range weight sw + swc * diff^2;
   5. the separable 31-tap Gaussian (sigma 5), then max-normalize.
 
+K4 replaces `smooth_mask_pallas` of the same file (kernel body
+`_make_kernel`): stages 4 and 5 on a given saliency map, read as it is
+(K1 divides its input by the map's max first).
+
 Reflect-101 padding applies per stage to that stage's own input. On a CUDA
-tensor `contextual_mask` launches the kernel in `csrc/fused_mask.cu`; on a CPU
-tensor it runs `contextual_mask_plain`, which is also what the card's result
-is held against.
+tensor `contextual_mask` and `smooth_mask` launch their kernels in
+`csrc/fused_mask.cu`; on a CPU tensor they run `contextual_mask_plain` and
+`smooth_mask_plain`, which are also what the card's results are held against.
 """
 
 from __future__ import annotations
@@ -89,16 +94,27 @@ def upsample_taps(src: int, dst: int):
 
 
 @functools.lru_cache(maxsize=8)
-def _device_tables(dev, rh, rw, h, w, d, sigma_color, sigma_space, gauss_ksize):
-    """K1's constant inputs on `dev`: the two-tap upsample tables, the
-    bilateral (sw, swc) pairs and the Gaussian taps, built once per shape."""
+def _filter_tables(dev, d, sigma_color, sigma_space, gauss_ksize):
+    """The bilateral (sw, swc) pairs and the Gaussian taps on `dev` (K1, K4),
+    and the number of bilateral taps."""
     taps = iops.bilateral_taps(d, sigma_space, sigma_color)
     tap_w = np.array([[sw, swc] for _, _, sw, swc in taps], np.float32).reshape(-1)
     gk = np.asarray(iops.gaussian_kernel_1d(gauss_ksize, 0.0), np.float32)
-    idx_h, w_h = upsample_taps(rh, h)
-    idx_w, w_w = upsample_taps(rw, w)
-    arrays = (idx_h, w_h, idx_w, w_w, tap_w, gk)
-    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays], len(taps)
+    return torch.from_numpy(tap_w).to(dev), torch.from_numpy(gk.copy()).to(dev), len(taps)
+
+
+@functools.lru_cache(maxsize=8)
+def _upsample_tables(dev, rh, rw, h, w):
+    """K1's two-tap upsample tables on `dev`, built once per shape."""
+    arrays = (*upsample_taps(rh, h), *upsample_taps(rw, w))
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+def _check_filter_sizes(name, h, w, d, gauss_ksize, rmax=0):
+    if rmax > 8 or d // 2 > 8 or gauss_ksize > 63:
+        raise ValueError(f"{name}: box radius and bilateral radius <= 8, ksize <= 63")
+    if min(h, w) <= max(rmax, d // 2, gauss_ksize // 2):
+        raise ValueError(f"{name}: image {h}x{w} too small for the filters")
 
 
 def contextual_mask(
@@ -127,16 +143,15 @@ def contextual_mask(
     b, h, w = gray255.shape
     rh, rw = spectral.shape[-2:]
     rmax = max(scales)
-    gpad = gauss_ksize // 2
-    if rmax > 8 or d // 2 > 8 or gauss_ksize > 63 or min(scales) < 1:
-        raise ValueError("contextual_mask: box radius and bilateral radius <= 8, ksize <= 63")
-    if min(h, w) <= max(rmax, d // 2, gpad) or rh > h or rw > w:
-        raise ValueError(f"contextual_mask: image {h}x{w} too small for the filters")
+    if min(scales) < 1:
+        raise ValueError("contextual_mask: box radii must be >= 1")
+    _check_filter_sizes("contextual_mask", h, w, d, gauss_ksize, rmax)
+    if rh > h or rw > w:
+        raise ValueError(f"contextual_mask: spectral map {rh}x{rw} larger than the image")
     ck.require_cuda("contextual_mask", gray255, spectral)
     dev = gray255.device
-    consts, n_taps = _device_tables(
-        dev, rh, rw, h, w, d, float(sigma_color), float(sigma_space), gauss_ksize
-    )
+    up = _upsample_tables(dev, rh, rw, h, w)
+    tap_w, gk, n_taps = _filter_tables(dev, d, float(sigma_color), float(sigma_space), gauss_ksize)
     scratch1 = torch.empty_like(gray255)
     scratch2 = torch.empty_like(gray255)
     maxes = torch.empty((b, 4), dtype=torch.float32, device=dev)
@@ -146,9 +161,9 @@ def contextual_mask(
         scale_mask |= 1 << r
     err = ck.library().cic_contextual_mask(
         gray255.data_ptr(), spectral.data_ptr(), b, h, w, rh, rw,
-        consts[0].data_ptr(), consts[1].data_ptr(), consts[2].data_ptr(), consts[3].data_ptr(),
+        up[0].data_ptr(), up[1].data_ptr(), up[2].data_ptr(), up[3].data_ptr(),
         scale_mask, rmax, float(spectral_weight), float(fine_weight),
-        d // 2, consts[4].data_ptr(), n_taps, consts[5].data_ptr(), gauss_ksize,
+        d // 2, tap_w.data_ptr(), n_taps, gk.data_ptr(), gauss_ksize,
         scratch1.data_ptr(), scratch2.data_ptr(), maxes.data_ptr(), out.data_ptr(),
         ck.stream_ptr(dev),
     )
@@ -158,3 +173,58 @@ def contextual_mask(
 
 
 contextual_mask.launches = 0
+
+
+def smooth_mask_plain(
+    saliency: torch.Tensor,
+    d: int = 9,
+    sigma_color: float = 75.0,
+    sigma_space: float = 75.0,
+    gauss_ksize: int = 31,
+) -> torch.Tensor:
+    """K4's function in plain PyTorch, float32: the disk bilateral of the map
+    as given (first-order Taylor range weight, no clip), the separable
+    Gaussian, then max-normalize. saliency: (..., H, W)."""
+    y = iops.bilateral_filter_taylor(saliency.to(torch.float32), d, sigma_color, sigma_space)
+    return iops.normalize_max(iops.gaussian_blur(y, gauss_ksize, 0.0))
+
+
+def smooth_mask(
+    saliency: torch.Tensor,
+    d: int = 9,
+    sigma_color: float = 75.0,
+    sigma_space: float = 75.0,
+    gauss_ksize: int = 31,
+) -> torch.Tensor:
+    """Smooth mask (B, H, W) or (H, W) float32 of saliency maps of the same
+    shape. Launches K4 for CUDA tensors; the plain twin runs only for CPU
+    tensors."""
+    if saliency.device.type == "cpu":
+        return smooth_mask_plain(saliency, d, sigma_color, sigma_space, gauss_ksize)
+    if saliency.device.type != "cuda":
+        raise ValueError(f"smooth_mask: unsupported device {saliency.device}")
+    if saliency.dtype != torch.float32:
+        raise TypeError("smooth_mask: saliency must be float32")
+    if saliency.ndim == 2:
+        return smooth_mask(saliency[None], d, sigma_color, sigma_space, gauss_ksize)[0]
+    if saliency.ndim != 3:
+        raise ValueError("smooth_mask: expected saliency (B, H, W) or (H, W)")
+    b, h, w = saliency.shape
+    _check_filter_sizes("smooth_mask", h, w, d, gauss_ksize)
+    ck.require_cuda("smooth_mask", saliency)
+    dev = saliency.device
+    tap_w, gk, n_taps = _filter_tables(dev, d, float(sigma_color), float(sigma_space), gauss_ksize)
+    scratch = torch.empty_like(saliency)
+    maxes = torch.empty((b, 4), dtype=torch.float32, device=dev)
+    out = torch.empty_like(saliency)
+    err = ck.library().cic_smooth_mask(
+        saliency.data_ptr(), b, h, w, d // 2, tap_w.data_ptr(), n_taps,
+        gk.data_ptr(), gauss_ksize, scratch.data_ptr(), maxes.data_ptr(), out.data_ptr(),
+        ck.stream_ptr(dev),
+    )
+    ck.check(err, "smooth_mask")
+    smooth_mask.launches += 1
+    return out
+
+
+smooth_mask.launches = 0

@@ -87,6 +87,106 @@ def box_sum(x: torch.Tensor, ksize: int) -> torch.Tensor:
     return sep_filter_axis(sep_filter_axis(x, ones, -2), ones, -1)
 
 
+def true_div(x: torch.Tensor, divisor: float) -> torch.Tensor:
+    """x / divisor as an IEEE float32 division on every device. (On CUDA,
+    torch turns a division by a Python scalar into a multiply by its
+    reciprocal, which is an ulp off for some x; the thresholds and
+    histogram bins below are discrete, so that ulp would move them.)"""
+    return x / torch.full((), divisor, dtype=x.dtype, device=x.device)
+
+
+_SCAN_BASE = 16
+
+
+def _sequential_prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum over the last axis, accumulated left to right in
+    x's dtype (torch.cumsum accumulates float32 in double on the CPU)."""
+    cols = [x[..., 0]]
+    for i in range(1, x.shape[-1]):
+        cols.append(cols[-1] + x[..., i])
+    return torch.stack(cols, dim=-1)
+
+
+def prefix_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Inclusive prefix sum along `dim` with the float32 rounding of
+    jnp.cumsum on XLA's CPU backend, which runs a cumulative reduce-window as
+    a two-level scan: the axis cut into chunks of 16 (zero-padded at the
+    end), a left-to-right sum inside each chunk, the same scan applied to the
+    chunk totals, and each chunk's exclusive offset added last."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    if n <= _SCAN_BASE:
+        out = _sequential_prefix_sum(x)
+    else:
+        m = -(-n // _SCAN_BASE)
+        xp = F.pad(x, (0, m * _SCAN_BASE - n)).reshape(x.shape[:-1] + (m, _SCAN_BASE))
+        inner = _sequential_prefix_sum(xp)
+        outer = prefix_sum(inner[..., -1])
+        offset = F.pad(outer[..., :-1], (1, 0))
+        out = (inner + offset[..., None]).reshape(x.shape[:-1] + (m * _SCAN_BASE,))[..., :n]
+    return out.movedim(-1, dim)
+
+
+def _box_axis_prefix(x: torch.Tensor, ksize: int, axis: int) -> torch.Tensor:
+    """Box mean along one axis (-2 or -1) by prefix sums, reflect-101."""
+    pad = ksize // 2
+    xp = reflect_pad_hw(x, pad, 0) if axis == -2 else reflect_pad_hw(x, 0, pad)
+    c = prefix_sum(xp, axis)
+    n = x.shape[axis]
+    hi = c.narrow(axis, ksize - 1, n)
+    lo = c.narrow(axis, 0, n)
+    rest = hi.narrow(axis, 1, n - 1) - lo.narrow(axis, 0, n - 1)
+    return true_div(torch.cat([hi.narrow(axis, 0, 1), rest], dim=axis), float(ksize))
+
+
+def box_filter(x: torch.Tensor, ksize: int) -> torch.Tensor:
+    """Normalized ksize x ksize box mean on the last two axes (reflect-101),
+    in the JAX package's two formulations: prefix sums for ksize >= 7, direct
+    taps of 1/ksize below that."""
+    if ksize >= 7:
+        return _box_axis_prefix(_box_axis_prefix(x, ksize, -2), ksize, -1)
+    kern = [float(np.float32(1.0 / ksize))] * ksize
+    return sep_filter_axis(sep_filter_axis(x, kern, -2), kern, -1)
+
+
+def bilateral_filter(
+    x: torch.Tensor,
+    d: int = 9,
+    sigma_color: float = 75.0,
+    sigma_space: float = 75.0,
+    unit_range: bool = False,
+) -> torch.Tensor:
+    """Disk-masked bilateral filter on the last two axes, cv2.bilateralFilter
+    semantics for float32 input. unit_range=False weighs by the exact range
+    Gaussian exp(color_coeff * diff^2); unit_range=True clips diff to [-1, 1]
+    and uses its 2nd-order Taylor form 1 + t (1 + t / 2), as the JAX
+    package's CPU path does for [0, 1] saliency maps."""
+    radius = d // 2
+    color_coeff = -0.5 / (sigma_color * sigma_color)
+    space_coeff = -0.5 / (sigma_space * sigma_space)
+    xp = reflect_pad_hw(x, radius, radius)
+    h, w = x.shape[-2], x.shape[-1]
+    num = torch.zeros_like(x)
+    den = torch.zeros_like(x)
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            r2 = dy * dy + dx * dx
+            if r2 > radius * radius:
+                continue
+            shifted = xp[..., dy + radius : dy + radius + h, dx + radius : dx + radius + w]
+            diff = shifted - x
+            if unit_range:
+                diff = torch.clamp(diff, -1.0, 1.0)
+                t = color_coeff * diff * diff
+                range_w = 1.0 + t * (1.0 + 0.5 * t)
+            else:
+                range_w = torch.exp(color_coeff * diff * diff)
+            wgt = math.exp(space_coeff * r2) * range_w
+            num = num + wgt * shifted
+            den = den + wgt
+    return num / torch.clamp(den, min=1e-20)
+
+
 def bilateral_taps(d: int, sigma_space: float, sigma_color: float):
     """The disk-masked taps of a d x d bilateral window, in (dy, dx) row-major
     order, with the space weight sw = exp(space_coeff * r^2) and the

@@ -1,7 +1,8 @@
-"""Spectral-residual saliency (Hou & Zhang 2007) at its native 64^2 resolution.
+"""Static saliency: spectral residual (Hou & Zhang 2007), fine-grained
+center-surround (Montabone & Soto 2010) and their 0.6 / 0.4 combination.
 
-Counterpart of `spectral_residual_small` in
-`contextual_image_compression_tpu/ops/saliency.py`: gray -> antialiased
+Counterpart of `contextual_image_compression_tpu/ops/saliency.py`.
+`spectral_residual_small` is the map at its native 64^2 resolution: gray -> antialiased
 linear resize to 64^2 -> DFT -> log-amplitude minus its 3x3 box mean -> inverse
 DFT with the original phase -> squared magnitude -> Gaussian blur -> min-max
 normalize. Every linear map is an explicit operator matrix built the way the
@@ -23,6 +24,7 @@ import math
 import numpy as np
 import torch
 
+from contextual_image_compression_tpu_torch.config import SaliencyConfig
 from contextual_image_compression_tpu_torch.ops import image_ops as iops
 
 
@@ -158,3 +160,54 @@ def spectral_residual_small(
         sal = (blur @ sal) @ blur.T
     sal = iops.normalize_minmax(sal)
     return sal.reshape(tuple(lead) + (resolution, resolution))
+
+
+def spectral_residual_saliency(
+    image: torch.Tensor, resolution: int = 64, blur_sigma: float = 3.0
+) -> torch.Tensor:
+    """The spectral-residual map at the image's size: the `resolution`^2 map
+    upsampled by the two linear-resize operator matrices. image: (..., H, W, 3)
+    in [-1, 1] or (..., H, W) gray255. Returns (..., H, W) float32."""
+    gray = _as_gray(image)
+    h, w = gray.shape[-2], gray.shape[-1]
+    lead = gray.shape[:-2]
+    sal = spectral_residual_small(gray, resolution, blur_sigma).reshape(-1, resolution, resolution)
+    dev = sal.device
+    with _full_fp32_matmul(dev):
+        up_h = torch.from_numpy(resize_op_matrix(resolution, h)).to(dev)
+        up_w = torch.from_numpy(resize_op_matrix(resolution, w)).to(dev)
+        out = (up_h @ sal) @ up_w.T
+    return out.reshape(tuple(lead) + (h, w))
+
+
+def fine_grained_saliency(image: torch.Tensor, scales=(1, 2, 3, 4, 5, 6)) -> torch.Tensor:
+    """Fine-grained center-surround saliency (Montabone & Soto 2010):
+    sum over scales of relu(I - box) + relu(box - I), box the (2r+1)^2 mean of
+    I = gray / 255, then max-normalized."""
+    gray = iops.true_div(_as_gray(image), 255.0)
+    on_total = torch.zeros_like(gray)
+    off_total = torch.zeros_like(gray)
+    for r in scales:
+        surround = iops.box_filter(gray, 2 * r + 1)
+        on_total = on_total + torch.clamp(gray - surround, min=0.0)
+        off_total = off_total + torch.clamp(surround - gray, min=0.0)
+    return iops.normalize_max(on_total + off_total)
+
+
+def compute_saliency_map(image: torch.Tensor, method: str = "combined", config=None) -> torch.Tensor:
+    """'spectral_residual', 'fine_grained', or 'combined' = max-normalize(
+    0.6 spectral + 0.4 fine). image: (..., H, W, 3) in [-1, 1] or (..., H, W)
+    gray255. Returns (..., H, W) float32 in [0, 1]."""
+    cfg = config or SaliencyConfig()
+    if not cfg.spectral_dft_matmul and method != "fine_grained":
+        raise NotImplementedError("the FFT spectral core (spectral_dft_matmul=False) is not ported")
+    if method == "spectral_residual":
+        return spectral_residual_saliency(image, cfg.spectral_resolution, cfg.spectral_blur_sigma)
+    if method == "fine_grained":
+        return fine_grained_saliency(image, cfg.fine_grained_scales)
+    if method == "combined":
+        spec = spectral_residual_saliency(image, cfg.spectral_resolution, cfg.spectral_blur_sigma)
+        fine = fine_grained_saliency(image, cfg.fine_grained_scales)
+        return iops.normalize_max(
+            cfg.combined_spectral_weight * spec + cfg.combined_fine_weight * fine)
+    raise ValueError(f"Unsupported saliency method: {method}")

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card, in
-the cases chip_smoke.py does not run: ragged sizes, B = 1, K2's backward and
-K3b under autograd.
+the cases chip_smoke.py does not run: ragged sizes, B = 1, K2's backward,
+K3b under autograd, K4 on non-square and all-zero maps, K5 at the smallest
+and a ragged width and at the extreme quality tables.
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels build at
 first use); elsewhere they skip. The file imports torch only, so it runs on a
@@ -21,9 +22,16 @@ from contextual_image_compression_tpu_torch.ops.attention import (
     attention_block_plain,
 )
 from contextual_image_compression_tpu_torch.config import QuantizerConfig
+from contextual_image_compression_tpu_torch.ops.dct import (
+    dct_strips,
+    dct_strips_plain,
+    quality_tables,
+)
 from contextual_image_compression_tpu_torch.ops.fused_mask import (
     contextual_mask,
     contextual_mask_plain,
+    smooth_mask,
+    smooth_mask_plain,
 )
 from contextual_image_compression_tpu_torch.ops.quantize import (
     adaptive_quantize,
@@ -133,3 +141,48 @@ def test_k3b_runs_in_autograd(dev):
     adaptive_quantize(*zs, QuantizerConfig(grad_mode="ste")).backward(g)
     assert adaptive_quantize_bwd.launches == before + 1
     assert torch.equal(zs[0].grad, g) and not zs[1].grad.any()
+
+
+@pytest.mark.parametrize("shape", [(2, 200, 200), (3, 32, 64), (48, 40)],
+                         ids=["ragged-200", "non-square-32x64", "single-2d"])
+def test_k4_matches_twin(dev, shape):
+    """200 and 40 are not multiples of the 32-pixel tile; chip_smoke.py holds
+    K4 at 64 x 256^2. Bar 1e-5, as on the chip."""
+    gen = torch.Generator(device=dev).manual_seed(shape[-1])
+    sal = torch.rand(*shape, device=dev, generator=gen)
+    before = smooth_mask.launches
+    got = smooth_mask(sal)
+    assert smooth_mask.launches == before + 1
+    assert got.shape == sal.shape
+    assert (got - smooth_mask_plain(sal)).abs().max().item() <= 1e-5
+
+
+def test_k4_keeps_a_zero_map(dev):
+    """A map whose max is 0 stays as it is (JAX's where(mx > 0, ...))."""
+    got = smooth_mask(torch.zeros(2, 64, 64, device=dev))
+    assert not got.any()
+
+
+def _dct_case(dev, b, h, w, quality, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    planes = torch.rand(b, 3, h, w, device=dev, generator=gen) * 255 - 128
+    return planes, torch.from_numpy(quality_tables(quality)).to(dev)
+
+
+@pytest.mark.parametrize("b,h,w,quality", [
+    (1, 8, 8, 75), (2, 16, 264, 75), (2, 64, 64, 1), (2, 64, 64, 100),
+], ids=["one-tile", "w264", "quality-1", "quality-100"])
+def test_k5_matches_twin(dev, b, h, w, quality):
+    """W = 264 is not a multiple of the block's 32 columns. Symbols within
+    +-1 and identical on >= 99.99%; rec within 1e-4 on blocks whose symbols
+    agree (one symbol at a half step moves its whole block)."""
+    planes, tables = _dct_case(dev, b, h, w, quality, w + quality)
+    before = dct_strips.launches
+    rec, sym = dct_strips(planes, tables)
+    assert dct_strips.launches == before + 1
+    rec_p, sym_p = dct_strips_plain(planes, tables)
+    assert (sym - sym_p).abs().max().item() <= 1.0
+    assert (sym == sym_p).float().mean().item() >= 0.9999
+    agree = (sym == sym_p).reshape(b, 3, h // 8, 8, w // 8, 8).all(5).all(3)
+    err = (rec - rec_p).abs().reshape(b, 3, h // 8, 8, w // 8, 8).amax((3, 5))
+    assert err[agree].max().item() <= 1e-4

@@ -32,8 +32,10 @@ from contextual_image_compression_tpu_torch.ops.attention import (
     attention_block,
     attention_block_plain,
 )
+from contextual_image_compression_tpu_torch.ops.dct import dct_strips
 from contextual_image_compression_tpu_torch.ops.fused_mask import (
     contextual_mask,
+    smooth_mask,
     upsample_taps,
 )
 from contextual_image_compression_tpu_torch.ops.quantize import (
@@ -239,7 +241,11 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         adaptive_quantize_bwd(torch.empty((2, 8), device="meta"), torch.empty((2, 1), device="meta"),
                               torch.empty((2, 1), device="meta"), torch.empty((2, 8), device="meta"))
-    assert set(tops.launch_counts()) == {"K1", "K2", "K3", "K3b"}
+    with pytest.raises(ValueError):
+        smooth_mask(meta)
+    with pytest.raises(ValueError):
+        dct_strips(torch.empty((1, 3, 8, 8), device="meta"), torch.empty((3, 8, 8), device="meta"))
+    assert set(tops.launch_counts()) == {"K1", "K2", "K3", "K3b", "K4", "K5"}
 
 
 def test_c_signatures_match_sources():
