@@ -5,7 +5,7 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from contextual_image_compression_tpu_torch/csrc
    and its range coder (g++) from contextual_image_compression_tpu_torch/native;
-3. holds each kernel (K1 contextual mask, K2 attention block, K3 quantizer)
+3. holds the serving kernels (K1 contextual mask, K2 attention block, K3 quantizer)
    against its plain PyTorch twin on the card at the serving path's shapes
    (B = 16, 256^2, D = 512) and times kernel, twin and, where one exists, a
    library call with CUDA events;
@@ -42,7 +42,26 @@
    range-coded streams (the coder is built with g++ first), streams encoded
    on the card and decoded on the CPU and the reverse, and the round trip's
    images per second and stages (K5 +1 per codec call);
-13. prints a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
+13. holds K6 (the attention core) against its twin at K2's shapes in bf16
+   and float32, and times it beside softmax(q k^T) v in three calls and SDPA;
+14. holds K7a and K7b (the fused SAGAN block) against their twin with the
+   HQ encoder's SelfAttention weights of a full-width codec (gamma 0.5) on
+   a (16, 256, 32, 32) activation, K7b reading the NCHW tensor through
+   x.permute(0, 2, 3, 1), and against the module's own forward (F.linear
+   projections + K2); times both beside the composed torch yardstick;
+15. holds K8 (the fused generator tail) against its twin and against
+   packed_tail_forward(use_pallas=False) with the HQ generator's deconv4,
+   bn4 (random statistics) and out_conv on a (16, 128, 128, 128) input;
+16. drives the entry points of K6-K8 once at full width in bf16
+   (attention_core, sagan_block, sagan_block_spatial,
+   packed_tail_forward(use_pallas=True)): each kernel +1 and no other;
+17. runs the storable codec: at the small config, containers made on the
+   card and on the CPU decode on both; at full width
+   (ModelConfig(skip_mode='zero'), 16 structured images)
+   encode_to_bitstream then decode_from_bitstream (K1 +1, K2 +1, K3 +2),
+   the decode held against the direct call, with the measured bpp and the
+   encode, decode and host-coder times;
+18. prints a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. Without CUDA, or without the port package beside it, it exits 1.
@@ -64,6 +83,17 @@ H100_HBM_BYTES_S = 3.35e12
 
 def log(msg):
     print(msg, flush=True)
+
+
+def expect(**nonzero):
+    """A full launch-count dict: the given kernels at their counts, every
+    other kernel at 0."""
+    from contextual_image_compression_tpu_torch import ops
+
+    unknown = set(nonzero) - set(ops.KERNEL_WRAPPERS)
+    if unknown:
+        raise KeyError(f"unknown kernels {unknown}")
+    return {k: nonzero.get(k, 0) for k in ops.KERNEL_WRAPPERS}
 
 
 def bound_ms(nbytes, ops, peak_ops):
@@ -266,7 +296,7 @@ def run_full_pipeline(dev, card):
         times.append(time.perf_counter() - t)
         after = ops.launch_counts()
         delta = {k: after[k] - before[k] for k in after}
-        if delta != {"K1": 1, "K2": 1, "K3": 2, "K3b": 0, "K4": 0, "K5": 0}:
+        if delta != expect(K1=1, K2=1, K3=2):
             raise AssertionError(f"call {i}: kernel launches {delta}, want K1 1, K2 1, K3 2, "
                                  "and no other")
         if dec.shape != (B, 256, 256, 3) or dec.dtype != np.uint8:
@@ -503,7 +533,7 @@ def run_full_training(dev, card):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    want = {"K1": 1, "K2": 5 + 3, "K3": 2 * 5 + 2 * 3, "K3b": 2 * 5, "K4": 0, "K5": 0}
+    want = expect(K1=1, K2=5 + 3, K3=2 * 5 + 2 * 3, K3b=2 * 5)
     if counts != want:
         raise AssertionError(f"training launches {counts}, want {want}")
     bad = [k for k, v in hist.items() if not all(math.isfinite(x) for x in v)]
@@ -617,7 +647,7 @@ def run_mask_path(dev, card):
     thresholds = masks.adaptive_threshold(sal)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    want = {"K1": 0, "K2": 0, "K3": 0, "K3b": 0, "K4": 2 * (n // batch), "K5": 0}
+    want = expect(K4=2 * (n // batch))
     if counts != want:
         raise AssertionError(f"mask path launches {counts}, want {want}")
     for method, (secs, out) in results.items():
@@ -774,7 +804,7 @@ def run_dct_path(dev, card):
         times.append(time.perf_counter() - t0)
     med = float(np.median(times))
     counts = ops.launch_counts()
-    want = {"K1": 0, "K2": 0, "K3": 0, "K3b": 0, "K4": 0, "K5": 6 + 2 + 5}
+    want = expect(K5=6 + 2 + 5)
     if counts != want:
         raise AssertionError(f"DCT path launches {counts}, want {want}")
     log(f"DCT round trip B={n}, 256x256, quality 75: median of 5 {med * 1e3:.3f} ms/call, "
@@ -797,6 +827,348 @@ def run_dct_path(dev, card):
     }
     log(f"DCT stages for B={n} (CUDA events, median): " + "; ".join(
         f"{name} {event_ms(fn, reps=10, warmup=2):.3f} ms" for name, fn in stages.items()))
+    return counts
+
+
+def _full_width_codec(dev):
+    """A full-width AdaptiveCodec(ModelConfig()) in float32 with seeded
+    weights, SAGAN gamma 0.5 and random BatchNorm statistics."""
+    from contextual_image_compression_tpu_torch.config import ModelConfig
+    from contextual_image_compression_tpu_torch.measure import randomize_stats
+    from contextual_image_compression_tpu_torch.models.adaptive import AdaptiveCodec
+
+    with torch.device(dev):
+        codec = AdaptiveCodec(ModelConfig())
+    codec.reset_parameters(0)
+    randomize_stats(codec, 0)
+    return codec.eval().requires_grad_(False)
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def check_k6(dev, B):
+    """K6 at K2's shapes (B, 1024, 32) / (B, 1024, 256), bf16 and float32."""
+    import torch.nn.functional as F
+    from contextual_image_compression_tpu_torch.measure import event_ms
+    from contextual_image_compression_tpu_torch.ops.attention import (
+        attention_core, attention_core_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    N, DK, DV = 1024, 32, 256
+    q = (torch.randn(B, N, DK, device=dev, generator=gen) * 0.4).to(torch.bfloat16)
+    k = (torch.randn(B, N, DK, device=dev, generator=gen) * 0.4).to(torch.bfloat16)
+    v = torch.randn(B, N, DV, device=dev, generator=gen).to(torch.bfloat16)
+    got, want = attention_core(q, k, v), attention_core_plain(q, k, v)
+    f32 = [t.float() for t in (q, k, v)]
+    got32, want32 = attention_core(*f32), attention_core_plain(*f32)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    rel = _rel(got, want)
+    err32 = (got32 - want32).abs().max().item()
+    log(f"K6 attention core bf16 q,k {tuple(q.shape)} v {tuple(v.shape)}: max |kernel - twin| = "
+        f"{err:.3e} ({rel:.2e} of max |out|, bar 2e-2); float32 {err32:.3e} (bar 1e-5)")
+    if not (rel <= 2e-2 and err32 <= 1e-5):
+        raise AssertionError(f"K6 disagrees with its twin: bf16 {rel}, f32 {err32}")
+    ms = event_ms(lambda: attention_core(q, k, v))
+    ms32 = event_ms(lambda: attention_core(*f32))
+    plain = event_ms(lambda: attention_core_plain(q, k, v), reps=5, warmup=1)
+    lib = event_ms(lambda: torch.softmax(q @ k.transpose(1, 2), dim=-1) @ v)
+    sdpa = event_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+    flops = 2.0 * B * N * N * (DK + DV)
+    nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * 2
+    b_ms, b_by = bound_ms(nbytes, flops, H100_BF16_TFLOPS)
+    log(f"K6 times: kernel bf16 {ms:.4f} ms (float32 {ms32:.4f}), twin {plain:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), softmax(q k^T) v in three calls {lib:.4f} ms, "
+        f"scaled_dot_product_attention(scale=1) {sdpa:.4f} ms")
+    return dict(name="K6 attention_core", route="cuda",
+                source="contextual_image_compression_tpu_torch/csrc/attention.cu",
+                replaces="contextual_image_compression_tpu/ops/attention.py:156",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, sdpa_ms=sdpa, float32_ms=ms32)
+
+
+def _sagan_weights(attn, dt):
+    """(wq, bq, wk, bk, wv, bv, gamma) of a SelfAttention module in the ops'
+    (in, out) layout."""
+    out = []
+    for conv in (attn.query_conv, attn.key_conv, attn.value_conv):
+        w = conv.weight
+        out += [w.reshape(w.shape[0], w.shape[1]).t().contiguous().to(dt), conv.bias.float()]
+    return (*out, attn.gamma.float()[0])
+
+
+def check_k7(dev, B, codec):
+    """K7a on the (B, N, C) activation and K7b on the encoder's NCHW
+    activation seen as (B, H, W, C), with the HQ encoder's SelfAttention
+    weights of a full-width codec (gamma 0.5), against their twin and
+    against the module's own forward (projections by F.linear, then K2)."""
+    from contextual_image_compression_tpu_torch.measure import event_ms
+    from contextual_image_compression_tpu_torch.ops.attention import (
+        attention_block, sagan_block, sagan_block_plain, sagan_block_spatial)
+
+    attn = codec.hq_encoder.attention
+    C, H = 256, 32
+    N = H * H
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x32 = torch.randn(B, C, H, H, device=dev, generator=gen) * 0.5
+    res = {}
+    for dt in (torch.bfloat16, torch.float32):
+        x = x32.to(dt)
+        view = x.permute(0, 2, 3, 1)  # the NCHW activation, read in place
+        xf = view.reshape(B, N, C)    # a contiguous (B, N, C) copy
+        w = _sagan_weights(attn, dt)
+        got_a, want_a = sagan_block(xf, *w), sagan_block_plain(xf, *w)
+        got_b = sagan_block_spatial(view, *w)
+        want_b = want_a.reshape(B, H, H, C)
+        module = attn(x).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        if got_b.stride() != view.stride():
+            raise AssertionError(f"K7b wrote {got_b.stride()}, not the input's layout {view.stride()}")
+        res[dt] = ((got_a.float() - want_a.float()).abs().max().item(), _rel(got_a, want_a),
+                   (got_b.float() - want_b.float()).abs().max().item(), _rel(got_b, want_b),
+                   (got_b.float() - module.float()).abs().max().item(), _rel(got_b, module))
+    (ea16, ra16, eb16, rb16, em16, rm16), (ea32, _, eb32, _, em32, _) = res.values()
+    log(f"K7a SAGAN block (B, N, C) = {(B, N, C)}: max |kernel - twin| bf16 {ea16:.3e} ({ra16:.2e} "
+        f"of max |out|, bar 2e-2), float32 {ea32:.3e} (bar 1e-5)")
+    log(f"K7b on the NCHW activation viewed (B, H, W, C): max |kernel - twin| bf16 {eb16:.3e} "
+        f"({rb16:.2e}, bar 2e-2), float32 {eb32:.3e} (bar 1e-5); against SelfAttention.forward "
+        f"(F.linear projections + K2): bf16 {em16:.3e} ({rm16:.2e}, bar 2e-2; the module adds the "
+        f"bias in bf16), float32 {em32:.3e} (bar 1e-4)")
+    if not (ra16 <= 2e-2 and ea32 <= 1e-5 and rb16 <= 2e-2 and eb32 <= 1e-5
+            and rm16 <= 2e-2 and em32 <= 1e-4):
+        raise AssertionError(f"K7 disagrees: {res}")
+
+    x = x32.to(torch.bfloat16)
+    view = x.permute(0, 2, 3, 1)
+    xf = view.reshape(B, N, C)
+    w = _sagan_weights(attn, torch.bfloat16)
+    wq, bq, wk, bk, wv, bv, g = w
+
+    def composed():  # a yardstick the port never calls
+        q = torch.nn.functional.linear(xf, wq.t()) + bq.to(torch.bfloat16)
+        k = torch.nn.functional.linear(xf, wk.t()) + bk.to(torch.bfloat16)
+        v = torch.nn.functional.linear(xf, wv.t()) + bv.to(torch.bfloat16)
+        return g * (torch.softmax(q @ k.transpose(1, 2), dim=-1) @ v) + xf
+
+    ms_a = event_ms(lambda: sagan_block(xf, *w))
+    ms_b = event_ms(lambda: sagan_block_spatial(view, *w))
+    plain = event_ms(lambda: sagan_block_plain(xf, *w), reps=5, warmup=1)
+    yard = event_ms(composed)
+    mod = event_ms(lambda: attn(x))
+    inner = wq.shape[1]
+    flops = 2.0 * B * N * C * (2 * inner + C) + 2.0 * B * N * N * (inner + C)
+    nbytes = 2 * x.numel() * 2 + (2 * C * inner + C * C) * 2 + (2 * inner + C) * 4
+    b_ms, b_by = bound_ms(nbytes, flops, H100_BF16_TFLOPS)
+    log(f"K7 times bf16: K7a {ms_a:.4f} ms, K7b (NCHW view) {ms_b:.4f} ms, twin {plain:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}); yardsticks: three F.linear + softmax(q k^T) v in three "
+        f"calls + epilogue {yard:.4f} ms, SelfAttention.forward (F.linear + K2) {mod:.4f} ms")
+    common = dict(route="cuda", source="contextual_image_compression_tpu_torch/csrc/sagan_block.cu",
+                  plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                  yardstick_ms=yard, module_k2_ms=mod)
+    return (dict(name="K7a sagan_block", replaces="contextual_image_compression_tpu/ops/attention.py:336",
+                 max_abs_err=ea16, ms=ms_a, **common),
+            dict(name="K7b sagan_block_spatial",
+                 replaces="contextual_image_compression_tpu/ops/attention.py:371",
+                 max_abs_err=eb16, ms=ms_b, **common))
+
+
+def _tail_args(gen_module, dt):
+    from contextual_image_compression_tpu_torch.models.packed_tail import fold_tail_bn
+
+    bn = gen_module.bn4
+    folded, shift = fold_tail_bn(gen_module.deconv4.weight, gen_module.deconv4.bias, bn.weight,
+                                 bn.bias, bn.running_mean, bn.running_var, dt, bn.eps)
+    return (folded, shift.to(dt), gen_module.out_conv.weight.to(dt),
+            gen_module.out_conv.bias.float())
+
+
+def _tail_forward(gen_module, x, use_pallas):
+    from contextual_image_compression_tpu_torch.models.packed_tail import packed_tail_forward
+
+    bn = gen_module.bn4
+    return packed_tail_forward(
+        x, gen_module.deconv4.weight, gen_module.deconv4.bias, bn.weight, bn.bias,
+        bn.running_mean, bn.running_var, gen_module.out_conv.weight, gen_module.out_conv.bias,
+        bn_eps=bn.eps, use_pallas=use_pallas)
+
+
+def check_k8(dev, B, codec):
+    """K8 with the HQ generator's tail (deconv4, bn4 with random statistics,
+    out_conv) of a full-width codec on a (B, 128, 128, 128) input."""
+    from contextual_image_compression_tpu_torch.measure import event_ms
+    from contextual_image_compression_tpu_torch.ops.generator_tail import (
+        fused_tail, fused_tail_plain)
+
+    gm = codec.hq_generator
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x32 = torch.randn(B, 128, 128, 128, device=dev, generator=gen) * 0.5
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        x = x32.to(dt)
+        args = _tail_args(gm, dt)
+        got = fused_tail(x, *args)
+        want = fused_tail_plain(x, *args)
+        cudnn = _tail_forward(gm, x, use_pallas=False)
+        torch.cuda.synchronize()
+        d_twin = (got.float() - want.float()).abs()
+        d_cudnn = (got.float() - cudnn.float()).abs()
+        out[dt] = (d_twin.max().item(), (d_twin == 0).float().mean().item(),
+                   d_cudnn.max().item(), d_cudnn.mean().item())
+    (t16, same16, c16, cm16), (t32, _, c32, _) = out.values()
+    log(f"K8 generator tail x {(B, 128, 128, 128)} -> {(B, 3, 256, 256)}: max |kernel - twin| bf16 "
+        f"{t16:.3e} (bar 1.6e-2, identical on {same16:.5f}, bar 0.99), float32 {t32:.3e} (bar 2e-5); "
+        f"against use_pallas=False (cuDNN, one rounding of the deconv): bf16 max {c16:.3e} mean "
+        f"{cm16:.2e} (bars 6.25e-2, 4e-3), float32 {c32:.3e} (bar 2e-4, JAX's)")
+    if not (t16 <= 1.6e-2 and same16 >= 0.99 and t32 <= 2e-5 and c16 <= 6.25e-2 and cm16 <= 4e-3
+            and c32 <= 2e-4):
+        raise AssertionError(f"K8 disagrees: {out}")
+    x = x32.to(torch.bfloat16)
+    args = _tail_args(gm, torch.bfloat16)
+    ms = event_ms(lambda: fused_tail(x, *args), reps=10)
+    ms32 = event_ms(lambda: fused_tail(x32, *_tail_args(gm, torch.float32)), reps=10)
+    plain = event_ms(lambda: fused_tail_plain(x, *args), reps=5, warmup=1)
+    yard = event_ms(lambda: _tail_forward(gm, x, use_pallas=False))
+    # useful products: the deconv (4 taps of Cin per output pixel and channel)
+    # and the 4x4 out-conv; x read once, the output written once
+    px = B * 256 * 256
+    flops = 2.0 * px * 32 * 4 * 128 + 2.0 * px * 3 * 16 * 32
+    nbytes = x.numel() * 2 + px * 3 * 2
+    b_ms, b_by = bound_ms(nbytes, flops, H100_BF16_TFLOPS)
+    log(f"K8 times: kernel bf16 {ms:.4f} ms (float32 {ms32:.4f}), twin {plain:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}); yardstick packed_tail_forward(use_pallas=False) (cuDNN) "
+        f"{yard:.4f} ms")
+    return dict(name="K8 fused_tail", route="cuda",
+                source="contextual_image_compression_tpu_torch/csrc/packed_tail.cu",
+                replaces="contextual_image_compression_tpu/models/packed_tail.py:207",
+                max_abs_err=t16, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, yardstick_ms=yard, float32_ms=ms32)
+
+
+def run_entry_points(dev, B, codec):
+    """The main path of K6, K7a, K7b and K8: each public entry point that
+    reaches one of them, called once at full width in bf16 (the serving
+    dtype); returns the launch counts of the run."""
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.ops.attention import (
+        attention_core, sagan_block, sagan_block_spatial)
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bf = torch.bfloat16
+    q, k = ((torch.randn(B, 1024, 32, device=dev, generator=gen) * 0.4).to(bf) for _ in range(2))
+    v = torch.randn(B, 1024, 256, device=dev, generator=gen).to(bf)
+    act = (torch.randn(B, 256, 32, 32, device=dev, generator=gen) * 0.5).to(bf)
+    tail_in = (torch.randn(B, 128, 128, 128, device=dev, generator=gen) * 0.5).to(bf)
+    w = _sagan_weights(codec.hq_encoder.attention, bf)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    outs = {
+        "attention_core": attention_core(q, k, v),
+        "sagan_block": sagan_block(act.permute(0, 2, 3, 1).reshape(B, 1024, 256), *w),
+        "sagan_block_spatial": sagan_block_spatial(act.permute(0, 2, 3, 1), *w),
+        "packed_tail_forward(use_pallas=True)": _tail_forward(codec.hq_generator, tail_in, True),
+    }
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = expect(K6=1, K7a=1, K7b=1, K8=1)
+    if counts != want:
+        raise AssertionError(f"entry-point launches {counts}, want {want}")
+    shapes = {"attention_core": (B, 1024, 256), "sagan_block": (B, 1024, 256),
+              "sagan_block_spatial": (B, 32, 32, 256),
+              "packed_tail_forward(use_pallas=True)": (B, 3, 256, 256)}
+    for name, t in outs.items():
+        if tuple(t.shape) != shapes[name] or t.dtype != bf or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{name}: {tuple(t.shape)} {t.dtype} or non-finite values")
+    log(f"entry points at full width, bf16: {', '.join(outs)}; launches {counts}")
+    return counts
+
+
+def check_small_codec_against_cpu(dev):
+    """The storable codec at the small config on the card and on the CPU with
+    the same weights: containers made on either decode on both, to decoded
+    images within 40 dB PSNR of each other; the latents the two sides store
+    agree within one quantizer step on >= 95% of entries."""
+    from contextual_image_compression_tpu_torch.config import ModelConfig
+    from contextual_image_compression_tpu_torch.measure import randomize_stats, structured_images
+    from contextual_image_compression_tpu_torch.models.adaptive import AdaptiveCodec
+    from contextual_image_compression_tpu_torch.ops import bitstream as bs
+    from contextual_image_compression_tpu_torch.serve import CompressionPipeline
+
+    cfg = ModelConfig(img_size=(64, 64), base_latent_dim=64, generator_base_hw=4, skip_mode="zero")
+    ref = AdaptiveCodec(cfg)
+    ref.reset_parameters(11)
+    randomize_stats(ref, 11)
+    sd = ref.state_dict()
+    u8 = structured_images(np.random.RandomState(12), 4, 64)
+    pipes = {name: CompressionPipeline(state_dict=sd, model_config=cfg, device=name)
+             for name in ("cuda", "cpu")}
+    streams = {name: p.encode_to_bitstream(u8, target_bpp=1.0) for name, p in pipes.items()}
+    worst = 100.0
+    for made_on, s in streams.items():
+        a = pipes["cuda"].decode_from_bitstream(s)
+        b = pipes["cpu"].decode_from_bitstream(s)
+        mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+        worst = min(worst, 10 * math.log10(255.0 ** 2 / max(mse, 1e-12)))
+    same = []
+    for sg, sc in zip(streams["cuda"], streams["cpu"]):
+        pg, pc = bs.unpack_container(sg), bs.unpack_container(sc)
+        for key, scale in (("hq_latent", "hq_scale"), ("lq_latent", "lq_scale")):
+            same.append(np.mean(np.round(pg[key] * pg[scale]) == np.round(pc[key] * pc[scale])))
+    share = float(np.min(same))
+    log(f"small storable codec card vs CPU: containers from each side decode on both within "
+        f"{worst:.2f} dB PSNR (bar 40); stored symbols identical on {share:.4f} (bar 0.95)")
+    if not (worst >= 40.0 and share >= 0.95):
+        raise AssertionError("the storable codec on the card disagrees with the CPU")
+
+
+def run_codec_path(dev, card):
+    """The storable codec at full width: encode_to_bitstream then
+    decode_from_bitstream of 16 structured images with
+    ModelConfig(skip_mode='zero'); returns the launch counts of the path."""
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.config import ModelConfig
+    from contextual_image_compression_tpu_torch.measure import randomize_stats, structured_images
+    from contextual_image_compression_tpu_torch.ops import bitstream as bs
+    from contextual_image_compression_tpu_torch.serve import CompressionPipeline
+
+    B = 16
+    pipe = CompressionPipeline(model_config=ModelConfig(skip_mode="zero"), device=dev, seed=0)
+    randomize_stats(pipe.codec, 0)
+    u8 = structured_images(np.random.RandomState(13), B, 256)
+    pipe.decode_from_bitstream(pipe.encode_to_bitstream(u8))  # warm-up: cuDNN autotuning
+    direct, info = pipe(u8, target_bpp=1.0)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    streams = pipe.encode_to_bitstream(u8, target_bpp=1.0)
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = pipe.decode_from_bitstream(streams)  # ends in a device->host copy
+    t_dec = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = expect(K1=1, K2=1, K3=2)
+    if counts != want:
+        raise AssertionError(f"storable codec launches {counts}, want {want}")
+    t0 = time.perf_counter()
+    latent_streams, bpp = pipe.serialize_latents(info)
+    t_coder = time.perf_counter() - t0
+    if decoded.shape != (B, 256, 256, 3) or decoded.dtype != np.uint8:
+        raise AssertionError(f"decoded {decoded.shape} {decoded.dtype}")
+    diff = np.abs(decoded.astype(np.int32) - direct.astype(np.int32))
+    one = pipe.decode_from_bitstream(pipe.encode_to_bitstream(u8[:1], 1.0, mask_downsample=1))
+    diff1 = np.abs(one.astype(np.int32) - direct[:1].astype(np.int32))
+    total_bpp = np.array([8.0 * len(s) / (256 * 256) for s in streams])
+    log(f"storable codec B={B}, 256x256 on {card}: encode_to_bitstream {t_enc * 1e3:.2f} ms, "
+        f"decode_from_bitstream {t_dec * 1e3:.2f} ms (host clock, numpy in / out); host range coder "
+        f"of the latents {t_coder * 1e3:.2f} ms; measured bpp: latents {float(bpp.mean()):.4f}, "
+        f"whole containers {float(total_bpp.mean()):.4f}; launches {counts}")
+    log(f"decoded vs the direct call: mean |diff| {diff.mean():.3f} (bar 4) at mask downsample 8; "
+        f"downsample 1 on one image mean {diff1.mean():.3f} (bar 1), max {diff1.max()} (bar 16)")
+    if not (diff.mean() < 4.0 and diff1.mean() < 1.0 and diff1.max() <= 16):
+        raise AssertionError("the storable codec's decode disagrees with the direct call")
+    if [bs.unpack_container(s)["img_hw"] for s in streams[:1]] != [(256, 256)]:
+        raise AssertionError("container header")
     return counts
 
 
@@ -842,11 +1214,25 @@ def main():
     mask_path = run_mask_path(dev, card)
     records.append(check_k5(dev, 128))
     dct_path = run_dct_path(dev, card)
-    paths = {"serving": serving, "training": training, "masks": mask_path, "dct": dct_path}
-    runs_it = {"K1": ("serving", "training"), "K2": ("serving", "training"),
-               "K3": ("serving", "training"), "K3b": ("training",), "K4": ("masks",),
-               "K5": ("dct",)}
-    for rec, key in zip(records, ("K1", "K2", "K3", "K3b", "K4", "K5")):
+    records.append(check_k6(dev, B))
+    codec = _full_width_codec(dev)
+    records.extend(check_k7(dev, B, codec))
+    records.append(check_k8(dev, B, codec))
+    entry_points = run_entry_points(dev, B, codec)
+    del codec
+    check_small_codec_against_cpu(dev)
+    codec_path = run_codec_path(dev, card)
+    paths = {"serving": serving, "training": training, "masks": mask_path, "dct": dct_path,
+             "entry_points": entry_points, "storable_codec": codec_path}
+    runs_it = {"K1": ("serving", "training", "storable_codec"),
+               "K2": ("serving", "training", "storable_codec"),
+               "K3": ("serving", "training", "storable_codec"), "K3b": ("training",),
+               "K4": ("masks",), "K5": ("dct",), "K6": ("entry_points",),
+               "K7a": ("entry_points",), "K7b": ("entry_points",), "K8": ("entry_points",)}
+    keys_in_order = ("K1", "K2", "K3", "K3b", "K4", "K5", "K6", "K7a", "K7b", "K8")
+    if len(records) != len(keys_in_order):
+        raise AssertionError("one record per kernel")
+    for rec, key in zip(records, keys_in_order):
         for name, counts in paths.items():
             rec[f"launches_{name}"] = counts[key]
         rec["launches"] = sum(counts[key] for counts in paths.values())

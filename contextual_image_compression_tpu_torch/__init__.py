@@ -13,7 +13,13 @@ These paths run here with hand-written Hopper kernels:
   * the masks of the other saliency methods (ops/masks.py), smoothed by K4
     (ops/fused_mask.py), and the binary-threshold masks;
   * the DCT baseline codec (ops/dct.py) with K5, the 8x8 transform and
-    quantizer, and range-coded streams (native/).
+    quantizer, and range-coded streams (native/);
+  * the storable codec (serve.py, ops/bitstream.py): latent streams and
+    self-contained containers, decoded from bytes by the generators alone;
+  * the remaining kernel entry points, which no default path runs: K6 the
+    attention core and K7a / K7b the fused SAGAN block (ops/attention.py),
+    K8 the fused generator tail (packed_tail_forward(use_pallas=True),
+    ops/generator_tail.py).
 
 Entry points run on the card unless the caller passes device="cpu", where
 each kernel's plain PyTorch twin runs instead.

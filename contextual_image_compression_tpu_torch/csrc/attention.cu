@@ -1,170 +1,72 @@
-// K2: the SAGAN attention block  out = gamma * softmax(Q K^T) V + residual.
+// K2: the SAGAN attention block  out = gamma * softmax(Q K^T) V + residual,
+// and K6: the attention core  out = softmax(Q K^T) V, as one kernel.
 //
-// Replaces contextual_image_compression_tpu/ops/attention.py::
+// K2 replaces contextual_image_compression_tpu/ops/attention.py::
 // attention_block_pallas (forward _attention_pallas_fwd, body
-// _attn_block_kernel). Semantics kept from the TPU kernel: no 1/sqrt(d)
-// scaling; scores in float32; the softmax numerator e is rounded to V's dtype
-// before the e.V product while the row sum uses the unrounded float32 e;
-// normalization after the product; gamma * (1 / l) * acc + residual in
-// float32 before the single store in the tensors' dtype.
+// _attn_block_kernel); K6 replaces attention_core_pallas (body _attn_kernel),
+// which is K2 without the epilogue. Semantics kept from the TPU kernels: no
+// 1/sqrt(d) scaling; scores in float32; the softmax numerator e is rounded to
+// V's dtype before the e.V product while the row sum uses the unrounded
+// float32 e; normalization after the product. K2's epilogue is
+// gamma * (1 / l) * acc + residual in float32; K6's (a null residual) is
+// acc * (1 / l), `ctx * recip` of _attn_kernel; one store in the tensors' dtype.
 //
 // Bound on the H100: per image 2 * N^2 * (DK + DV) = 0.6 GFLOP at N = 1024,
 // DK = 32, DV = 256 against ~1.7 MB of q, k, v, residual and output, about
 // 350 FLOP per byte: near the balance point of the bf16 tensor cores and far
 // above that of float32 CUDA cores. This first version is flash-style on
-// CUDA cores (float32 FMA): a block owns 64 query rows, walks K/V in tiles of
-// 64 keys through shared memory, keeps an online softmax (float32 running max
-// and sum) and a 64 x 256 float32 accumulator in registers (a 4 x 16 tile per
-// thread), so the N x N scores never reach device memory. It is therefore
-// bound by FMA issue and shared-memory bandwidth; mma.sync / wgmma tiles are
-// later work.
+// CUDA cores (float32 FMA, attention.cuh), so the N x N scores never reach
+// device memory; it is bound by FMA throughput and shared-memory bandwidth, and
+// mma.sync / wgmma tiles are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention.cuh"
 #include "common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per block
-constexpr int BK = 64;       // keys per tile
-constexpr int DK_MAX = 64;   // largest q/k width taken
-constexpr int DV_MAX = 256;  // largest v width taken (multiple of 64)
-constexpr int THREADS = 256;
-constexpr size_t SMEM_FLOATS = DK_MAX * BQ + DK_MAX * BK + BK * DV_MAX + BK * BQ;
+using namespace cic::attn;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-attn_block_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const T* __restrict__ res, const float* __restrict__ gamma, T* __restrict__ out,
-                  int N, int DK, int DV) {
+attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+            const T* __restrict__ res, const float* __restrict__ gamma, T* __restrict__ out,
+            int N, int DK, int DV) {
   extern __shared__ float smem[];
-  float* Qt = smem;                  // [DK_MAX][BQ]  (transposed)
-  float* Kt = Qt + DK_MAX * BQ;      // [DK_MAX][BK]  (transposed)
-  float* Vs = Kt + DK_MAX * BK;      // [BK][DV_MAX]
-  float* Pt = Vs + BK * DV_MAX;      // [BK][BQ]      (transposed probabilities)
-
+  const Tiles s = carve(smem);
   const int b = blockIdx.y, q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x;
-  const int rg = tid / 16;  // rows rg*4 .. rg*4+3 of the query tile
-  const int cg = tid % 16;  // score keys cg*4..+3; output columns c*64 + cg*4..+3
+  const int rg = tid / 16, cg = tid % 16;
   const int nchunks = DV / 64;
 
   const T* qb = q + (size_t)b * N * DK;
-  const T* kb = k + (size_t)b * N * DK;
-  const T* vb = v + (size_t)b * N * DV;
-
   for (int i = tid; i < BQ * DK; i += THREADS) {
     const int r = i / DK, d = i % DK, n = q0 + r;
-    Qt[d * BQ + r] = n < N ? cic::to_f32(qb[(size_t)n * DK + d]) : 0.f;
+    s.Qt[d * BQ + r] = n < N ? cic::to_f32(qb[(size_t)n * DK + d]) : 0.f;
   }
 
   float m[4], l[4], acc[4][16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 16; ++c) acc[i][c] = 0.f;
-  }
+  flash_loop<T>(s, k + (size_t)b * N * DK, v + (size_t)b * N * DV, N, DK, DV, m, l, acc);
 
-  for (int k0 = 0; k0 < N; k0 += BK) {
-    __syncthreads();  // the previous tile's Kt, Vs and Pt are consumed
-    for (int i = tid; i < BK * DK; i += THREADS) {
-      const int r = i / DK, d = i % DK, n = k0 + r;
-      Kt[d * BK + r] = n < N ? cic::to_f32(kb[(size_t)n * DK + d]) : 0.f;
-    }
-    for (int i = tid; i < BK * DV; i += THREADS) {
-      const int r = i / DV, c = i % DV, n = k0 + r;
-      Vs[r * DV_MAX + c] = n < N ? cic::to_f32(vb[(size_t)n * DV + c]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < DK; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(&Qt[d * BQ + rg * 4]);
-      const float4 ka = *reinterpret_cast<const float4*>(&Kt[d * BK + cg * 4]);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += qv[i] * kv[j];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (k0 + cg * 4 + j >= N)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][j] = -INFINITY;
-
-    // online softmax; the 16 threads of a row group are 16 consecutive lanes
-    float p[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);  // 0 on the first tile (m = -inf)
-      float rowsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = expf(s[i][j] - m_new);
-        rowsum += e;
-        p[i][j] = cic::round_to<T>(e);  // e.astype(v.dtype) for the e.V product
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) rowsum += __shfl_xor_sync(0xffffffffu, rowsum, o);
-      l[i] = l[i] * alpha + rowsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) acc[i][c] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&Pt[(cg * 4 + j) * BQ + rg * 4]) =
-          make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
-    __syncthreads();
-
-    const int kmax = min(BK, N - k0);
-    for (int j = 0; j < kmax; ++j) {
-      const float4 pa = *reinterpret_cast<const float4*>(&Pt[j * BQ + rg * 4]);
-      const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (c < nchunks) {
-          const float4 va = *reinterpret_cast<const float4*>(&Vs[j * DV_MAX + c * 64 + cg * 4]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][c * 4 + 0] += pv[i] * va.x;
-            acc[i][c * 4 + 1] += pv[i] * va.y;
-            acc[i][c * 4 + 2] += pv[i] * va.z;
-            acc[i][c * 4 + 3] += pv[i] * va.w;
-          }
-        }
-      }
-    }
-  }
-
-  const float g = *gamma;
-  const T* rb = res + (size_t)b * N * DV;
+  const float g = res ? *gamma : 1.f;
+  const T* rb = res ? res + (size_t)b * N * DV : nullptr;
   T* ob = out + (size_t)b * N * DV;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int n = q0 + rg * 4 + i;
     if (n >= N) continue;
-    const float scale = g * (1.0f / l[i]);
+    const float recip = 1.0f / l[i];
+    const float scale = g * recip;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       if (c >= nchunks) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const size_t o = (size_t)n * DV + c * 64 + cg * 4 + e;
-        ob[o] = cic::from_f32<T>(scale * acc[i][c * 4 + e] + cic::to_f32(rb[o]));
+        const float a = acc[i][c * 4 + e];
+        ob[o] = cic::from_f32<T>(rb ? scale * a + cic::to_f32(rb[o]) : a * recip);
       }
     }
   }
@@ -174,14 +76,24 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* res, const float* gamma, void* out,
            int B, int N, int DK, int DV, cudaStream_t st) {
   const size_t smem = SMEM_FLOATS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(attn_block_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(attn_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + BQ - 1) / BQ, B);
-  attn_block_kernel<T><<<grid, THREADS, smem, st>>>(
+  attn_kernel<T><<<grid, THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(res), gamma, static_cast<T*>(out), N, DK, DV);
   return (int)cudaGetLastError();
+}
+
+int dispatch(int dtype, const void* q, const void* k, const void* v, const void* res,
+             const float* gamma, void* out, int B, int N, int DK, int DV, void* stream) {
+  if (DK < 1 || DK > DK_MAX || DV < 64 || DV > DV_MAX || DV % 64 != 0 || N < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(q, k, v, res, gamma, out, B, N, DK, DV, st);
+  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, res, gamma, out, B, N, DK, DV, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -191,10 +103,12 @@ int launch(const void* q, const void* k, const void* v, const void* res, const f
 extern "C" int cic_attention_block(int dtype, const void* q, const void* k, const void* v,
                                    const void* res, const float* gamma, void* out, int B, int N,
                                    int DK, int DV, void* stream) {
-  if (DK < 1 || DK > DK_MAX || DV < 64 || DV > DV_MAX || DV % 64 != 0 || N < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, res, gamma, out, B, N, DK, DV, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, res, gamma, out, B, N, DK, DV, st);
-  return (int)cudaErrorInvalidValue;
+  if (res == nullptr || gamma == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch(dtype, q, k, v, res, gamma, out, B, N, DK, DV, stream);
+}
+
+// K6: as cic_attention_block with no residual and no gamma; out: (B, N, DV).
+extern "C" int cic_attention_core(int dtype, const void* q, const void* k, const void* v, void* out,
+                                  int B, int N, int DK, int DV, void* stream) {
+  return dispatch(dtype, q, k, v, nullptr, nullptr, out, B, N, DK, DV, stream);
 }

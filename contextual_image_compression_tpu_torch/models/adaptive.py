@@ -174,6 +174,27 @@ class AdaptiveCodec(nn.Module):
             skips.append(torch.cat([p.to(dtype), zeros], dim=1))
         return tuple(skips)
 
+    # ----------------------------------------------------------------- decode
+    def decode_latents(self, hq_latent_q: torch.Tensor, lq_latent_q: torch.Tensor,
+                       mask: torch.Tensor, target_bpp: torch.Tensor) -> torch.Tensor:
+        """Generator-only decode of the storable codec: quantized latents
+        (B, 2D) and (B, D), the mask (B, H, W, 1) and target_bpp (B, 1) ->
+        the blended image (B, H, W, C), with no encoder in the loop. Skips
+        are zero, or the mask planes in skip_mode 'mask'; with 'encoder'
+        skips it reconstructs from what the latents carry alone."""
+        ct = self.cfg.compute_dtype()
+        zq_hq, zq_lq = hq_latent_q.to(ct), lq_latent_q.to(ct)
+        m = mask.to(ct).permute(0, 3, 1, 2)
+        _, threshold, _ = self.rd_schedule(target_bpp.to(ct))
+        dyn_thr = self.dynamic_threshold(m, threshold)
+        if self.cfg.skip_mode == "mask":
+            skips = self._mask_skips(m, dyn_thr, ct)
+        else:
+            skips = self._zero_skips(zq_hq.shape[0], ct, m.device)
+        hq_out = self.hq_generator(zq_hq, skips)
+        lq_out = self.lq_generator(zq_lq, skips)
+        return _nhwc(hq_out * dyn_thr + lq_out * (const(1.0, ct, m.device) - dyn_thr))
+
     # ------------------------------------------------------------------ apply
     def apply(self, img: torch.Tensor, mask: torch.Tensor, target_bpp: torch.Tensor,
               train: bool = False, detach_for_training: bool = False) -> CodecOutput:

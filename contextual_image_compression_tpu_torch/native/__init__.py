@@ -1,4 +1,4 @@
-"""The adaptive range coder of the DCT baseline's bitstreams, bound with ctypes.
+"""The adaptive range coder of the port's bitstreams, bound with ctypes.
 
 `entropy_coder.cpp` is the port's own copy of the JAX package's coder, so
 streams are byte-identical between the two packages for equal symbols. At
@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import os
 import shutil
 import subprocess
 import tempfile
@@ -64,6 +65,12 @@ def library() -> ctypes.CDLL:
     lib.cic_entropy_encode.argtypes = [_I16P, ctypes.c_size_t, _U8P, ctypes.c_size_t]
     lib.cic_entropy_decode.restype = ctypes.c_size_t
     lib.cic_entropy_decode.argtypes = [_U8P, ctypes.c_size_t, _I16P, ctypes.c_size_t]
+    lib.cic_entropy_encode_batch.restype = ctypes.c_size_t
+    lib.cic_entropy_encode_batch.argtypes = [_I16P, ctypes.c_size_t, ctypes.c_size_t, _U8P,
+                                             ctypes.c_size_t, ctypes.c_int]
+    lib.cic_entropy_decode_batch.restype = ctypes.c_size_t
+    lib.cic_entropy_decode_batch.argtypes = [_U8P, ctypes.c_size_t, ctypes.c_size_t,
+                                             ctypes.c_size_t, _I16P, ctypes.c_int]
     return lib
 
 
@@ -96,4 +103,36 @@ def entropy_decode(data: bytes, n_symbols: int) -> np.ndarray:
                                        out.ctypes.data_as(_I16P), n_symbols)
     if got != n_symbols:
         raise RuntimeError(f"entropy decode: got {got}/{n_symbols} symbols")
+    return out
+
+
+def _threads(num_threads: int) -> int:
+    return num_threads if num_threads > 0 else min(16, os.cpu_count() or 1)
+
+
+def entropy_encode_batch(symbols: np.ndarray, num_threads: int = 0) -> bytes:
+    """Range-code (B, N) int16 symbols as B independent streams, framed as
+    [uint32 length][bytes] per item, on num_threads host threads (0: up to 16)."""
+    s = np.ascontiguousarray(symbols, dtype=np.int16)
+    if s.ndim != 2:
+        raise ValueError(f"entropy_encode_batch: expected (B, N) symbols, got {s.shape}")
+    cap = max(64, s.size * 4 + 64 + 8 * s.shape[0])
+    out = np.empty(cap, np.uint8)
+    n = library().cic_entropy_encode_batch(s.ctypes.data_as(_I16P), s.shape[0], s.shape[1],
+                                           out.ctypes.data_as(_U8P), cap, _threads(num_threads))
+    if n == 0 and s.size:
+        raise RuntimeError("entropy batch encode overflow")
+    return out[:n].tobytes()
+
+
+def entropy_decode_batch(data: bytes, batch: int, n_per_item: int,
+                         num_threads: int = 0) -> np.ndarray:
+    """The (batch, n_per_item) int16 symbols of an entropy_encode_batch blob."""
+    inp = np.frombuffer(data, np.uint8)
+    out = np.empty((batch, n_per_item), np.int16)
+    got = library().cic_entropy_decode_batch(inp.ctypes.data_as(_U8P), inp.size, batch,
+                                             n_per_item, out.ctypes.data_as(_I16P),
+                                             _threads(num_threads))
+    if got != batch:
+        raise RuntimeError(f"entropy batch decode: {got}/{batch} items decoded")
     return out

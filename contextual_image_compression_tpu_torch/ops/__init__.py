@@ -5,9 +5,15 @@ Each kernel wrapper counts its launches in a plain integer attribute,
 sets them to 0.
 """
 
-from contextual_image_compression_tpu_torch.ops.attention import attention_block
+from contextual_image_compression_tpu_torch.ops.attention import (
+    attention_block,
+    attention_core,
+    sagan_block,
+    sagan_block_spatial,
+)
 from contextual_image_compression_tpu_torch.ops.dct import dct_strips
 from contextual_image_compression_tpu_torch.ops.fused_mask import contextual_mask, smooth_mask
+from contextual_image_compression_tpu_torch.ops.generator_tail import fused_tail
 from contextual_image_compression_tpu_torch.ops.quantize import (
     adaptive_quantize,
     adaptive_quantize_bwd,
@@ -20,6 +26,10 @@ KERNEL_WRAPPERS = {
     "K3b": adaptive_quantize_bwd,
     "K4": smooth_mask,
     "K5": dct_strips,
+    "K6": attention_core,
+    "K7a": sagan_block,
+    "K7b": sagan_block_spatial,
+    "K8": fused_tail,
 }
 
 

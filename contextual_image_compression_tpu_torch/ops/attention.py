@@ -1,11 +1,25 @@
-"""SAGAN attention block: kernel K2 and its plain PyTorch twin.
+"""SAGAN attention: kernels K2, K6, K7a and K7b and their plain PyTorch twins.
 
-K2 replaces `contextual_image_compression_tpu/ops/attention.py::
-attention_block_pallas`: out = gamma * softmax(Q K^T) V + residual with no
-1/sqrt(d) scaling, q, k (B, N, Dk), v and residual (B, N, Dv). The forward of
-`attention_block` launches the kernel in `csrc/attention.cu` for CUDA tensors
-and the twin for CPU tensors; its backward is autograd over the plain
-formula, as the JAX package's custom VJP differentiates its jnp formula.
+Counterpart of `contextual_image_compression_tpu/ops/attention.py`, no
+1/sqrt(d) scaling anywhere:
+
+  * K2 `attention_block` (`attention_block_pallas`): gamma * softmax(Q K^T) V
+    + residual, q, k (B, N, Dk), v and residual (B, N, Dv);
+  * K6 `attention_core` (`attention_core_pallas`): softmax(Q K^T) V, the
+    same kernel (`csrc/attention.cu`) with no epilogue;
+  * K7a `sagan_block` (`sagan_block_pallas`) and K7b `sagan_block_spatial`
+    (`sagan_block_spatial_pallas`): the whole block with its 1x1 Q/K/V
+    projections, gamma * softmax((x Wq + bq)(x Wk + bk)^T)(x Wv + bv) + x,
+    on the (B, N, C) and the (B, H, W, C) views; one strided kernel
+    (`csrc/sagan_block.cu`) reads either in place, the port's NCHW
+    activation as `x.permute(0, 2, 3, 1)` included.
+
+Each wrapper launches its kernel for CUDA tensors and its twin (`*_plain`,
+the kernel's rounding) for CPU tensors. `use_pallas=False` runs the `*_jnp`
+counterpart of the JAX package's own formula instead, as the caller's
+explicit choice. The backward of K6 and K7 is autograd over the `*_jnp`
+formula, as the JAX custom VJPs differentiate theirs; K2's is autograd over
+its twin.
 """
 
 from __future__ import annotations
@@ -15,33 +29,74 @@ import torch
 from contextual_image_compression_tpu_torch.ops import cuda_kernels as ck
 
 
-def attention_block_plain(q, k, v, residual, gamma):
-    """gamma * softmax(Q K^T) V + residual with the TPU kernel's rounding:
+def attention_core_jnp(q, k, v):
+    """softmax(Q K^T) V, unscaled, in the inputs' dtype (the JAX package's
+    `attention_core_jnp`)."""
+    scores = torch.einsum("bnd,bmd->bnm", q, k)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bnm,bmd->bnd", p, v)
+
+
+def _ctx_and_recip(q, k, v):
+    """The TPU kernels' unnormalized e.V and 1 / row sum, in float32:
     float32 scores, exp(s - max) rounded to V's dtype for the e.V product,
-    float32 row sums, normalization after the product, float32 epilogue."""
+    float32 row sums (normalization comes after the product)."""
     scores = torch.einsum("bnd,bmd->bnm", q.float(), k.float())
     m = torch.amax(scores, dim=-1, keepdim=True)
     e = torch.exp(scores - m)
     recip = 1.0 / torch.sum(e, dim=-1, keepdim=True)
-    ctx = torch.einsum("bnm,bmd->bnd", e.to(v.dtype).float(), v.float())
+    return torch.einsum("bnm,bmd->bnd", e.to(v.dtype).float(), v.float()), recip
+
+
+def attention_core_plain(q, k, v):
+    """softmax(Q K^T) V with the TPU kernel's rounding (K6's twin)."""
+    ctx, recip = _ctx_and_recip(q, k, v)
+    return (ctx * recip).to(q.dtype)
+
+
+def attention_block_plain(q, k, v, residual, gamma):
+    """gamma * softmax(Q K^T) V + residual with the TPU kernel's rounding and
+    a float32 epilogue (K2's twin)."""
+    ctx, recip = _ctx_and_recip(q, k, v)
     g = torch.as_tensor(gamma, dtype=torch.float32, device=q.device)
     return ((g * recip) * ctx + residual.float()).to(q.dtype)
 
 
-def _attention_block_kernel(q, k, v, residual, gamma):
-    """Launch K2. gamma: a float32 tensor of one element on q's device."""
+def _check_attention_shapes(name, q, k, v, *rest):
     if q.device.type != "cuda":
-        raise ValueError(f"attention_block: unsupported device {q.device}")
+        raise ValueError(f"{name}: unsupported device {q.device}")
     dt = q.dtype
-    for t in (k, v, residual):
+    for t in (k, v, *rest):
         if t.dtype != dt:
-            raise TypeError("attention_block: q, k, v and residual must share one dtype")
+            raise TypeError(f"{name}: q, k, v and residual must share one dtype")
     b, n, dk = q.shape
     dv = v.shape[-1]
-    if k.shape != (b, n, dk) or v.shape != (b, n, dv) or residual.shape != (b, n, dv):
-        raise ValueError("attention_block: expected q, k (B, N, Dk) and v, residual (B, N, Dv)")
+    if k.shape != (b, n, dk) or v.shape != (b, n, dv) or any(t.shape != (b, n, dv) for t in rest):
+        raise ValueError(f"{name}: expected q, k (B, N, Dk) and v, residual (B, N, Dv)")
     if dk > 64 or dv % 64 != 0 or dv > 256:
-        raise ValueError(f"attention_block: kernel takes Dk <= 64 and Dv in 64..256 step 64, got {dk}, {dv}")
+        raise ValueError(f"{name}: kernel takes Dk <= 64 and Dv in 64..256 step 64, got {dk}, {dv}")
+    return b, n, dk, dv
+
+
+def _attention_core_kernel(q, k, v):
+    """Launch K6."""
+    b, n, dk, dv = _check_attention_shapes("attention_core", q, k, v)
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    ck.require_cuda("attention_core", q, k, v)
+    out = torch.empty_like(v)
+    err = ck.library().cic_attention_core(
+        ck.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, n, dk, dv, ck.stream_ptr(q.device),
+    )
+    ck.check(err, "attention_core")
+    attention_core.launches += 1
+    return out
+
+
+def _attention_block_kernel(q, k, v, residual, gamma):
+    """Launch K2. gamma: a float32 tensor of one element on q's device."""
+    b, n, dk, dv = _check_attention_shapes("attention_block", q, k, v, residual)
+    dt = q.dtype
     q, k, v, residual = (t.contiguous() for t in (q, k, v, residual))
     gamma = gamma.to(torch.float32).reshape(1).contiguous()
     ck.require_cuda("attention_block", q, k, v, residual, gamma)
@@ -55,21 +110,26 @@ def _attention_block_kernel(q, k, v, residual, gamma):
     return out
 
 
-class _AttentionBlock(torch.autograd.Function):
+class _Kernel(torch.autograd.Function):
+    """forward: `fwd(*inputs)` (a kernel, or its twin on the CPU); backward:
+    autograd over the formula `ref(*inputs)`, as the JAX custom VJPs
+    differentiate theirs."""
+
     @staticmethod
-    def forward(ctx, q, k, v, residual, gamma):
-        ctx.save_for_backward(q, k, v, residual, gamma)
-        return _attention_block_kernel(q, k, v, residual, gamma)
+    def forward(ctx, fwd, ref, *inputs):
+        ctx.ref = ref
+        ctx.save_for_backward(*inputs)
+        return fwd(*inputs)
 
     @staticmethod
     def backward(ctx, grad):
-        needs = ctx.needs_input_grad
+        needs = ctx.needs_input_grad[2:]
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
-            out = attention_block_plain(*inputs)
+            out = ctx.ref(*inputs)
             wanted = [t for t, n in zip(inputs, needs) if n]
             grads = iter(torch.autograd.grad(out, wanted, grad, allow_unused=True))
-        return tuple(next(grads) if n else None for n in needs)
+        return (None, None) + tuple(next(grads) if n else None for n in needs)
 
 
 def attention_block(q, k, v, residual, gamma):
@@ -78,7 +138,152 @@ def attention_block(q, k, v, residual, gamma):
         return attention_block_plain(q, k, v, residual, gamma)
     if not torch.is_tensor(gamma):
         gamma = torch.tensor(float(gamma), device=q.device)
-    return _AttentionBlock.apply(q, k, v, residual, gamma.float().reshape(()))
+    return _Kernel.apply(_attention_block_kernel, attention_block_plain, q, k, v, residual,
+                         gamma.float().reshape(()))
 
 
 attention_block.launches = 0
+
+
+def attention_core(q, k, v, use_pallas: bool = True):
+    """softmax(Q K^T) V, unscaled. use_pallas=True: K6 on the card, its twin
+    on the CPU; False: the jnp formula."""
+    if not use_pallas:
+        return attention_core_jnp(q, k, v)
+    fwd = attention_core_plain if q.device.type == "cpu" else _attention_core_kernel
+    return _Kernel.apply(fwd, attention_core_jnp, q, k, v)
+
+
+attention_core.launches = 0
+
+
+# ----------------------------------------------------------------- K7a / K7b
+
+def sagan_block_jnp(xf, wq, bq, wk, bk, wv, bv, gamma):
+    """The JAX package's `sagan_block_jnp`: projections and biases in x's
+    dtype, then gamma * softmax(Q K^T) V + x. xf (B, N, C); wq, wk (C, C/8)
+    and wv (C, Dv) in (in, out) layout."""
+    dt = xf.dtype
+    q = torch.einsum("bnc,cf->bnf", xf, wq.to(dt)) + bq.to(dt)
+    k = torch.einsum("bnc,cf->bnf", xf, wk.to(dt)) + bk.to(dt)
+    v = torch.einsum("bnc,cf->bnf", xf, wv.to(dt)) + bv.to(dt)
+    return gamma * attention_core_jnp(q, k, v) + xf
+
+
+def sagan_block_spatial_jnp(x, wq, bq, wk, bk, wv, bv, gamma):
+    """`sagan_block_jnp` on the (B, H, W, C) view."""
+    b, h, w, c = x.shape
+    out = sagan_block_jnp(x.reshape(b, h * w, c), wq, bq, wk, bk, wv, bv, gamma)
+    return out.reshape(b, h, w, out.shape[-1])
+
+
+def _project(x, w, bias):
+    """x . W accumulated in float32 + the float32 bias, rounded to x's dtype
+    (the TPU kernel's projections; W is cast to x's dtype first)."""
+    dt = x.dtype
+    return (torch.einsum("bnc,cf->bnf", x.float(), w.to(dt).float()) + bias.float()).to(dt)
+
+
+def sagan_block_plain(xf, wq, bq, wk, bk, wv, bv, gamma):
+    """The twin of K7a / K7b with the TPU kernel's rounding: q, k and v
+    rounded to x's dtype after float32 accumulation and float32 bias, then
+    K2's twin with the residual x itself."""
+    q, k, v = _project(xf, wq, bq), _project(xf, wk, bk), _project(xf, wv, bv)
+    return attention_block_plain(q, k, v, xf, gamma)
+
+
+def _sagan_plain_spatial(x, *params):
+    b, h, w, c = x.shape
+    out = sagan_block_plain(x.reshape(b, h * w, c), *params)
+    return out.reshape(b, h, w, out.shape[-1])
+
+
+def _position_view(x):
+    """(B, N, C) element strides of x (B, N, C) or (B, H, W, C), read in place
+    where H and W fold into one position stride, else of a contiguous copy."""
+    if x.dim() == 3:
+        return x, tuple(x.stride())
+    b, h, w, c = x.shape
+    sb, sh, sw, sc = x.stride()
+    if h > 1 and sh != w * sw:
+        x = x.contiguous()
+        sb, sh, sw, sc = x.stride()
+    return x, (sb, sw, sc)
+
+
+def _sagan_kernel(owner, x, wq, bq, wk, bk, wv, bv, gamma):
+    """Launch K7 on x (B, N, C) or (B, H, W, C) in any layout whose positions
+    share one stride; the output has x's shape and layout. `owner` is the
+    public wrapper whose launch count moves."""
+    name = owner.__name__
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    dt = x.dtype
+    c = x.shape[-1]
+    n = x.numel() // (x.shape[0] * c) if x.numel() else 0
+    inner, dv = wq.shape[-1], wv.shape[-1]
+    if wq.shape != (c, inner) or wk.shape != (c, inner) or wv.shape != (c, dv):
+        raise ValueError(f"{name}: expected wq, wk (C, C/8) and wv (C, Dv)")
+    if dv != c or inner > 64 or c % 64 != 0 or c > 256:
+        raise ValueError(f"{name}: kernel takes Dv == C in 64..256 step 64 and C/8 <= 64, "
+                         f"got C {c}, inner {inner}, Dv {dv}")
+    x, (sxb, sxn, sxc) = _position_view(x)
+    out = torch.empty_like(x)
+    _, (sob, son, soc) = _position_view(out)
+    ws = [w.to(dt).contiguous() for w in (wq, wk, wv)]
+    bs = [t.to(torch.float32).reshape(-1).contiguous() for t in (bq, bk, bv)]
+    g = torch.as_tensor(gamma, dtype=torch.float32, device=x.device).reshape(1).contiguous()
+    b = x.shape[0]
+    kbuf = torch.empty((b, n, inner), dtype=dt, device=x.device)
+    vbuf = torch.empty((b, n, dv), dtype=dt, device=x.device)
+    ck.require_cuda(name, *ws, *bs, g, kbuf, vbuf)
+    err = ck.library().cic_sagan_block(
+        ck.dtype_code(dt), x.data_ptr(), sxb, sxn, sxc,
+        ws[0].data_ptr(), bs[0].data_ptr(), ws[1].data_ptr(), bs[1].data_ptr(),
+        ws[2].data_ptr(), bs[2].data_ptr(), g.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(),
+        out.data_ptr(), sob, son, soc, b, n, c, inner, dv, ck.stream_ptr(x.device),
+    )
+    ck.check(err, name)
+    owner.launches += 1
+    return out
+
+
+def _gamma_tensor(gamma, like):
+    if torch.is_tensor(gamma):
+        return gamma.float().reshape(())
+    return torch.tensor(float(gamma), device=like.device)
+
+
+def sagan_block(xf, wq, bq, wk, bk, wv, bv, gamma, use_pallas: bool = True):
+    """gamma * softmax((x Wq + bq)(x Wk + bk)^T)(x Wv + bv) + x on the
+    (B, N, C) view. use_pallas=True: K7a on the card, its twin on the CPU;
+    False: the jnp formula."""
+    if not use_pallas:
+        return sagan_block_jnp(xf, wq, bq, wk, bk, wv, bv, gamma)
+    if xf.device.type == "cpu":
+        fwd = sagan_block_plain
+    else:
+        def fwd(*args):
+            return _sagan_kernel(sagan_block, *args)
+    return _Kernel.apply(fwd, sagan_block_jnp, xf, wq, bq, wk, bk, wv, bv,
+                         _gamma_tensor(gamma, xf))
+
+
+def sagan_block_spatial(x, wq, bq, wk, bk, wv, bv, gamma, use_pallas: bool = True):
+    """`sagan_block` on the spatial (B, H, W, C) view, read in place (e.g. the
+    port's NCHW activation as `x.permute(0, 2, 3, 1)`); the output keeps x's
+    layout. use_pallas=True: K7b on the card, its twin on the CPU; False:
+    the jnp formula."""
+    if not use_pallas:
+        return sagan_block_spatial_jnp(x, wq, bq, wk, bk, wv, bv, gamma)
+    if x.device.type == "cpu":
+        fwd = _sagan_plain_spatial
+    else:
+        def fwd(*args):
+            return _sagan_kernel(sagan_block_spatial, *args)
+    return _Kernel.apply(fwd, sagan_block_spatial_jnp, x, wq, bq, wk, bk, wv, bv,
+                         _gamma_tensor(gamma, x))
+
+
+sagan_block.launches = 0
+sagan_block_spatial.launches = 0

@@ -38,6 +38,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # argtypes of every exported function (all return a cudaError_t as int)
 _SIGNATURES = {
@@ -64,6 +65,25 @@ _SIGNATURES = {
         _I,                          # dtype code (0 f32, 1 bf16)
         _P, _P, _P, _P, _P, _P,      # q, k, v, residual, gamma (f32 on device), out
         _I, _I, _I, _I, _P,          # B, N, DK, DV, stream
+    ],
+    "cic_attention_core": [
+        _I,                          # dtype code
+        _P, _P, _P, _P,              # q, k, v, out
+        _I, _I, _I, _I, _P,          # B, N, DK, DV, stream
+    ],
+    "cic_sagan_block": [
+        _I,                          # dtype code
+        _P, _L, _L, _L,              # x and its (batch, position, channel) element strides
+        _P, _P, _P, _P, _P, _P,      # wq, bq(f32), wk, bk(f32), wv, bv(f32)
+        _P, _P, _P,                  # gamma(f32), K scratch, V scratch
+        _P, _L, _L, _L,              # out and its element strides
+        _I, _I, _I, _I, _I, _P,      # B, N, C, DK, DV, stream
+    ],
+    "cic_packed_tail": [
+        _I,                          # dtype code
+        _P, _P, _P, _P, _P, _P,      # x, packed deconv taps, shift, out weight, bias(f32), out
+        _I, _I, _I, _I, _I, _I,      # B, Cin, H, W, Cmid, Co
+        _F, _P,                      # LeakyReLU slope, stream
     ],
     "cic_adaptive_quantize": [
         _I,                          # dtype code

@@ -6,14 +6,23 @@ Counterpart of `CompressionPipeline.__call__` in
 uint8, plus the fp32 bitstream symbols computed from the latents before
 quantization. The serving configuration is the JAX package's: bfloat16
 compute, the folded generator tail with int8 storage, and weight-only int8
-latent/fc projections. Bitstream serialization, the storable decode path and
-meshes come with a later slice.
+latent/fc projections.
+
+The storable codec: `serialize_latents` range-codes the symbols into
+per-image latent streams, `encode_to_bitstream` packs them with the
+downsampled mask and the target bpp into self-contained CICZ containers
+(ops/bitstream.py, byte-identical to the JAX package's), and
+`decode_from_bitstream` turns containers back into uint8 images through the
+generators alone (`AdaptiveCodec.decode_latents`). A faithful round trip
+needs a codec trained with skip_mode='zero' (or 'mask'): with the
+reference's encoder skips the latents do not carry the whole image. Meshes
+come with a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +39,12 @@ from contextual_image_compression_tpu_torch.models.layers import (
     prepare_w8,
     quantize_dense_w8,
 )
+from contextual_image_compression_tpu_torch.ops import bitstream as bs
 from contextual_image_compression_tpu_torch.ops import masks as mask_ops
+from contextual_image_compression_tpu_torch.ops.saliency import (
+    _full_fp32_matmul,
+    resize_op_matrix,
+)
 
 
 def _serving_model_config(cfg: ModelConfig) -> ModelConfig:
@@ -147,3 +161,57 @@ class CompressionPipeline:
             decoded = decoded[:b]
             info = {k: v[:b] for k, v in info.items()}
         return decoded.cpu().numpy(), info
+
+    def serialize_latents(self, info: Dict) -> Tuple[List[Tuple[bytes, bytes]], np.ndarray]:
+        """Range-code the float32 symbols of a call's info into per-image
+        (hq, lq) latent streams; returns (streams, measured bits per pixel)."""
+        def host(key):
+            return info[key].float().cpu().numpy()
+
+        streams = bs.pack_codec_symbols(host("hq_symbols"), host("lq_symbols"),
+                                        host("hq_scale"), host("lq_scale"))
+        return streams, bs.measured_bpp(streams, self.mcfg.img_size)
+
+    def encode_to_bitstream(self, images_u8, target_bpp: float = 1.0,
+                            mask_downsample: int = 8) -> List[bytes]:
+        """uint8 (B, H, W, C) -> one self-contained container per image: the
+        latent streams, the mask downsampled to uint8 and the target bpp."""
+        _, info = self(images_u8, target_bpp=target_bpp)
+        latent_streams, _ = self.serialize_latents(info)
+        mask = info["mask"].float().cpu().numpy()
+        return [bs.pack_container(hq, lq, mask[i], target_bpp, self.mcfg.img_size,
+                                  mask_downsample)
+                for i, (hq, lq) in enumerate(latent_streams)]
+
+    @torch.no_grad()
+    def _decode(self, hq: torch.Tensor, lq: torch.Tensor, mask_small: torch.Tensor,
+                bpp: torch.Tensor) -> torch.Tensor:
+        h, w = self.mcfg.img_size
+        dev = hq.device
+        # jax.image.resize(..., "bilinear") upsampling: half-pixel centres, no antialias
+        rh = torch.from_numpy(resize_op_matrix(mask_small.shape[1], h)).to(dev)
+        rw = torch.from_numpy(resize_op_matrix(mask_small.shape[2], w)).to(dev)
+        with _full_fp32_matmul(dev):
+            mask = (rh @ mask_small) @ rw.T
+        img = self.codec.decode_latents(hq, lq, mask[..., None], bpp)
+        decoded = (img.float() + 1.0) * 127.5
+        return torch.clamp(torch.round(decoded), 0, 255).to(torch.uint8)
+
+    def decode_from_bitstream(self, streams) -> np.ndarray:
+        """Containers (one bytes object or a list) -> decoded uint8 images
+        (B, H, W, C), with no encoder in the loop."""
+        if isinstance(streams, (bytes, bytearray)):
+            streams = [streams]
+        parts = [bs.unpack_container(s) for s in streams]
+        h, w = self.mcfg.img_size
+        for p in parts:
+            if p["img_hw"] != (h, w):
+                raise ValueError(f"stream image size {p['img_hw']} != pipeline {(h, w)}")
+
+        def stack(key):
+            return torch.from_numpy(np.stack([p[key] for p in parts])).to(self.device)
+
+        bpp = torch.tensor([[p["target_bpp"]] for p in parts], dtype=torch.float32,
+                           device=self.device)
+        out = self._decode(stack("hq_latent"), stack("lq_latent"), stack("mask_small"), bpp)
+        return out.cpu().numpy()

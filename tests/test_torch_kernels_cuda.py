@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card, in
 the cases chip_smoke.py does not run: ragged sizes, B = 1, K2's backward,
 K3b under autograd, K4 on non-square and all-zero maps, K5 at the smallest
-and a ragged width and at the extreme quality tables.
+and a ragged width and at the extreme quality tables, K6 and K7 at ragged N
+and value widths 64 and 128, K7b on a permuted (non-contiguous) view, K7's
+backward, K8 at an odd batch, a ragged size and in float32.
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels build at
 first use); elsewhere they skip. The file imports torch only, so it runs on a
@@ -20,6 +22,16 @@ from contextual_image_compression_tpu_torch.ops import image_ops, saliency
 from contextual_image_compression_tpu_torch.ops.attention import (
     attention_block,
     attention_block_plain,
+    attention_core,
+    attention_core_plain,
+    sagan_block,
+    sagan_block_jnp,
+    sagan_block_plain,
+    sagan_block_spatial,
+)
+from contextual_image_compression_tpu_torch.ops.generator_tail import (
+    fused_tail,
+    fused_tail_plain,
 )
 from contextual_image_compression_tpu_torch.config import QuantizerConfig
 from contextual_image_compression_tpu_torch.ops.dct import (
@@ -186,3 +198,112 @@ def test_k5_matches_twin(dev, b, h, w, quality):
     agree = (sym == sym_p).reshape(b, 3, h // 8, 8, w // 8, 8).all(5).all(3)
     err = (rec - rec_p).abs().reshape(b, 3, h // 8, 8, w // 8, 8).amax((3, 5))
     assert err[agree].max().item() <= 1e-4
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("n,dv", [(100, 64), (100, 128), (1, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_ragged_matches_twin(dev, n, dv, dtype):
+    """N = 100 is not a multiple of the 64-row tile. Bars: float32 1e-5,
+    bf16 2e-2 of max |out| (as K2's)."""
+    gen = torch.Generator(device=dev).manual_seed(n + dv)
+    q, k = ((torch.randn(2, n, 16, device=dev, generator=gen) * 0.5).to(dtype) for _ in range(2))
+    v = torch.randn(2, n, dv, device=dev, generator=gen).to(dtype)
+    before = attention_core.launches
+    got = attention_core(q, k, v)
+    assert attention_core.launches == before + 1 and got.dtype == dtype
+    want = attention_core_plain(q, k, v)
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        assert _rel_err(got, want) <= 2e-2
+
+
+def _sagan_params(dev, c, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    inner = c // 8
+
+    def r(*shape):
+        return torch.randn(*shape, device=dev, generator=gen) * 0.1
+
+    return [r(c, inner), r(inner), r(c, inner), r(inner), r(c, c), r(c)], torch.tensor(0.5, device=dev)
+
+
+@pytest.mark.parametrize("n,c", [(100, 64), (100, 128), (64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7a_ragged_matches_twin(dev, n, c, dtype):
+    params, g = _sagan_params(dev, c, n + c)
+    x = torch.randn(2, n, c, device=dev).to(dtype)
+    before = sagan_block.launches
+    got = sagan_block(x, *params, g)
+    assert sagan_block.launches == before + 1 and got.dtype == dtype
+    want = sagan_block_plain(x, *params, g)
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        assert _rel_err(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7b_reads_a_permuted_nchw_view_in_place(dev, dtype):
+    """The encoder's NCHW activation seen as (B, H, W, C): no copy, the
+    output in the same layout, equal to the contiguous input's result."""
+    c, h, w = 128, 10, 10
+    params, g = _sagan_params(dev, c, 7)
+    x_nchw = torch.randn(2, c, h, w, device=dev).to(dtype)
+    view = x_nchw.permute(0, 2, 3, 1)
+    before = sagan_block_spatial.launches
+    got = sagan_block_spatial(view, *params, g)
+    assert sagan_block_spatial.launches == before + 1
+    assert got.stride() == view.stride()
+    want = sagan_block_spatial(view.contiguous(), *params, g)
+    assert want.is_contiguous()
+    assert torch.equal(got, want)
+    flat = sagan_block_plain(view.reshape(2, h * w, c), *params, g).reshape(2, h, w, c)
+    if dtype == torch.float32:
+        assert (got - flat).abs().max().item() <= 1e-5
+    else:
+        assert _rel_err(got, flat) <= 2e-2
+
+
+def test_k7_backward_runs_through_the_jnp_formula(dev):
+    params, g = _sagan_params(dev, 64, 9)
+    x = torch.randn(1, 64, 64, device=dev, requires_grad=True)
+    ps = [p.clone().requires_grad_(True) for p in params]
+    gg = g.clone().requires_grad_(True)
+    sagan_block(x, *ps, gg).pow(2).sum().backward()
+    want = torch.autograd.grad(sagan_block_jnp(x, *ps, gg).pow(2).sum(), [x, *ps, gg])
+    for t, w in zip([x, *ps, gg], want):
+        assert torch.allclose(t.grad, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,h,cin,cmid,dtype", [
+    (3, 16, 128, 32, torch.bfloat16),
+    (3, 16, 128, 32, torch.float32),
+    (1, 12, 40, 8, torch.float32),
+    (2, 12, 128, 32, torch.bfloat16),
+], ids=["odd-batch-bf16", "odd-batch-f32", "ragged-narrow-f32", "ragged-bf16"])
+def test_k8_matches_twin(dev, b, h, cin, cmid, dtype):
+    """H = 12 gives a 24-pixel output, not a multiple of the 16-pixel tile.
+    Bars: float32 2e-5 (as the CPU tests), bf16 1.6e-2 absolute on a tanh
+    output (two bf16 ulps of 1), identical on >= 99% of outputs."""
+    gen = torch.Generator(device=dev).manual_seed(b * h + cin)
+    x = (torch.randn(b, cin, h, h, device=dev, generator=gen) * 0.5).to(dtype)
+    folded = (torch.randn(cin, cmid, 4, 4, device=dev, generator=gen) * 0.1).to(dtype)
+    shift = (torch.randn(cmid, device=dev, generator=gen) * 0.1).to(dtype)
+    ow = (torch.randn(3, cmid, 4, 4, device=dev, generator=gen) * 0.1).to(dtype)
+    ob = torch.randn(3, device=dev, generator=gen) * 0.1
+    before = fused_tail.launches
+    got = fused_tail(x, folded, shift, ow, ob)
+    assert fused_tail.launches == before + 1
+    assert got.shape == (b, 3, 2 * h, 2 * h) and got.dtype == dtype
+    want = fused_tail_plain(x, folded, shift, ow, ob)
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 2e-5
+    else:
+        assert err.max().item() <= 1.6e-2
+        assert (err == 0).float().mean().item() >= 0.99

@@ -30,9 +30,13 @@ from contextual_image_compression_tpu_torch.ops import masks as tmasks
 from contextual_image_compression_tpu_torch.ops import saliency as tsal
 from contextual_image_compression_tpu_torch.ops.attention import (
     attention_block,
+    attention_core,
+    sagan_block,
+    sagan_block_spatial,
     attention_block_plain,
 )
 from contextual_image_compression_tpu_torch.ops.dct import dct_strips
+from contextual_image_compression_tpu_torch.ops.generator_tail import fused_tail
 from contextual_image_compression_tpu_torch.ops.fused_mask import (
     contextual_mask,
     smooth_mask,
@@ -245,7 +249,21 @@ def test_kernel_wrappers_refuse_other_devices():
         smooth_mask(meta)
     with pytest.raises(ValueError):
         dct_strips(torch.empty((1, 3, 8, 8), device="meta"), torch.empty((3, 8, 8), device="meta"))
-    assert set(tops.launch_counts()) == {"K1", "K2", "K3", "K3b", "K4", "K5"}
+    with pytest.raises(ValueError):
+        attention_core(q, q, v)
+    x = torch.empty((1, 8, 64), device="meta")
+    w, bias = torch.empty((64, 8), device="meta"), torch.empty((8,), device="meta")
+    wv, bv = torch.empty((64, 64), device="meta"), torch.empty((64,), device="meta")
+    with pytest.raises(ValueError):
+        sagan_block(x, w, bias, w, bias, wv, bv, 0.5)
+    with pytest.raises(ValueError):
+        sagan_block_spatial(x.reshape(1, 2, 4, 64), w, bias, w, bias, wv, bv, 0.5)
+    with pytest.raises(ValueError):
+        fused_tail(torch.empty((1, 16, 4, 4), device="meta"), torch.empty((16, 8, 4, 4), device="meta"),
+                   torch.empty((8,), device="meta"), torch.empty((3, 8, 4, 4), device="meta"),
+                   torch.empty((3,), device="meta"))
+    assert set(tops.launch_counts()) == {"K1", "K2", "K3", "K3b", "K4", "K5", "K6", "K7a", "K7b",
+                                         "K8"}
 
 
 def test_c_signatures_match_sources():
