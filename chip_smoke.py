@@ -4,11 +4,18 @@
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from contextual_image_compression_tpu_torch/csrc
-   and its range coder (g++) from contextual_image_compression_tpu_torch/native;
+   and its range coder (g++) from contextual_image_compression_tpu_torch/native,
+   printing each kernel's registers and spills (and failing if the K2 / K6
+   tensor-core kernel spills or starts at other than the 168 registers its
+   setmaxnreg split deals out);
 3. holds the serving kernels (K1 contextual mask, K2 attention block, K3 quantizer)
    against its plain PyTorch twin on the card at the serving path's shapes
    (B = 16, 256^2, D = 512) and times kernel, twin and, where one exists, a
-   library call with CUDA events;
+   library call with CUDA events (`measure.event_ms`: the host's launch
+   inside, as a caller pays it); K2 also on the device alone
+   (`measure.device_ms`) beside the library call timed the same way, in
+   float32 beside the float32 library call, and with the share of bf16
+   outputs bit-identical to the twin;
 4. checks the serving pipeline at a small size on the card against the same
    pipeline on the CPU (where each wrapper runs its twin);
 5. runs CompressionPipeline(ModelConfig(), device="cuda") at full width with
@@ -140,9 +147,19 @@ def check_k1(dev, rng, B):
                 library_ms=None)
 
 
+def _identical(got, want):
+    """Share of elements of got equal to want bit for bit."""
+    return (got == want).float().mean().item()
+
+
+def _three_calls(q, k, v):
+    """softmax(q k^T) v in three library calls (a yardstick the port never calls)."""
+    return torch.softmax(q @ k.transpose(1, 2), dim=-1) @ v
+
+
 def check_k2(dev, B):
     import torch.nn.functional as F
-    from contextual_image_compression_tpu_torch.measure import event_ms
+    from contextual_image_compression_tpu_torch.measure import device_ms, event_ms
     from contextual_image_compression_tpu_torch.ops.attention import (
         attention_block, attention_block_plain)
 
@@ -154,43 +171,55 @@ def check_k2(dev, B):
     res = torch.randn(B, N, DV, device=dev, generator=gen).to(torch.bfloat16)
     g = torch.tensor(0.5, device=dev)
     zero = torch.zeros_like(res)
-    got = attention_block(q, k, v, res, g).float()
-    want = attention_block_plain(q, k, v, res, g).float()
+    got = attention_block(q, k, v, res, g)
+    want = attention_block_plain(q, k, v, res, g)
     # With the residual at 0 the output is the attention term gamma * ctx
     # alone, so the bf16 bar is relative to that term, not to the ulp of the
     # residual, which at |res| ~ 4 is larger than the term itself.
-    att = attention_block(q, k, v, zero, g).float()
-    att_want = attention_block_plain(q, k, v, zero, g).float()
-    f32 = attention_block(q.float(), k.float(), v.float(), res.float(), g).float()
-    f32_want = attention_block_plain(q.float(), k.float(), v.float(), res.float(), g).float()
+    att = attention_block(q, k, v, zero, g)
+    att_want = attention_block_plain(q, k, v, zero, g)
+    f32 = [t.float() for t in (q, k, v, res)]
+    got32 = attention_block(*f32, g)
+    want32 = attention_block_plain(*f32, g)
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    rel = err / want.abs().max().item()
-    att_rel = (att - att_want).abs().max().item() / att_want.abs().max().item()
-    err32 = (f32 - f32_want).abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / want.float().abs().max().item()
+    att_rel = _rel(att, att_want)
+    same, att_same = _identical(got, want), _identical(att, att_want)
+    err32 = (got32 - want32).abs().max().item()
     log(f"K2 attention block bf16 q,k {tuple(q.shape)} v {tuple(v.shape)}: max |kernel - twin| = "
         f"{err:.3e} ({rel:.2e} of max |out|, bar 2e-2); residual 0: {att_rel:.2e} of max "
-        f"|gamma ctx| = {att_want.abs().max().item():.3e} (bar 2e-2); float32 {err32:.3e} (bar 1e-5)")
+        f"|gamma ctx| = {att_want.float().abs().max().item():.3e} (bar 2e-2); float32 {err32:.3e} "
+        f"(bar 1e-5); bit-identical to the twin: {same:.4f} of outputs, residual 0: {att_same:.4f}")
     if not (rel <= 2e-2 and att_rel <= 2e-2 and err32 <= 1e-5):
         raise AssertionError(f"K2 disagrees with its twin: bf16 {rel}, residual 0 {att_rel}, "
                              f"f32 {err32}")
     ms = event_ms(lambda: attention_block(q, k, v, res, g))
+    ms32 = event_ms(lambda: attention_block(*f32, g))
     plain = event_ms(lambda: attention_block_plain(q, k, v, res, g), reps=5, warmup=1)
     # yardsticks the port never calls, both without the gamma-residual epilogue:
-    # softmax(q k^T) v in three cuBLAS-backed calls, and one SDPA call
-    lib = event_ms(lambda: torch.softmax(q @ k.transpose(1, 2), dim=-1) @ v)
+    # softmax(q k^T) v in three cuBLAS-backed calls (bf16; float32 with TF32
+    # off), and one SDPA call
+    lib = event_ms(lambda: _three_calls(q, k, v))
+    lib32 = event_ms(lambda: _three_calls(*f32[:3]))
     sdpa = event_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+    # the same calls on the device alone, the host's launch kept out
+    dev_ms = device_ms(lambda: attention_block(q, k, v, res, g))
+    lib_dev = device_ms(lambda: _three_calls(q, k, v))
     flops = 2.0 * B * N * N * (DK + DV)
     nbytes = (q.numel() + k.numel() + v.numel() + res.numel() + got.numel()) * 2
     b_ms, b_by = bound_ms(nbytes, flops, H100_BF16_TFLOPS)
-    log(f"K2 times: kernel {ms:.4f} ms, twin {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-        f"library softmax(q k^T) v in three calls {lib:.4f} ms, "
-        f"scaled_dot_product_attention(scale=1) {sdpa:.4f} ms")
+    log(f"K2 times (host launch inside): kernel bf16 {ms:.4f} ms (device alone {dev_ms:.4f}; "
+        f"float32 {ms32:.4f}), twin {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library "
+        f"softmax(q k^T) v in three calls {lib:.4f} ms (device alone {lib_dev:.4f}; float32 "
+        f"{lib32:.4f}), scaled_dot_product_attention(scale=1) {sdpa:.4f} ms")
     return dict(name="K2 attention_block", route="cuda",
                 source="contextual_image_compression_tpu_torch/csrc/attention.cu",
                 replaces="contextual_image_compression_tpu/ops/attention.py:174",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib, sdpa_ms=sdpa)
+                library_ms=lib, sdpa_ms=sdpa, float32_ms=ms32, library_float32_ms=lib32,
+                device_ms=dev_ms, library_device_ms=lib_dev, identical_share=same,
+                design="wgmma")
 
 
 def check_k3(dev, B):
@@ -851,7 +880,7 @@ def _rel(got, want):
 def check_k6(dev, B):
     """K6 at K2's shapes (B, 1024, 32) / (B, 1024, 256), bf16 and float32."""
     import torch.nn.functional as F
-    from contextual_image_compression_tpu_torch.measure import event_ms
+    from contextual_image_compression_tpu_torch.measure import device_ms, event_ms
     from contextual_image_compression_tpu_torch.ops.attention import (
         attention_core, attention_core_plain)
 
@@ -866,27 +895,35 @@ def check_k6(dev, B):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     rel = _rel(got, want)
+    same = _identical(got, want)
     err32 = (got32 - want32).abs().max().item()
     log(f"K6 attention core bf16 q,k {tuple(q.shape)} v {tuple(v.shape)}: max |kernel - twin| = "
-        f"{err:.3e} ({rel:.2e} of max |out|, bar 2e-2); float32 {err32:.3e} (bar 1e-5)")
+        f"{err:.3e} ({rel:.2e} of max |out|, bar 2e-2); float32 {err32:.3e} (bar 1e-5); "
+        f"bit-identical to the twin: {same:.4f} of outputs")
     if not (rel <= 2e-2 and err32 <= 1e-5):
         raise AssertionError(f"K6 disagrees with its twin: bf16 {rel}, f32 {err32}")
     ms = event_ms(lambda: attention_core(q, k, v))
     ms32 = event_ms(lambda: attention_core(*f32))
     plain = event_ms(lambda: attention_core_plain(q, k, v), reps=5, warmup=1)
-    lib = event_ms(lambda: torch.softmax(q @ k.transpose(1, 2), dim=-1) @ v)
+    lib = event_ms(lambda: _three_calls(q, k, v))
+    lib32 = event_ms(lambda: _three_calls(*f32))
     sdpa = event_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+    dev_ms = device_ms(lambda: attention_core(q, k, v))
+    lib_dev = device_ms(lambda: _three_calls(q, k, v))
     flops = 2.0 * B * N * N * (DK + DV)
     nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * 2
     b_ms, b_by = bound_ms(nbytes, flops, H100_BF16_TFLOPS)
-    log(f"K6 times: kernel bf16 {ms:.4f} ms (float32 {ms32:.4f}), twin {plain:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}), softmax(q k^T) v in three calls {lib:.4f} ms, "
+    log(f"K6 times (host launch inside): kernel bf16 {ms:.4f} ms (device alone {dev_ms:.4f}; "
+        f"float32 {ms32:.4f}), twin {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), softmax(q k^T) "
+        f"v in three calls {lib:.4f} ms (device alone {lib_dev:.4f}; float32 {lib32:.4f}), "
         f"scaled_dot_product_attention(scale=1) {sdpa:.4f} ms")
     return dict(name="K6 attention_core", route="cuda",
                 source="contextual_image_compression_tpu_torch/csrc/attention.cu",
                 replaces="contextual_image_compression_tpu/ops/attention.py:156",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib, sdpa_ms=sdpa, float32_ms=ms32)
+                library_ms=lib, sdpa_ms=sdpa, float32_ms=ms32, library_float32_ms=lib32,
+                device_ms=dev_ms, library_device_ms=lib_dev, identical_share=same,
+                design="wgmma")
 
 
 def _sagan_weights(attn, dt):
@@ -1193,9 +1230,25 @@ def main():
     cuda_kernels.library()
     log(f"kernels built in {time.time() - t0:.1f} s: {lib_path}")
     build_log = (lib_path.parent / "build.log").read_text()
+    entry, spills, arrives = "?", "", 0
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "(C7519)" in line:
+            arrives += 1  # ptxas's note of a wgmma fence it added (one line each)
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line:
+            log(f"  ptxas: {entry[:110]}: {spills}; {line.split(':', 1)[-1].strip()}")
+            if "attn_tc_kernel" in entry and not spills.startswith("0 bytes stack frame, 0 bytes spill"):
+                raise AssertionError(f"the K2 / K6 tensor-core kernel spills: {entry} {spills}")
+            if "attn_tc_kernel" in entry and "Used 168 registers" not in line:
+                raise AssertionError(f"the K2 / K6 tensor-core kernel does not start at the 168 "
+                                     f"registers its setmaxnreg split deals out: {entry} {line}")
+        elif "error" in line.lower() or "warning" in line.lower():
             log("  ptxas: " + line.strip())
+    if arrives:
+        log(f"  ptxas: {arrives} notes (C7519) of a warpgroup.arrive injected before a wgmma")
     from contextual_image_compression_tpu_torch import native
 
     t0 = time.time()

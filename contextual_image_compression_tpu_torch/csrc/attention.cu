@@ -5,34 +5,71 @@
 // attention_block_pallas (forward _attention_pallas_fwd, body
 // _attn_block_kernel); K6 replaces attention_core_pallas (body _attn_kernel),
 // which is K2 without the epilogue. Semantics kept from the TPU kernels: no
-// 1/sqrt(d) scaling; scores in float32; the softmax numerator e is rounded to
-// V's dtype before the e.V product while the row sum uses the unrounded
-// float32 e; normalization after the product. K2's epilogue is
-// gamma * (1 / l) * acc + residual in float32; K6's (a null residual) is
-// acc * (1 / l), `ctx * recip` of _attn_kernel; one store in the tensors' dtype.
+// 1/sqrt(d) scaling; scores in float32; the softmax numerator e = exp(s - m),
+// with m the row's max over all keys, rounded to V's dtype before the e.V
+// product while the row sum uses the unrounded float32 e; normalization after
+// the product. K2's epilogue is gamma * (1 / l) * acc + residual in float32;
+// K6's (a null residual) is acc * (1 / l), `ctx * recip` of _attn_kernel; one
+// store in the tensors' dtype.
 //
-// Bound on the H100: per image 2 * N^2 * (DK + DV) = 0.6 GFLOP at N = 1024,
-// DK = 32, DV = 256 against ~1.7 MB of q, k, v, residual and output, about
-// 350 FLOP per byte: near the balance point of the bf16 tensor cores and far
-// above that of float32 CUDA cores. This first version is flash-style on
-// CUDA cores (float32 FMA, attention.cuh), so the N x N scores never reach
-// device memory; it is bound by FMA throughput and shared-memory bandwidth, and
-// mma.sync / wgmma tiles are later work.
+// What bounds it on the H100: per image 2 * N^2 * (DK + DV) = 0.6 GFLOP at
+// N = 1024, DK = 32, DV = 256 against ~1.7 MB of q, k, v, residual and
+// output, about 350 FLOP per byte, above the bf16 tensor cores' balance point
+// (~295): the products bound it, and next to them the N^2 exponentials.
+//
+// bf16 (the serving path) runs on the tensor cores (attn_tc_kernel): a block
+// owns 128 query rows of one image, as two consumer warpgroups of 64 rows and
+// a producer warpgroup whose one working warp streams 64-key tiles of K (and,
+// in the second pass, V) by TMA into a ring of STAGES shared-memory stages,
+// 128-byte swizzled, signalled by mbarriers. Pass 1 computes S = Q K^T with
+// wgmma and keeps the row max m only, the global max of _attn_kernel; pass 2
+// recomputes S, forms e = expf(s - m) in float32, adds the unrounded e to the
+// row sum and accumulates O += bf16(e) . V with wgmma, taking bf16(e) from
+// registers: so the rounding is the TPU kernel's and the twin's, and the
+// accumulator is never rescaled. Recomputing S costs DK / (DK + DV) more
+// products (11% at DK = 32, DV = 256). The two warpgroups take turns on the
+// tensor cores (named barriers): one runs its exponentials while the other's
+// products run. The epilogue goes through shared memory so that the residual
+// is read and the output written in 16-byte pieces. A K tile whose rows are
+// not 16-byte multiples (DK % 8 != 0), or a tensor whose address is not
+// 16-byte aligned, is staged by the producer warp with ordinary loads into the
+// same swizzled layout instead of by TMA.
+//
+// Where its time goes at the serving shape (clock64 stamps on an H100; see
+// PERF.md): pass 2 most of it, each 64-key tile a chain of products and
+// accurate expf that the two warpgroups' turns overlap only in part; pass 1
+// a smaller share; the epilogue, which writes the whole output at once, and
+// the first loads the rest. The exponentials are expf, not exp2f, so that e is the
+// twin's. The kernel is templated on DV / 64 only: DK's 16-wide slices are a
+// runtime bound, around which ptxas adds wgmma fences (its C7519 notes); a
+// template on ceil(DK / 16) as well built four times as many instantiations
+// for a slightly faster S. 384 threads start at 168 registers, and setmaxnreg
+// moves the producer's to the consumers, whose 64 x DV float32 accumulator
+// needs up to 128 of them; the launcher refuses a build that starts at
+// another count.
+//
+// float32 (training, one launch a step, bar 1e-5 with TF32 off) keeps the
+// CUDA-core flash loop of attention.cuh (attn_kernel): float32 FMA, online
+// softmax; it is bound by FMA throughput and shared-memory bandwidth.
 
+#include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "attention.cuh"
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace cic::attn;
 
-template <typename T>
+// ------------------------------------------------- float32: CUDA-core loop
+
 __global__ void __launch_bounds__(THREADS)
-attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            const T* __restrict__ res, const float* __restrict__ gamma, T* __restrict__ out,
+attn_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+            const float* __restrict__ res, const float* __restrict__ gamma, float* __restrict__ out,
             int N, int DK, int DV) {
   extern __shared__ float smem[];
   const Tiles s = carve(smem);
@@ -41,18 +78,18 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   const int rg = tid / 16, cg = tid % 16;
   const int nchunks = DV / 64;
 
-  const T* qb = q + (size_t)b * N * DK;
+  const float* qb = q + (size_t)b * N * DK;
   for (int i = tid; i < BQ * DK; i += THREADS) {
     const int r = i / DK, d = i % DK, n = q0 + r;
-    s.Qt[d * BQ + r] = n < N ? cic::to_f32(qb[(size_t)n * DK + d]) : 0.f;
+    s.Qt[d * BQ + r] = n < N ? qb[(size_t)n * DK + d] : 0.f;
   }
 
   float m[4], l[4], acc[4][16];
-  flash_loop<T>(s, k + (size_t)b * N * DK, v + (size_t)b * N * DV, N, DK, DV, m, l, acc);
+  flash_loop<float>(s, k + (size_t)b * N * DK, v + (size_t)b * N * DV, N, DK, DV, m, l, acc);
 
   const float g = res ? *gamma : 1.f;
-  const T* rb = res ? res + (size_t)b * N * DV : nullptr;
-  T* ob = out + (size_t)b * N * DV;
+  const float* rb = res ? res + (size_t)b * N * DV : nullptr;
+  float* ob = out + (size_t)b * N * DV;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int n = q0 + rg * 4 + i;
@@ -66,33 +103,490 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
       for (int e = 0; e < 4; ++e) {
         const size_t o = (size_t)n * DV + c * 64 + cg * 4 + e;
         const float a = acc[i][c * 4 + e];
-        ob[o] = cic::from_f32<T>(rb ? scale * a + cic::to_f32(rb[o]) : a * recip);
+        ob[o] = rb ? scale * a + rb[o] : a * recip;
       }
     }
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* res, const float* gamma, void* out,
-           int B, int N, int DK, int DV, cudaStream_t st) {
+int launch_f32(const void* q, const void* k, const void* v, const void* res, const float* gamma,
+               void* out, int B, int N, int DK, int DV, cudaStream_t st) {
   const size_t smem = SMEM_FLOATS * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(attn_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + BQ - 1) / BQ, B);
-  attn_kernel<T><<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(res), gamma, static_cast<T*>(out), N, DK, DV);
+  attn_kernel<<<grid, THREADS, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(res), gamma, static_cast<float*>(out), N, DK, DV);
   return (int)cudaGetLastError();
 }
+
+// ------------------------------------------------------ bf16: tensor cores
+
+namespace tc {
+
+using namespace cic::hop;
+
+constexpr int ROWS = 128;                 // query rows per block
+constexpr int KEYS = 64;                  // keys per tile
+constexpr int STAGES = 4;                 // ring depth
+constexpr int CONSUMERS = 256;            // two warpgroups
+constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup (one warp loads)
+// Registers a thread: at 384 threads a block starts at 168; the producer
+// gives up all but 40, the consumers take 232 (128 * 40 + 256 * 232 = 384 * 168).
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int BAR_TURN = 1;               // named barriers 1, 2: whose turn on the tensor cores
+constexpr int BAR_Q = 3;                  // named barriers 3, 4: within one warpgroup
+
+template <int NCH>
+constexpr int smem_bytes() {
+  return (2 + STAGES * (1 + NCH)) * TILE_BYTES + 2 * STAGES * 8 + 1024;
+}
+
+// Rows row0 .. row0 + 63, columns col0 .. col0 + 63 of a row-major (nrows,
+// width) bf16 array into a swizzled tile, zero outside the array; chunks idx,
+// idx + stride, ... of the tile's 512. 16-byte loads where the rows allow.
+__device__ __forceinline__ void stage_tile(unsigned char* tile, const uint16_t* __restrict__ src,
+                                           int row0, int nrows, int width, int col0, int idx,
+                                           int stride) {
+  const bool vec = width % 8 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  for (int c = idx; c < 64 * 8; c += stride) {
+    const int r = c >> 3, ch = c & 7, n = row0 + r, col = col0 + ch * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (n < nrows && col < width) {
+      const uint16_t* at = src + (size_t)n * width + col;
+      if (vec) {
+        val = *reinterpret_cast<const uint4*>(at);
+      } else {
+        uint32_t w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t lo = col + 2 * e < width ? at[2 * e] : 0u;
+          const uint32_t hi = col + 2 * e + 1 < width ? at[2 * e + 1] : 0u;
+          w[e] = lo | (hi << 16);
+        }
+        val = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+    store_chunk_sw128(tile, r, ch, val);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// S = Q K^T over ksteps (1..4) slices of 16 of DK; the Q and K tiles are
+// zero beyond DK, so any ksteps >= ceil(DK / 16) gives the same S.
+__device__ __forceinline__ void score_mma(float (&s)[32], uint64_t dq, uint64_t dk, int ksteps) {
+  wgmma_ss_m64n64k16(s, dq, dk, 0);
+#pragma unroll
+  for (int kk = 1; kk < 4; ++kk)
+    if (kk < ksteps) wgmma_ss_m64n64k16(s, dq + 2 * kk, dk + 2 * kk, 1);
+}
+
+// O += P V over a 64-key tile: 4 slices of 16 keys, NCH 64-column chunks of V.
+template <int NCH>
+__device__ __forceinline__ void value_mma(float (&o)[NCH][32], const uint32_t (&p)[4][4],
+                                          const unsigned char* vtile) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+      wgmma_rs_m64n64k16_tb(o[c], p[kk],
+                            sw128_desc(vtile + c * TILE_BYTES + kk * 16 * 128, TILE_BYTES, 1024));
+}
+
+// Keys >= N of the tile at key0 score -inf.
+__device__ __forceinline__ void mask_keys(float (&s)[32], int key0, int N, int qd) {
+  if (key0 + KEYS <= N) return;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (key0 + 8 * j + 2 * qd + e >= N) {
+        s[4 * j + e] = -INFINITY;
+        s[4 * j + 2 + e] = -INFINITY;
+      }
+}
+
+// e = exp(s - m) of the tile at key0 in float32 into the row sums l, and
+// bf16(e) into the A fragments p of the e.V product.
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float m0, float m1, float& l0,
+                                             float& l1, uint32_t (&p)[4][4], int key0, int N,
+                                             int qd) {
+  mask_keys(s, key0, N, qd);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float e0 = expf(s[4 * j + e] - m0);
+      const float e1 = expf(s[4 * j + 2 + e] - m1);
+      l0 += e0;
+      l1 += e1;
+      s[4 * j + e] = e0;
+      s[4 * j + 2 + e] = e1;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// Pins the products' registers (see fence_regs) before wgmma_fence and
+// after wgmma_wait_all.
+template <int NCH>
+__device__ __forceinline__ void fence_operands(float (&o)[NCH][32], uint32_t (&p)[4][4],
+                                               float (&s)[32]) {
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) fence_regs(o[c]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) fence_regs(p[kk]);
+  fence_regs(s);
+}
+
+template <int NCH>
+__global__ void __launch_bounds__(THREADS, 1)
+attn_tc_kernel(__grid_constant__ const CUtensorMap kmap, __grid_constant__ const CUtensorMap vmap,
+               const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ res,
+               const float* __restrict__ gamma, __nv_bfloat16* __restrict__ out, int N, int DK,
+               int ksteps, int k_tma, int v_tma) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = base + 2 * TILE_BYTES;  // stage s: K tile, then NCH V tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * (1 + NCH) * TILE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y, q0 = blockIdx.x * ROWS;
+  const int T = (N + KEYS - 1) / KEYS;  // key tiles; pass 1 and pass 2 stream them all
+  const int DV = NCH * 64;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ------------------------------------------------------------ producer
+    reg_dealloc<PRODUCER_REGS>();
+    if (tid >= CONSUMERS + 32) return;
+    const int lane = tid & 31;
+    const uint16_t* kb = reinterpret_cast<const uint16_t*>(k) + (size_t)b * N * DK;
+    const uint16_t* vb = reinterpret_cast<const uint16_t*>(v) + (size_t)b * N * DV;
+    for (int i = 0; i < 2 * T; ++i) {
+      const int s = i % STAGES;
+      mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+      const bool pass2 = i >= T;
+      const int key0 = (pass2 ? i - T : i) * KEYS;
+      unsigned char* kt = ring + s * (1 + NCH) * TILE_BYTES;
+      const bool v_here = pass2 && !v_tma, k_here = !k_tma;
+      if (k_here) stage_tile(kt, kb, key0, N, DK, 0, lane, 32);
+      if (v_here)
+        for (int c = 0; c < NCH; ++c)
+          stage_tile(kt + (1 + c) * TILE_BYTES, vb, key0, N, DV, c * 64, lane, 32);
+      if (k_here || v_here) {
+        fence_proxy_async();
+        __syncwarp();
+      }
+      if (lane == 0) {
+        const uint32_t bytes =
+            (k_tma ? TILE_BYTES : 0) + (pass2 && v_tma ? NCH * TILE_BYTES : 0);
+        if (bytes)
+          mbar_arrive_tx(&full[s], bytes);
+        else
+          mbar_arrive(&full[s]);
+        if (k_tma) tma_load_3d(kt, &kmap, &full[s], 0, key0, b);
+        if (pass2 && v_tma)
+          for (int c = 0; c < NCH; ++c)
+            tma_load_3d(kt + (1 + c) * TILE_BYTES, &vmap, &full[s], c * 64, key0, b);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------- consumers
+  reg_alloc<CONSUMER_REGS>();
+  const int wg = tid >> 7;  // rows q0 + 64 wg .. + 63
+  const int warp = (tid & 127) >> 5, lane = tid & 31, qd = lane & 3;
+
+  unsigned char* qt = base + wg * TILE_BYTES;
+  stage_tile(qt, reinterpret_cast<const uint16_t*>(q) + (size_t)b * N * DK, q0 + wg * 64, N, DK,
+             0, tid & 127, 128);
+  fence_proxy_async();
+  bar_sync(BAR_Q + wg, 128);
+
+  const uint64_t dq = sw128_desc(qt, 16, 1024);
+  auto kdesc = [&](int i) {
+    return sw128_desc(ring + (i % STAGES) * (1 + NCH) * TILE_BYTES, 16, 1024);
+  };
+  auto vtile = [&](int i) { return ring + ((i % STAGES) * (1 + NCH) + 1) * TILE_BYTES; };
+  auto full_wait = [&](int i) { mbar_wait(&full[i % STAGES], (i / STAGES) & 1); };
+
+  // Turns on the tensor cores: warpgroup 0 goes first; each turn ends by
+  // handing over to the other. Both take 2T + 1 turns; warpgroup 1 skips the
+  // hand-over after its last, which warpgroup 0's first turn took in advance.
+  if (wg == 1) bar_arrive(BAR_TURN, CONSUMERS);
+  auto turn_begin = [&]() { bar_sync(BAR_TURN + wg, CONSUMERS); };
+  auto turn_end = [&](bool last) {
+    if (!(last && wg == 1)) bar_arrive(BAR_TURN + (wg ^ 1), CONSUMERS);
+  };
+
+  float s[32];
+
+  // Pass 1: the row max over all keys.
+  float m0 = -INFINITY, m1 = -INFINITY;
+  for (int t = 0; t < T; ++t) {
+    full_wait(t);
+    turn_begin();
+    fence_regs(s);
+    wgmma_fence();
+    score_mma(s, dq, kdesc(t), ksteps);
+    wgmma_commit();
+    turn_end(false);
+    wgmma_wait_all();
+    fence_regs(s);
+    mbar_arrive(&empty[t % STAGES]);
+    mask_keys(s, t * KEYS, N, qd);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      m0 = fmaxf(m0, fmaxf(s[4 * j], s[4 * j + 1]));
+      m1 = fmaxf(m1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+  }
+
+  // Pass 2: e = exp(s - m); l += e; O += bf16(e) V. The turn of tile t runs
+  // the products of tile t - 1's e with its V and tile t's scores.
+  float o[NCH][32];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  float l0 = 0.f, l1 = 0.f;
+  uint32_t p[4][4];
+
+  full_wait(T);
+  turn_begin();
+  fence_regs(s);
+  wgmma_fence();
+  score_mma(s, dq, kdesc(T), ksteps);
+  wgmma_commit();
+  turn_end(false);
+  wgmma_wait_all();
+  fence_regs(s);
+  softmax_tile(s, m0, m1, l0, l1, p, 0, N, qd);
+  for (int t = 1; t < T; ++t) {
+    const int i = T + t;
+    full_wait(i);
+    turn_begin();
+    fence_operands(o, p, s);
+    wgmma_fence();
+    value_mma<NCH>(o, p, vtile(i - 1));
+    score_mma(s, dq, kdesc(i), ksteps);
+    wgmma_commit();
+    turn_end(false);
+    wgmma_wait_all();
+    fence_operands(o, p, s);
+    mbar_arrive(&empty[(i - 1) % STAGES]);
+    softmax_tile(s, m0, m1, l0, l1, p, t * KEYS, N, qd);
+  }
+  turn_begin();
+  fence_operands(o, p, s);
+  wgmma_fence();
+  value_mma<NCH>(o, p, vtile(2 * T - 1));
+  wgmma_commit();
+  turn_end(true);
+  wgmma_wait_all();
+  fence_operands(o, p, s);
+  mbar_arrive(&empty[(2 * T - 1) % STAGES]);
+
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+
+  // Epilogue: K2 (gamma / l) * acc + residual, K6 acc * (1 / l), in float32
+  // with the twin's roundings, one bf16 store. It goes in 32-column slices
+  // through this warpgroup's Q tile, free now: the scaled float32 values in
+  // the accumulator's layout (16-byte chunks swizzled by row), then rows of 8
+  // columns, so the residual is read and the output written 16 bytes a thread.
+  const float g = res ? *gamma : 1.f;
+  const float sc[2] = {__fmul_rn(g, 1.0f / l0), __fmul_rn(g, 1.0f / l1)};
+  float* slice = reinterpret_cast<float*>(qt);  // 64 rows x 32 floats
+  const int lrow = warp * 16 + (lane >> 2);      // local row of the fragment's first half
+  const bool vec_res = res && (reinterpret_cast<uintptr_t>(res) & 15) == 0;
+#pragma unroll
+  for (int half = 0; half < 2 * NCH; ++half) {
+    bar_sync(BAR_Q + wg, 128);  // the slice before is read out
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = (half & 1) * 4 + jj, r = lrow + 8 * h, col = 8 * jj + 2 * qd;
+        *reinterpret_cast<float2*>(slice + r * 32 + (((col >> 2) ^ (r & 7)) << 2) + (col & 3)) =
+            make_float2(__fmul_rn(sc[h], o[half >> 1][4 * j + 2 * h]),
+                        __fmul_rn(sc[h], o[half >> 1][4 * j + 2 * h + 1]));
+      }
+    bar_sync(BAR_Q + wg, 128);
+    for (int piece = tid & 127; piece < 256; piece += 128) {
+      const int r = piece >> 2, seg = piece & 3, n = q0 + wg * 64 + r;
+      if (n >= N) continue;
+      const float* row = slice + r * 32;
+      const float4 x0 = *reinterpret_cast<const float4*>(row + (((2 * seg) ^ (r & 7)) << 2));
+      const float4 x1 = *reinterpret_cast<const float4*>(row + (((2 * seg + 1) ^ (r & 7)) << 2));
+      float y[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      const size_t at = ((size_t)b * N + n) * DV + half * 32 + seg * 8;
+      if (res) {
+        uint4 rr;
+        if (vec_res) {
+          rr = *reinterpret_cast<const uint4*>(res + at);
+        } else {
+          const uint16_t* rs = reinterpret_cast<const uint16_t*>(res + at);
+          rr = make_uint4(rs[0] | (uint32_t)rs[1] << 16, rs[2] | (uint32_t)rs[3] << 16,
+                          rs[4] | (uint32_t)rs[5] << 16, rs[6] | (uint32_t)rs[7] << 16);
+        }
+        const uint32_t rw[4] = {rr.x, rr.y, rr.z, rr.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // bf16 -> float32 is exact: the high 16 bits
+          y[2 * e] = __fadd_rn(y[2 * e], __uint_as_float(rw[e] << 16));
+          y[2 * e + 1] = __fadd_rn(y[2 * e + 1], __uint_as_float(rw[e] & 0xffff0000u));
+        }
+      }
+      const uint4 ov = make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]),
+                                  pack_bf16(y[4], y[5]), pack_bf16(y[6], y[7]));
+      *reinterpret_cast<uint4*>(out + at) = ov;
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime, so the
+// library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The (B, N, W) bf16 tensor at ptr as a 3-D map with 64 x 64 boxes, 128-byte
+// swizzle, zero fill outside (the ragged key tile, DK below 64).
+int encode_map(CUtensorMap* map, const void* ptr, int B, int N, int W) {
+  EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)W * 2, (cuuint64_t)N * W * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Once per device and instantiation: the dynamic shared-memory limit, and a
+// check that the build starts a thread at START_REGS registers. That count is
+// the pool setmaxnreg deals from; a build that started lower could not serve
+// the consumers' increase, and the block would stall until an mbarrier wait
+// traps, so such a build is refused before its first launch.
+constexpr int START_REGS = 168;
+static_assert(128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS == THREADS * START_REGS,
+              "setmaxnreg must deal out exactly the block's starting registers");
+constexpr int MAX_DEVICES = 64;
+
+template <int NCH>
+int prepare(int device) {
+  static int ready[MAX_DEVICES] = {};
+  if (device < 0 || device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (ready[device]) return 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, attn_tc_kernel<NCH>);
+  if (err != cudaSuccess) return (int)err;
+  if (attr.numRegs != START_REGS) return (int)cudaErrorInvalidKernelImage;
+  err = cudaFuncSetAttribute(attn_tc_kernel<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes<NCH>());
+  if (err != cudaSuccess) return (int)err;
+  ready[device] = 1;
+  return 0;
+}
+
+template <int NCH>
+int launch_one(const CUtensorMap& kmap, const CUtensorMap& vmap, const void* q, const void* k,
+               const void* v, const void* res, const float* gamma, void* out, int B, int N,
+               int DK, int k_tma, int v_tma, cudaStream_t st) {
+  int device = 0;
+  cudaError_t dev_err = cudaGetDevice(&device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  const int err = prepare<NCH>(device);
+  if (err != 0) return err;
+  const dim3 grid((N + ROWS - 1) / ROWS, B);
+  attn_tc_kernel<NCH><<<grid, THREADS, smem_bytes<NCH>(), st>>>(
+      kmap, vmap, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(res), gamma,
+      static_cast<__nv_bfloat16*>(out), N, DK, (DK + 15) / 16, k_tma, v_tma);
+  return (int)cudaGetLastError();
+}
+
+int launch(const void* q, const void* k, const void* v, const void* res, const float* gamma,
+           void* out, int B, int N, int DK, int DV, cudaStream_t st) {
+  CUtensorMap kmap = {}, vmap = {};
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (!aligned(out)) return (int)cudaErrorMisalignedAddress;  // the epilogue stores 16 bytes
+  const int k_tma = DK % 8 == 0 && aligned(k);
+  const int v_tma = aligned(v);
+  int err = 0;
+  if (k_tma && (err = encode_map(&kmap, k, B, N, DK)) != 0) return err;
+  if (v_tma && (err = encode_map(&vmap, v, B, N, DV)) != 0) return err;
+  switch (DV / 64) {
+    case 1: return launch_one<1>(kmap, vmap, q, k, v, res, gamma, out, B, N, DK, k_tma, v_tma, st);
+    case 2: return launch_one<2>(kmap, vmap, q, k, v, res, gamma, out, B, N, DK, k_tma, v_tma, st);
+    case 3: return launch_one<3>(kmap, vmap, q, k, v, res, gamma, out, B, N, DK, k_tma, v_tma, st);
+    default:
+      return launch_one<4>(kmap, vmap, q, k, v, res, gamma, out, B, N, DK, k_tma, v_tma, st);
+  }
+}
+
+}  // namespace tc
 
 int dispatch(int dtype, const void* q, const void* k, const void* v, const void* res,
              const float* gamma, void* out, int B, int N, int DK, int DV, void* stream) {
   if (DK < 1 || DK > DK_MAX || DV < 64 || DV > DV_MAX || DV % 64 != 0 || N < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, res, gamma, out, B, N, DK, DV, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, res, gamma, out, B, N, DK, DV, st);
+  if (dtype == 0) return launch_f32(q, k, v, res, gamma, out, B, N, DK, DV, st);
+  if (dtype == 1) return tc::launch(q, k, v, res, gamma, out, B, N, DK, DV, st);
   return (int)cudaErrorInvalidValue;
 }
 

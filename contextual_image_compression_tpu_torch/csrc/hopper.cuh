@@ -1,0 +1,205 @@
+// Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile loads,
+// the proxy fence, named barriers, setmaxnreg and warpgroup matrix multiplies
+// (wgmma) with 128-byte-swizzled shared-memory operands.
+//
+// Tiles handed to wgmma here are 64 rows of 128 bytes (64 bf16), 1024-byte
+// aligned, with the 128-byte swizzle: the 16-byte chunk `ch` of row `r` lies at
+// r * 128 + ((ch ^ (r % 8)) * 16). TMA writes that layout with
+// CU_TENSOR_MAP_SWIZZLE_128B and a 64 x 64 box; `store_chunk_sw128` writes it
+// from registers.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cic {
+namespace hop {
+
+constexpr int TILE_BYTES = 64 * 128;  // one 64 x 64 bf16 tile
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------------------ mbarriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A wait that lasts
+// more than 2^32 clocks (seconds) traps, so a fault in the pipeline ends the
+// kernel with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  long long start = 0;
+  for (int tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 32)) {
+      __trap();
+    }
+  }
+}
+
+// ------------------------------------------------------- copies and fences
+
+// One TMA load of a box of a 3-D tensor map into shared memory; completion is
+// reported to `bar` as transaction bytes.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Makes this thread's ordinary shared-memory stores visible to the async
+// proxy (TMA, wgmma).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Register rebalancing between warpgroups: the caller's warpgroup takes N
+// registers a thread from here on (all its threads execute it).
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// 16 bytes (8 bf16) into chunk `ch` of row `r` of a 128-byte-swizzled tile.
+__device__ __forceinline__ void store_chunk_sw128(unsigned char* tile, int r, int ch, uint4 val) {
+  *reinterpret_cast<uint4*>(tile + r * 128 + ((ch ^ (r & 7)) << 4)) = val;
+}
+
+// ------------------------------------------------------------------- wgmma
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand. `lbo` and
+// `sbo` in bytes: for a K-major operand sbo is the 1024 bytes between 8-row
+// groups (lbo unused); for an MN-major one sbo is the 1024 bytes between groups
+// of 8 K-rows and lbo the distance between 64-column groups.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = (smem_u32(tile) & 0x3FFFF) >> 4;
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
+  d |= 1ull << 62;  // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma operands across
+// the asynchronous product (an empty asm that "modifies" them).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define CIC_WGMMA_D32                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define CIC_WGMMA_ACC32(d)                                                               \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),    \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),         \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),      \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+
+// D (64 x 64, float32) (+)= A (64 x 16, K-major in shared memory)
+//                          * B (16 x 64, K-major in shared memory), bf16 inputs.
+// D's fragment: d[i] is row 16 * warp + lane / 4 + 8 * ((i / 2) % 2),
+// column 8 * (i / 4) + 2 * (lane % 4) + i % 2. scale_d = 0 ignores D's value.
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " CIC_WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : CIC_WGMMA_ACC32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 64, float32) += A (64 x 16 bf16, registers) * B (16 x 64, MN-major in
+// shared memory). A's fragment, as bf16 pairs (low half the lower column):
+// a[0] row r, columns 2c, 2c+1; a[1] row r + 8, the same columns; a[2], a[3]
+// the same rows at columns + 8; r = 16 * warp + lane / 4, c = lane % 4.
+__device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " CIC_WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : CIC_WGMMA_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+#undef CIC_WGMMA_D32
+#undef CIC_WGMMA_ACC32
+
+}  // namespace hop
+}  // namespace cic

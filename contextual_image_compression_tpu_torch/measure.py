@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import math
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -31,6 +32,34 @@ def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of one fn() in milliseconds: CUDA events around
+    fn() while the card is held busy (`torch.cuda._sleep`, 1.5 times the host
+    time of one call) so that the host enqueues the call before the start
+    event fires. The host's launch overhead (Python, the wrapper, ctypes) thus
+    stays out of the sample, which `event_ms` counts in; a fn that
+    synchronizes inside counts it all the same."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(max(1.5 * host_s, 1e-3) * 2.0e9)  # SM clock below 2 GHz
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         a.record()
         fn()
         b.record()

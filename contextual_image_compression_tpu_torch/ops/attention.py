@@ -19,7 +19,8 @@ the kernel's rounding) for CPU tensors. `use_pallas=False` runs the `*_jnp`
 counterpart of the JAX package's own formula instead, as the caller's
 explicit choice. The backward of K6 and K7 is autograd over the `*_jnp`
 formula, as the JAX custom VJPs differentiate theirs; K2's is autograd over
-its twin.
+its twin. Where no input needs a gradient, K2 and K6 launch outside the
+autograd Function, which would cost more host time than their kernel.
 """
 
 from __future__ import annotations
@@ -62,52 +63,62 @@ def attention_block_plain(q, k, v, residual, gamma):
     return ((g * recip) * ctx + residual.float()).to(q.dtype)
 
 
-def _check_attention_shapes(name, q, k, v, *rest):
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {q.device}")
-    dt = q.dtype
-    for t in (k, v, *rest):
+def _launch_attention(name, q, k, v, residual=None, gamma=None):
+    """Launch K2 (residual and gamma, a float32 tensor of one element) or K6
+    (neither) and return the output. The host work is a handful of tensor
+    calls: at the serving shape the kernel itself takes a few hundredths of
+    a millisecond, so each call of host overhead shows in the time serving
+    pays."""
+    dev, dt = q.device, q.dtype
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    ins = (k, v) if residual is None else (k, v, residual, gamma)
+    for t in ins:
+        if t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on {dev}, got {t.device}")
+    for t in ins[:3]:
         if t.dtype != dt:
             raise TypeError(f"{name}: q, k, v and residual must share one dtype")
     b, n, dk = q.shape
     dv = v.shape[-1]
-    if k.shape != (b, n, dk) or v.shape != (b, n, dv) or any(t.shape != (b, n, dv) for t in rest):
+    if k.shape != (b, n, dk) or v.shape != (b, n, dv) or (
+            residual is not None and residual.shape != v.shape):
         raise ValueError(f"{name}: expected q, k (B, N, Dk) and v, residual (B, N, Dv)")
     if dk > 64 or dv % 64 != 0 or dv > 256:
         raise ValueError(f"{name}: kernel takes Dk <= 64 and Dv in 64..256 step 64, got {dk}, {dv}")
-    return b, n, dk, dv
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty((b, n, dv), dtype=dt, device=dev)
+    lib, code, stream = ck.library(), ck.dtype_code(dt), ck.stream_ptr(dev)
+    if residual is None:
+        err = lib.cic_attention_core(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                     out.data_ptr(), b, n, dk, dv, stream)
+    else:
+        if gamma.numel() != 1:
+            raise ValueError(f"{name}: gamma must hold one value, got shape {tuple(gamma.shape)}")
+        residual, gamma = residual.contiguous(), gamma.to(torch.float32)
+        err = lib.cic_attention_block(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                      residual.data_ptr(), gamma.data_ptr(), out.data_ptr(),
+                                      b, n, dk, dv, stream)
+    ck.check(err, name)
+    return out
 
 
 def _attention_core_kernel(q, k, v):
     """Launch K6."""
-    b, n, dk, dv = _check_attention_shapes("attention_core", q, k, v)
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    ck.require_cuda("attention_core", q, k, v)
-    out = torch.empty_like(v)
-    err = ck.library().cic_attention_core(
-        ck.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, n, dk, dv, ck.stream_ptr(q.device),
-    )
-    ck.check(err, "attention_core")
+    out = _launch_attention("attention_core", q, k, v)
     attention_core.launches += 1
     return out
 
 
 def _attention_block_kernel(q, k, v, residual, gamma):
     """Launch K2. gamma: a float32 tensor of one element on q's device."""
-    b, n, dk, dv = _check_attention_shapes("attention_block", q, k, v, residual)
-    dt = q.dtype
-    q, k, v, residual = (t.contiguous() for t in (q, k, v, residual))
-    gamma = gamma.to(torch.float32).reshape(1).contiguous()
-    ck.require_cuda("attention_block", q, k, v, residual, gamma)
-    out = torch.empty_like(residual)
-    err = ck.library().cic_attention_block(
-        ck.dtype_code(dt), q.data_ptr(), k.data_ptr(), v.data_ptr(), residual.data_ptr(),
-        gamma.data_ptr(), out.data_ptr(), b, n, dk, dv, ck.stream_ptr(q.device),
-    )
-    ck.check(err, "attention_block")
+    out = _launch_attention("attention_block", q, k, v, residual, gamma)
     attention_block.launches += 1
     return out
+
+
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 class _Kernel(torch.autograd.Function):
@@ -138,6 +149,8 @@ def attention_block(q, k, v, residual, gamma):
         return attention_block_plain(q, k, v, residual, gamma)
     if not torch.is_tensor(gamma):
         gamma = torch.tensor(float(gamma), device=q.device)
+    if not _needs_grad(q, k, v, residual, gamma):
+        return _attention_block_kernel(q, k, v, residual, gamma)
     return _Kernel.apply(_attention_block_kernel, attention_block_plain, q, k, v, residual,
                          gamma.float().reshape(()))
 
@@ -151,6 +164,8 @@ def attention_core(q, k, v, use_pallas: bool = True):
     if not use_pallas:
         return attention_core_jnp(q, k, v)
     fwd = attention_core_plain if q.device.type == "cpu" else _attention_core_kernel
+    if not _needs_grad(q, k, v):
+        return fwd(q, k, v)
     return _Kernel.apply(fwd, attention_core_jnp, q, k, v)
 
 

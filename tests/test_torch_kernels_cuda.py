@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card, in
 the cases chip_smoke.py does not run: ragged sizes, B = 1, K2's backward,
-K3b under autograd, K4 on non-square and all-zero maps, K5 at the smallest
+K2 and K6 in bf16 at every key width (DK 4..64) and value width, N from 1 to
+1024 at B = 1 and 3, on unaligned inputs and with every row's max in the last
+key tile, K3b under autograd, K4 on non-square and all-zero maps, K5 at the smallest
 and a ragged width and at the extreme quality tables, K6 and K7 at ragged N
 and value widths 64 and 128, K7b on a permuted (non-contiguous) view, K7's
 backward, K8 at an odd batch, a ragged size and in float32.
@@ -50,6 +52,7 @@ from contextual_image_compression_tpu_torch.ops.quantize import (
     adaptive_quantize_bwd,
     adaptive_quantize_bwd_plain,
 )
+from torch_port_helpers import late_max_attention_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -107,6 +110,86 @@ def test_k2_backward_runs_through_plain_formula(dev):
     grads = torch.autograd.grad(attention_block_plain(q, k, v, v, g).sum(), (q, k, v, g))
     for got, want in zip((q.grad, k.grad, v.grad, g.grad), grads):
         assert torch.allclose(got, want, atol=1e-4)
+
+
+def _bf16_attention(dev, kind, b, n, dk, dv, seed, misalign=False):
+    """K2 (residual 0, gamma 0.5) or K6 in bf16 against its twin; returns
+    (kernel, twin). misalign: q, k, v and a random residual start 2 bytes
+    past a 16-byte boundary, so the kernel stages K and V with ordinary loads,
+    not TMA, and reads the residual without 16-byte loads."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def mk(*shape, scale=1.0):
+        x = (torch.randn(*shape, device=dev, generator=gen) * scale).to(torch.bfloat16)
+        if not misalign:
+            return x
+        buf = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=dev)
+        buf[1:] = x.reshape(-1)
+        return buf[1:].view(*shape)
+
+    q, k, v = mk(b, n, dk, scale=0.5), mk(b, n, dk, scale=0.5), mk(b, n, dv)
+    return _run_bf16(kind, q, k, v, mk(b, n, dv) if misalign else None)
+
+
+def _run_bf16(kind, q, k, v, r=None):
+    if kind == "K2":
+        r = torch.zeros_like(v) if r is None else r
+        g = torch.tensor(0.5, device=q.device)
+        before = attention_block.launches
+        got = attention_block(q, k, v, r, g)
+        assert attention_block.launches == before + 1
+        return got, attention_block_plain(q, k, v, r, g)
+    before = attention_core.launches
+    got = attention_core(q, k, v)
+    assert attention_core.launches == before + 1
+    return got, attention_core_plain(q, k, v)
+
+
+@pytest.mark.parametrize("kind", ["K2", "K6"])
+@pytest.mark.parametrize("dv", [64, 128, 256])
+@pytest.mark.parametrize("dk", [4, 8, 16, 32, 64])
+def test_bf16_attention_widths_match_twin(dev, kind, dk, dv):
+    """The tensor-core kernel at every value width and at key widths staged by
+    the producer warp (DK = 4: rows of 8 bytes) and by TMA (8 .. 64), DK
+    zero-padded to a multiple of 16; N = 100 is a partial 128-row block and a
+    partial 64-key tile. Bar 2e-2 of max |out|."""
+    got, want = _bf16_attention(dev, kind, 3, 100, dk, dv, 10 * dk + dv)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _rel_err(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("kind", ["K2", "K6"])
+@pytest.mark.parametrize("b,n", [(1, 1), (1, 100), (1, 1024), (3, 1), (3, 100), (3, 1024)])
+def test_bf16_attention_sizes_match_twin(dev, kind, b, n):
+    """One key, a partial tile and the serving N, at B = 1 and a batch of 3
+    (DK = 32, DV = 256). Bar 2e-2 of max |out|."""
+    got, want = _bf16_attention(dev, kind, b, n, 32, 256, b * n)
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel_err(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("kind", ["K2", "K6"])
+def test_bf16_attention_unaligned_inputs_match_twin(dev, kind):
+    got, want = _bf16_attention(dev, kind, 2, 300, 32, 128, 300, misalign=True)
+    assert _rel_err(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("kind", ["K2", "K6"])
+def test_bf16_attention_rounds_at_the_global_max(dev, kind):
+    """Every row's largest score is at key 1000, in the last 64-key tile, and
+    the earlier tiles carry most of the weight (`late_max_attention_inputs`).
+    The kernel's second pass forms exp(s - m) with m the max over all keys,
+    as the TPU kernel and the twin do, so the rounded numerators are the
+    twin's and at least 99% of the outputs match it bit for bit. A running
+    max rounds the earlier tiles at smaller maxima: on these inputs
+    `attention_running_max` matches the twin on about half the outputs
+    (tests/test_torch_ops.py::test_late_max_inputs_tell_global_from_running_max)."""
+    q, k, v = (t.to(dev) for t in late_max_attention_inputs())
+    scores = torch.einsum("bnd,bmd->bnm", q.float(), k.float())
+    assert bool((scores.argmax(-1) == 1000).all())
+    got, want = _run_bf16(kind, q, k, v)
+    assert _rel_err(got, want) <= 2e-2
+    assert (got == want).float().mean().item() >= 0.99
 
 
 def _k3b_case(dev, b, d, dtype, seed):

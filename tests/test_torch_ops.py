@@ -20,7 +20,10 @@ from contextual_image_compression_tpu.config import SaliencyConfig as JSaliencyC
 from contextual_image_compression_tpu.ops import image_ops as jiops
 from contextual_image_compression_tpu.ops import masks as jmasks
 from contextual_image_compression_tpu.ops import saliency as jsal
-from contextual_image_compression_tpu.ops.attention import attention_block_pallas
+from contextual_image_compression_tpu.ops.attention import (
+    attention_block_pallas,
+    attention_core_pallas,
+)
 from contextual_image_compression_tpu.ops.fused_mask import contextual_mask_pallas
 from contextual_image_compression_tpu.ops.quantize import _adaptive_quantize_pallas
 from contextual_image_compression_tpu_torch import ops as tops
@@ -34,6 +37,7 @@ from contextual_image_compression_tpu_torch.ops.attention import (
     sagan_block,
     sagan_block_spatial,
     attention_block_plain,
+    attention_core_plain,
 )
 from contextual_image_compression_tpu_torch.ops.dct import dct_strips
 from contextual_image_compression_tpu_torch.ops.generator_tail import fused_tail
@@ -48,6 +52,7 @@ from contextual_image_compression_tpu_torch.ops.quantize import (
     adaptive_quantize_plain,
 )
 from contextual_image_compression_tpu_torch.config import QuantizerConfig
+from torch_port_helpers import attention_running_max, late_max_attention_inputs
 
 
 def _structured_u8(rng, b, size):
@@ -171,6 +176,57 @@ def test_k2_twin_matches_pallas_interpret(dtype, zero_residual):
         np.testing.assert_allclose(got, want, atol=1e-5)
     else:
         assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("kind", ["block", "core"])
+def test_k2_k6_twins_match_pallas_at_the_serving_shape(kind):
+    """The twins the card's K2 / K6 are held against, at the width the kernel
+    runs in serving (the HQ encoder's attention: B = 1 of 16, N = 32 * 32,
+    Dk = 32, Dv = 256, bf16) against the JAX Pallas kernels in interpret mode
+    (block_q 512, so two query blocks, each with all 1024 keys as one block).
+    Bar: two bf16 ulps of max |out|, as tests/test_torch_kernels_rest.py:
+    float32 summation order can move a value across a bf16 rounding
+    boundary."""
+    rng = np.random.RandomState(1024)
+    q, k = ((rng.randn(1, 1024, 32) * 0.4).astype(np.float32) for _ in range(2))
+    v, res = (rng.randn(1, 1024, 256).astype(np.float32) for _ in range(2))
+    bf = jnp.bfloat16
+    if kind == "block":
+        want = attention_block_pallas(*(jnp.asarray(a, bf) for a in (q, k, v, res)),
+                                      jnp.float32(0.5))
+        got = attention_block_plain(*(torch.from_numpy(a).to(torch.bfloat16)
+                                      for a in (q, k, v, res)), torch.tensor(0.5))
+    else:
+        want = attention_core_pallas(*(jnp.asarray(a, bf) for a in (q, k, v)))
+        got = attention_core_plain(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)))
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (1, 1024, 256)
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 2 * 2.0 ** -8 * np.abs(want).max(), err
+
+
+@pytest.mark.parametrize("kind", ["block", "core"])
+def test_late_max_inputs_tell_global_from_running_max(kind):
+    """The card test `test_bf16_attention_rounds_at_the_global_max` shows that
+    K2 / K6 round e = exp(s - m) at the row's global max only if a kernel
+    that rounds at a running max would miss its bar of 99% of outputs
+    bit-identical to the twin. On its inputs an online softmax over 64-key
+    tiles (`attention_running_max`) is a correct attention, within the 2e-2
+    bar of the twin, and matches it bit for bit on far fewer than 99% of the
+    outputs (about half)."""
+    q, k, v = late_max_attention_inputs()
+    scores = torch.einsum("bnd,bmd->bnm", q.float(), k.float())
+    assert bool((scores.argmax(-1) == 1000).all())
+    if kind == "block":
+        r = torch.zeros_like(v)
+        want = attention_block_plain(q, k, v, r, torch.tensor(0.5))
+        run = attention_running_max(q, k, v, r, 0.5)
+    else:
+        want = attention_core_plain(q, k, v)
+        run = attention_running_max(q, k, v)
+    assert (run.float() - want.float()).abs().max() <= 2e-2 * want.float().abs().max()
+    share = (run == want).float().mean().item()
+    assert share < 0.9, share
 
 
 def test_k2_backward_matches_jax():
