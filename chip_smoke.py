@@ -12,10 +12,13 @@
    against its plain PyTorch twin on the card at the serving path's shapes
    (B = 16, 256^2, D = 512) and times kernel, twin and, where one exists, a
    library call with CUDA events (`measure.event_ms`: the host's launch
-   inside, as a caller pays it); K2 also on the device alone
-   (`measure.device_ms`) beside the library call timed the same way, in
-   float32 beside the float32 library call, and with the share of bf16
-   outputs bit-identical to the twin;
+   inside, as a caller pays it) and on the device alone (`measure.device_ms`,
+   K1-K3); K2 also beside the library call timed the same way, in float32
+   beside the float32 library call, and with the share of bf16 outputs
+   bit-identical to the twin. K1 must take the cluster route at 256^2, run one
+   kernel and no memset per call (torch.profiler) and repeat bit for bit;
+   its tiled route is held at (2, 512, 512). K3 runs under no_grad, one
+   kernel per call;
 4. checks the serving pipeline at a small size on the card against the same
    pipeline on the CPU (where each wrapper runs its twin);
 5. runs CompressionPipeline(ModelConfig(), device="cuda") at full width with
@@ -24,7 +27,8 @@
    symbols and that the kernels' launch counters moved by K1 +1, K2 +1 and
    K3 +2 per call;
 6. holds K3b (the quantizer's backward) against its twin at the training
-   path's shapes (B = 16, D = 1024 and 512, float32 and bf16) and times it;
+   path's shapes (B = 16, D = 1024 and 512, float32 and bf16), one kernel
+   per call, and times it;
 7. checks two GAN training steps (with and without D) of a tiny codec on the
    card against the same steps on the CPU: losses, per-component gradients,
    parameters and BatchNorm statistics;
@@ -36,7 +40,9 @@
    step K2 +1, K3 +2, K3b +2; per probe point K2 +1, K3 +2), then times
    steps with and without D;
 9. holds K4 (the smooth mask) against its twin at B = 64, 256^2, on the
-   saliency maps of both non-'combined' methods, and times it;
+   saliency maps of both non-'combined' methods (the cluster route, one
+   kernel per call, bitwise repeatable) and at (2, 512, 512) (the tiled
+   route), and times it;
 10. runs the mask path at full width: prepare_masks over 128 seeded rich
    synthetic images at 256^2 in device batches of 64 for
    method='spectral_residual' and 'fine_grained' (K4 +1 per batch, K1 0),
@@ -68,7 +74,9 @@
    encode_to_bitstream then decode_from_bitstream (K1 +1, K2 +1, K3 +2),
    the decode held against the direct call, with the measured bpp and the
    encode, decode and host-coder times;
-18. prints a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
+18. checks that the serving, training, mask and storable-codec paths at 256^2
+   ran K1 and K4 on the cluster route only;
+19. prints a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. Without CUDA, or without the port package beside it, it exits 1.
@@ -109,23 +117,105 @@ def bound_ms(nbytes, ops, peak_ops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def one_kernel_per_call(label, fn, wrapper, kernel, calls=3):
+    """Fail unless `calls` fn() calls add `calls` to the wrapper's launch
+    count and torch.profiler (ProfilerActivity.CUDA) records, on the device,
+    nothing but kernels whose name holds `kernel`: no memset, no copy, no
+    cast. CUPTI may drop records under this script's load (one run saw two
+    of three launches, another none), so the profiler shows what ran and
+    the counter how often; a session that records nothing is repeated, at
+    most three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for sessions in range(1, 4):
+        before = wrapper.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        launched = wrapper.launches - before
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    other = [n for n in names if kernel not in n]
+    log(f"{label}: {calls} calls, {launched} launches counted; the profiler ({sessions} "
+        f"session(s)) recorded {len(names) - len(other)} {kernel} and {len(other)} other device "
+        f"activities {sorted(set(names))}")
+    if launched != calls or other or len(names) == len(other):
+        raise AssertionError(f"{label}: want one {kernel} launch per call and nothing else, got "
+                             f"{launched} launches, activities {names}")
+    return launched // calls
+
+
+def check_cluster_route(label):
+    """The mask kernels of a path at 256^2 took the cluster route only."""
+    from contextual_image_compression_tpu_torch import ops
+
+    routes = ops.route_counts()
+    for key, counts in routes.items():
+        if counts["tiled"] or counts["cluster"] != ops.launch_counts()[key]:
+            raise AssertionError(f"{label}: {key} routes {counts}, want the cluster route only")
+    log(f"{label}: mask kernel routes {routes}")
+    return routes
+
+
+MASK_DESIGN = ("one launch per call: a thread-block cluster of {cluster} blocks x 512 threads per "
+               "image, each block a strip of {rows} rows in {kb:.1f} KB of shared memory, halos "
+               "through DSMEM, image maxima over the cluster's slots")
+
+
+def _route_of(wrapper, call):
+    before = dict(wrapper.route_launches)
+    out = call()
+    moved = [r for r in before if wrapper.route_launches[r] != before[r]]
+    if len(moved) != 1:
+        raise AssertionError(f"one route per call, moved {moved}")
+    return out, moved[0]
+
+
 def check_k1(dev, rng, B):
-    from contextual_image_compression_tpu_torch.measure import event_ms, structured_images
+    from contextual_image_compression_tpu_torch.measure import (
+        device_ms, event_ms, structured_images)
     from contextual_image_compression_tpu_torch.ops import image_ops, saliency
     from contextual_image_compression_tpu_torch.ops.fused_mask import (
         contextual_mask, contextual_mask_plain)
 
+    from contextual_image_compression_tpu_torch.ops.fused_mask import (
+        _mask_plan, mask_max_clusters)
+
     u8 = torch.from_numpy(structured_images(rng, B, 256)).to(dev)
     gray = image_ops.rgb_to_gray(u8.float()).contiguous()
     spec = saliency.spectral_residual_small(gray, 64, 3.0).contiguous()
-    got = contextual_mask(gray, spec)
+    got, route = _route_of(contextual_mask, lambda: contextual_mask(gray, spec))
+    again = contextual_mask(gray, spec)
     want = contextual_mask_plain(gray, spec)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    log(f"K1 contextual mask {tuple(gray.shape)}: max |kernel - twin| = {err:.3e} (bar 1e-4)")
-    if not err <= 1e-4:
-        raise AssertionError(f"K1 disagrees with its twin: {err}")
+    same = torch.equal(got, again)
+    plan = _mask_plan(256, 256, 6, 4, 31)
+    log(f"K1 contextual mask {tuple(gray.shape)}, {route} route ({plan}; the card runs "
+        f"{mask_max_clusters(True, 256, 256)} such clusters at once): max |kernel - twin| = "
+        f"{err:.3e} (bar 1e-4); two calls bitwise equal: {same}")
+    if not (err <= 1e-4 and route == "cluster" and same):
+        raise AssertionError(f"K1: {route} route, error {err}, deterministic {same}")
+    per_call = one_kernel_per_call("K1", lambda: contextual_mask(gray, spec), contextual_mask,
+                                   "mask_cluster_kernel")
+    # the tiled route, for images whose strips exceed a cluster's shared memory
+    u8t = torch.from_numpy(structured_images(rng, 2, 512)).to(dev)
+    gray_t = image_ops.rgb_to_gray(u8t.float()).contiguous()
+    spec_t = saliency.spectral_residual_small(gray_t, 64, 3.0).contiguous()
+    got_t, route_t = _route_of(contextual_mask, lambda: contextual_mask(gray_t, spec_t))
+    err_t = (got_t - contextual_mask_plain(gray_t, spec_t)).abs().max().item()
+    tiled_ms = event_ms(lambda: contextual_mask(gray_t, spec_t))
+    log(f"K1 tiled route {tuple(gray_t.shape)}: {route_t}, max |kernel - twin| = {err_t:.3e} "
+        f"(bar 1e-4), {tiled_ms:.4f} ms")
+    if not (err_t <= 1e-4 and route_t == "tiled"):
+        raise AssertionError(f"K1 tiled route: {route_t}, error {err_t}")
     ms = event_ms(lambda: contextual_mask(gray, spec))
+    dev_ms = device_ms(lambda: contextual_mask(gray, spec))
     plain = event_ms(lambda: contextual_mask_plain(gray, spec), reps=5, warmup=1)
     # Operations the function needs per pixel (not what this kernel spends):
     # per box radius a sliding column and row sum (2 + 2 adds), the mean, the
@@ -139,12 +229,17 @@ def check_k1(dev, rng, B):
     ops_per_px = 8 * rmax + 3 + 10 + (7 * ntaps + 1) + 2 * 2 * ksize + 2
     nbytes = gray.numel() * 4 + spec.numel() * 4 + got.numel() * 4
     b_ms, b_by = bound_ms(nbytes, ops_per_px * pixels, H100_FP32_TFLOPS)
-    log(f"K1 times: kernel {ms:.4f} ms, twin {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library none")
+    log(f"K1 times: kernel {ms:.4f} ms (device alone {dev_ms:.4f}), twin {plain:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), library none")
     return dict(name="K1 contextual_mask", route="cuda",
                 source="contextual_image_compression_tpu_torch/csrc/fused_mask.cu",
                 replaces="contextual_image_compression_tpu/ops/fused_mask.py:252",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, device_ms=dev_ms, mask_route=route,
+                design=MASK_DESIGN.format(cluster=plan.cluster, rows=plan.rows,
+                                          kb=plan.smem_bytes / 1024),
+                launches_per_call=per_call, deterministic=same, tiled_route_ms=tiled_ms,
+                tiled_route_max_abs_err=err_t)
 
 
 def _identical(got, want):
@@ -224,7 +319,7 @@ def check_k2(dev, B):
 
 def check_k3(dev, B):
     from contextual_image_compression_tpu_torch.config import QuantizerConfig
-    from contextual_image_compression_tpu_torch.measure import event_ms
+    from contextual_image_compression_tpu_torch.measure import device_ms, event_ms
     from contextual_image_compression_tpu_torch.ops.quantize import (
         adaptive_quantize, adaptive_quantize_plain)
 
@@ -237,34 +332,47 @@ def check_k3(dev, B):
         qs = (torch.rand(B, 1, device=dev, generator=gen) * 0.9).to(torch.bfloat16)
         cases.append((z, s, qs))
     err, same = 0.0, 1.0
-    for z, s, qs in cases:
-        for dt in (torch.bfloat16, torch.float32):
-            args = (z.to(dt), s.to(dt), qs.to(dt))
-            got = adaptive_quantize(*args, cfg).float()
-            want = adaptive_quantize_plain(*args).float()
-            err = max(err, (got - want).abs().max().item())
-            same = min(same, (got == want).float().mean().item())
+    with torch.no_grad():  # as serving calls it: no autograd Function
+        for z, s, qs in cases:
+            for dt in (torch.bfloat16, torch.float32):
+                args = (z.to(dt), s.to(dt), qs.to(dt))
+                got = adaptive_quantize(*args, cfg)
+                if got.grad_fn is not None:
+                    raise AssertionError("K3 under no_grad went through autograd")
+                want = adaptive_quantize_plain(*args).float()
+                err = max(err, (got.float() - want).abs().max().item())
+                same = min(same, (got.float() == want).float().mean().item())
     torch.cuda.synchronize()
-    log(f"K3 quantizer (16,1024)+(16,512), bf16 and float32: max |kernel - twin| = {err:.3e}, "
-        f"bitwise equal share {same:.5f} (bar >= 0.999)")
+    log(f"K3 quantizer (16,1024)+(16,512), bf16 and float32, under no_grad: max |kernel - twin| = "
+        f"{err:.3e}, bitwise equal share {same:.5f} (bar >= 0.999)")
     if not same >= 0.999:
         raise AssertionError(f"K3 disagrees with its twin: {same}")
 
     def pair(fn):
-        return lambda: [fn(z, s, qs) for z, s, qs in cases]
+        def run():
+            with torch.no_grad():
+                return [fn(z, s, qs) for z, s, qs in cases]
+        return run
+
+    z, s, qs = cases[0]
+    with torch.no_grad():
+        per_call = one_kernel_per_call("K3", lambda: adaptive_quantize(z, s, qs, cfg),
+                                       adaptive_quantize, "quant_fwd_kernel")
 
     ms = event_ms(pair(lambda z, s, qs: adaptive_quantize(z, s, qs, cfg)))
+    dev_ms = device_ms(pair(lambda z, s, qs: adaptive_quantize(z, s, qs, cfg)))
     plain = event_ms(pair(adaptive_quantize_plain))
     nbytes = sum(z.numel() * 2 * 2 + B * 4 * 2 for z, _, _ in cases)
     ops = sum(z.numel() * 3 for z, _, _ in cases)
     b_ms, b_by = bound_ms(nbytes, ops, H100_FP32_TFLOPS)
-    log(f"K3 times (two launches of one call): kernel {ms:.4f} ms, twin {plain:.4f} ms, "
-        f"bound {b_ms:.6f} ms ({b_by}), library none")
+    log(f"K3 times (two launches of one call): kernel {ms:.4f} ms (device alone {dev_ms:.4f}), "
+        f"twin {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}), library none")
     return dict(name="K3 adaptive_quantize", route="cuda",
                 source="contextual_image_compression_tpu_torch/csrc/quantize.cu",
                 replaces="contextual_image_compression_tpu/ops/quantize.py:152",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, device_ms=dev_ms, launches_per_call=per_call,
+                identical_share=same)
 
 
 def check_small_pipeline_against_cpu(dev):
@@ -338,6 +446,7 @@ def run_full_pipeline(dev, card):
         if info["hq_symbols"].dtype != torch.float32:
             raise AssertionError("symbols must be float32")
     counts = ops.launch_counts()
+    check_cluster_route("serving")
     med = float(np.median(times))
     log(f"full-width pipeline B={B}, 256x256: 3 calls, median {med * 1e3:.2f} ms/call, "
         f"{B / med:.1f} img/s on {card}; launches {counts}")
@@ -347,7 +456,7 @@ def run_full_pipeline(dev, card):
 
 
 def check_k3b(dev, B):
-    from contextual_image_compression_tpu_torch.measure import event_ms
+    from contextual_image_compression_tpu_torch.measure import device_ms, event_ms
     from contextual_image_compression_tpu_torch.ops.quantize import (
         adaptive_quantize_bwd, adaptive_quantize_bwd_plain)
 
@@ -385,7 +494,11 @@ def check_k3b(dev, B):
     def pair(fn):
         return lambda: [fn(z, s, q, g) for z, s, q, g in cases]
 
+    z, s, q, g = cases[0]
+    per_call = one_kernel_per_call("K3b", lambda: adaptive_quantize_bwd(z, s, q, g),
+                                   adaptive_quantize_bwd, "quant_bwd_kernel")
     ms = event_ms(pair(adaptive_quantize_bwd))
+    dev_ms = device_ms(pair(adaptive_quantize_bwd))
     plain = event_ms(pair(adaptive_quantize_bwd_plain))
     # float32 training path: z and g read once, sigma and q read, dsigma and
     # dq written; ~6 operations per element (z s, rint, divide, negate,
@@ -393,13 +506,13 @@ def check_k3b(dev, B):
     nbytes = sum(z.numel() * 4 * 2 + B * 4 * 4 for z, _, _, _ in cases)
     ops = sum(z.numel() * 6 for z, _, _, _ in cases)
     b_ms, b_by = bound_ms(nbytes, ops, H100_FP32_TFLOPS)
-    log(f"K3b times (two launches of one step, float32): kernel {ms:.4f} ms, twin {plain:.4f} ms, "
-        f"bound {b_ms:.6f} ms ({b_by}), library none")
+    log(f"K3b times (two launches of one step, float32): kernel {ms:.4f} ms (device alone "
+        f"{dev_ms:.4f}), twin {plain:.4f} ms, bound {b_ms:.6f} ms ({b_by}), library none")
     return dict(name="K3b adaptive_quantize_bwd", route="cuda",
                 source="contextual_image_compression_tpu_torch/csrc/quantize.cu",
                 replaces="contextual_image_compression_tpu/ops/quantize.py:127",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, device_ms=dev_ms, launches_per_call=per_call)
 
 
 # The tiny codec of the CPU training tests, with 64 channels at the attention
@@ -565,6 +678,7 @@ def run_full_training(dev, card):
     want = expect(K1=1, K2=5 + 3, K3=2 * 5 + 2 * 3, K3b=2 * 5)
     if counts != want:
         raise AssertionError(f"training launches {counts}, want {want}")
+    check_cluster_route("training")
     bad = [k for k, v in hist.items() if not all(math.isfinite(x) for x in v)]
     bad += [f"probe {b}" for b, r, g in probe if not (math.isfinite(r) and math.isfinite(g))]
     if bad:
@@ -611,26 +725,44 @@ MASK_METHODS = ("spectral_residual", "fine_grained")
 
 def check_k4(dev, B):
     from contextual_image_compression_tpu_torch.data.images import rich_synthetic_images
-    from contextual_image_compression_tpu_torch.measure import event_ms
+    from contextual_image_compression_tpu_torch.measure import device_ms, event_ms
     from contextual_image_compression_tpu_torch.ops import image_ops, saliency
     from contextual_image_compression_tpu_torch.ops.fused_mask import (
         smooth_mask, smooth_mask_plain)
 
+    from contextual_image_compression_tpu_torch.ops.fused_mask import (
+        _mask_plan, mask_max_clusters)
+
     imgs = torch.from_numpy(rich_synthetic_images(B, (256, 256), seed=40)).to(dev)
-    err, maps = 0.0, {}
+    err, maps, routes = 0.0, {}, set()
     for method in MASK_METHODS:
         sal = saliency.compute_saliency_map(imgs, method).contiguous()
-        got = smooth_mask(sal)
+        got, route = _route_of(smooth_mask, lambda: smooth_mask(sal))
         want = smooth_mask_plain(sal)
         torch.cuda.synchronize()
         err = max(err, (got - want).abs().max().item())
         maps[method] = sal
-    log(f"K4 smooth mask {tuple(sal.shape)}, maps of {' and '.join(MASK_METHODS)}: "
+        routes.add(route)
+    plan = _mask_plan(256, 256, 0, 4, 31)
+    log(f"K4 smooth mask {tuple(sal.shape)}, maps of {' and '.join(MASK_METHODS)}, routes "
+        f"{routes} ({plan}; {mask_max_clusters(False, 256, 256)} clusters at once): "
         f"max |kernel - twin| = {err:.3e} (bar 1e-5)")
-    if not err <= 1e-5:
-        raise AssertionError(f"K4 disagrees with its twin: {err}")
+    if not (err <= 1e-5 and routes == {"cluster"}):
+        raise AssertionError(f"K4: routes {routes}, error {err}")
     sal = maps["fine_grained"]
+    same = torch.equal(smooth_mask(sal), smooth_mask(sal))
+    per_call = one_kernel_per_call("K4", lambda: smooth_mask(sal), smooth_mask, "mask_cluster_kernel")
+    sal_t = torch.from_numpy(rich_synthetic_images(2, (512, 512), seed=41)).to(dev)
+    sal_t = saliency.compute_saliency_map(sal_t, "fine_grained").contiguous()
+    got_t, route_t = _route_of(smooth_mask, lambda: smooth_mask(sal_t))
+    err_t = (got_t - smooth_mask_plain(sal_t)).abs().max().item()
+    tiled_ms = event_ms(lambda: smooth_mask(sal_t))
+    log(f"K4 tiled route {tuple(sal_t.shape)}: {route_t}, max |kernel - twin| = {err_t:.3e} "
+        f"(bar 1e-5), {tiled_ms:.4f} ms; cluster route bitwise repeatable: {same}")
+    if not (err_t <= 1e-5 and route_t == "tiled" and same):
+        raise AssertionError(f"K4 tiled route: {route_t}, error {err_t}; repeatable {same}")
     ms = event_ms(lambda: smooth_mask(sal))
+    dev_ms = device_ms(lambda: smooth_mask(sal))
     plain = event_ms(lambda: smooth_mask_plain(sal), reps=5, warmup=1)
     # Operations the function needs per pixel: 7 per bilateral tap (the
     # difference, its square, the weight, two accumulations) and the final
@@ -640,13 +772,17 @@ def check_k4(dev, B):
     ops_per_px = 7 * ntaps + 1 + 2 * 2 * 31 + 2
     nbytes = sal.numel() * 4 * 2
     b_ms, b_by = bound_ms(nbytes, ops_per_px * sal.numel(), H100_FP32_TFLOPS)
-    log(f"K4 times: kernel {ms:.4f} ms, twin {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-        "library none")
+    log(f"K4 times: kernel {ms:.4f} ms (device alone {dev_ms:.4f}), twin {plain:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), library none")
     return dict(name="K4 smooth_mask", route="cuda",
                 source="contextual_image_compression_tpu_torch/csrc/fused_mask.cu",
                 replaces="contextual_image_compression_tpu/ops/fused_mask.py:324",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, device_ms=dev_ms, mask_route="cluster",
+                design=MASK_DESIGN.format(cluster=plan.cluster, rows=plan.rows,
+                                          kb=plan.smem_bytes / 1024),
+                launches_per_call=per_call, deterministic=same, tiled_route_ms=tiled_ms,
+                tiled_route_max_abs_err=err_t)
 
 
 def run_mask_path(dev, card):
@@ -679,6 +815,7 @@ def run_mask_path(dev, card):
     want = expect(K4=2 * (n // batch))
     if counts != want:
         raise AssertionError(f"mask path launches {counts}, want {want}")
+    check_cluster_route("mask path")
     for method, (secs, out) in results.items():
         if out.shape != (n, 256, 256, 1) or not np.all(np.isfinite(out)):
             raise AssertionError(f"{method} masks: shape {out.shape} or non-finite values")
@@ -1187,6 +1324,7 @@ def run_codec_path(dev, card):
     want = expect(K1=1, K2=1, K3=2)
     if counts != want:
         raise AssertionError(f"storable codec launches {counts}, want {want}")
+    check_cluster_route("storable codec")
     t0 = time.perf_counter()
     latent_streams, bpp = pipe.serialize_latents(info)
     t_coder = time.perf_counter() - t0

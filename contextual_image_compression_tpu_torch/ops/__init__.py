@@ -2,7 +2,8 @@
 
 Each kernel wrapper counts its launches in a plain integer attribute,
 `<wrapper>.launches`; `launch_counts()` reads them and `reset_launch_counts()`
-sets them to 0.
+sets them to 0. The mask kernels K1 and K4 also count them per route
+(`.route_launches`, read by `route_counts()`).
 """
 
 from contextual_image_compression_tpu_torch.ops.attention import (
@@ -37,6 +38,15 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
 
 
+def route_counts() -> dict:
+    """Launches per route of the kernels that have two: {'K1': {'cluster': n,
+    'tiled': m}, 'K4': {...}}."""
+    return {name: dict(fn.route_launches) for name, fn in KERNEL_WRAPPERS.items()
+            if hasattr(fn, "route_launches")}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "route_launches"):
+            fn.route_launches = {route: 0 for route in fn.route_launches}

@@ -117,10 +117,6 @@ def _attention_block_kernel(q, k, v, residual, gamma):
     return out
 
 
-def _needs_grad(*tensors):
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
 class _Kernel(torch.autograd.Function):
     """forward: `fwd(*inputs)` (a kernel, or its twin on the CPU); backward:
     autograd over the formula `ref(*inputs)`, as the JAX custom VJPs
@@ -149,7 +145,7 @@ def attention_block(q, k, v, residual, gamma):
         return attention_block_plain(q, k, v, residual, gamma)
     if not torch.is_tensor(gamma):
         gamma = torch.tensor(float(gamma), device=q.device)
-    if not _needs_grad(q, k, v, residual, gamma):
+    if not ck.needs_grad(q, k, v, residual, gamma):
         return _attention_block_kernel(q, k, v, residual, gamma)
     return _Kernel.apply(_attention_block_kernel, attention_block_plain, q, k, v, residual,
                          gamma.float().reshape(()))
@@ -164,7 +160,7 @@ def attention_core(q, k, v, use_pallas: bool = True):
     if not use_pallas:
         return attention_core_jnp(q, k, v)
     fwd = attention_core_plain if q.device.type == "cpu" else _attention_core_kernel
-    if not _needs_grad(q, k, v):
+    if not ck.needs_grad(q, k, v):
         return fwd(q, k, v)
     return _Kernel.apply(fwd, attention_core_jnp, q, k, v)
 

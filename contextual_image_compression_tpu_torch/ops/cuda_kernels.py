@@ -42,6 +42,27 @@ _L = ctypes.c_longlong
 
 # argtypes of every exported function (all return a cudaError_t as int)
 _SIGNATURES = {
+    "cic_contextual_mask_cluster": [
+        _P, _P, _I, _I, _I, _I, _I,  # gray, spec, B, H, W, spec_h, spec_w
+        _P, _P, _P, _P,              # up_idx_h, up_w_h, up_idx_w, up_w_w
+        _I, _I, _F, _F,              # scale_mask, rmax, spectral_w, fine_w
+        _I, _P, _I,                  # radius, bilateral taps (host), n taps
+        _P, _I,                      # gaussian kernel (host), ksize
+        _I, _I, _I, _I, _I,          # cluster, rows, stride, halo, smem bytes
+        _P, _P,                      # out, stream
+    ],
+    "cic_smooth_mask_cluster": [
+        _P, _I, _I, _I,              # saliency, B, H, W
+        _I, _P, _I,                  # radius, bilateral taps (host), n taps
+        _P, _I,                      # gaussian kernel (host), ksize
+        _I, _I, _I, _I, _I,          # cluster, rows, stride, halo, smem bytes
+        _P, _P,                      # out, stream
+    ],
+    "cic_mask_max_clusters": [
+        _I, _I, _I, _I, _I, _I,      # contextual, H, W, rmax, radius, ksize
+        _I, _I, _I, _I, _I,          # cluster, rows, stride, halo, smem bytes
+        _P,                          # int *max_clusters (host)
+    ],
     "cic_contextual_mask": [
         _P, _P, _I, _I, _I, _I, _I,  # gray, spec, B, H, W, spec_h, spec_w
         _P, _P, _P, _P,              # up_idx_h, up_w_h, up_idx_w, up_w_w
@@ -86,14 +107,16 @@ _SIGNATURES = {
         _F, _P,                      # LeakyReLU slope, stream
     ],
     "cic_adaptive_quantize": [
-        _I,                          # dtype code
-        _P, _P, _P, _F, _P,          # latent, score(f32), strength(f32), coeff, out
+        _I,                          # dtype code of the latent
+        _P, _P, _I, _P, _I,          # latent, score, its dtype code, strength, its dtype code
+        _F, _P,                      # coeff, out
         _I, _I, _P,                  # B, D, stream
     ],
     "cic_adaptive_quantize_bwd": [
         _I,                          # dtype code of latent and gradient
-        _P, _P, _P, _P, _F,          # latent, grad, score(f32), strength(f32), coeff
-        _P, _P,                      # dscore(f32), dstrength(f32)
+        _P, _P,                      # latent, grad
+        _P, _I, _P, _I, _F,          # score, its dtype code, strength, its dtype code, coeff
+        _P, _P,                      # dscore (score's dtype), dstrength (strength's dtype)
         _I, _I, _P,                  # B, D, stream
     ],
 }
@@ -198,6 +221,12 @@ def dtype_code(dtype: torch.dtype) -> int:
     if dtype == torch.bfloat16:
         return 1
     raise TypeError(f"kernel takes float32 or bfloat16 tensors, got {dtype}")
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd must record a call on these tensors; a wrapper that
+    gets False launches its kernel without an autograd Function."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

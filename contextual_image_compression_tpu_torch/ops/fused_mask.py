@@ -21,11 +21,27 @@ Reflect-101 padding applies per stage to that stage's own input. On a CUDA
 tensor `contextual_mask` and `smooth_mask` launch their kernels in
 `csrc/fused_mask.cu`; on a CPU tensor they run `contextual_mask_plain` and
 `smooth_mask_plain`, which are also what the card's results are held against.
+
+On the card, `_mask_plan` picks one of two routes before any launch, from
+the image and filter sizes alone:
+
+* 'cluster': one launch per call. Each image goes to a thread-block cluster
+  of 6 (or, for larger images, 8) blocks, each block owning a strip of
+  whole rows, with every intermediate in the strips' shared memory; the
+  route of every default configuration (256^2, and anything up to 335^2 at
+  the default filters).
+* 'tiled': six launches over 32x32 tiles with two scratch images in device
+  memory, for images whose strips do not fit in a cluster's shared memory.
+
+Each wrapper counts its launches in `.launches` and, apart, per route in
+`.route_launches`. A route is never chosen because a launch failed: a
+refused launch, or a cluster the card cannot schedule, raises.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -94,18 +110,33 @@ def upsample_taps(src: int, dst: int):
 
 
 @functools.lru_cache(maxsize=8)
-def _filter_tables(dev, d, sigma_color, sigma_space, gauss_ksize):
-    """The bilateral (sw, swc) pairs and the Gaussian taps on `dev` (K1, K4),
-    and the number of bilateral taps."""
+def _host_filter_tables(d, sigma_color, sigma_space, gauss_ksize):
+    """The bilateral (sw, swc) pairs and the Gaussian taps as host arrays,
+    which the cluster route copies into its kernel arguments, and the
+    number of bilateral taps."""
     taps = iops.bilateral_taps(d, sigma_space, sigma_color)
-    tap_w = np.array([[sw, swc] for _, _, sw, swc in taps], np.float32).reshape(-1)
-    gk = np.asarray(iops.gaussian_kernel_1d(gauss_ksize, 0.0), np.float32)
-    return torch.from_numpy(tap_w).to(dev), torch.from_numpy(gk.copy()).to(dev), len(taps)
+    tap_w = np.ascontiguousarray(
+        np.array([[sw, swc] for _, _, sw, swc in taps], np.float32).reshape(-1))
+    gk = np.ascontiguousarray(iops.gaussian_kernel_1d(gauss_ksize, 0.0), np.float32).copy()
+    return tap_w, gk, len(taps)
+
+
+@functools.lru_cache(maxsize=8)
+def _filter_tables(dev, d, sigma_color, sigma_space, gauss_ksize):
+    """`_host_filter_tables` on `dev` (the tiled route reads them from device
+    memory)."""
+    tap_w, gk, n_taps = _host_filter_tables(d, sigma_color, sigma_space, gauss_ksize)
+    return torch.from_numpy(tap_w).to(dev), torch.from_numpy(gk).to(dev), n_taps
 
 
 @functools.lru_cache(maxsize=8)
 def _upsample_tables(dev, rh, rw, h, w):
-    """K1's two-tap upsample tables on `dev`, built once per shape."""
+    """K1's two-tap upsample tables on `dev`, built once per shape. The
+    cluster route reads a strip's spectral rows as one block, so the row
+    index must not decrease nor step by more than one a row."""
+    steps = np.diff(upsample_taps(rh, h)[0])
+    if steps.size and (steps.min() < 0 or steps.max() > 1):
+        raise ValueError(f"resize {rh}->{h}: the upsample's row index is not a unit staircase")
     arrays = (*upsample_taps(rh, h), *upsample_taps(rw, w))
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
@@ -115,6 +146,90 @@ def _check_filter_sizes(name, h, w, d, gauss_ksize, rmax=0):
         raise ValueError(f"{name}: box radius and bilateral radius <= 8, ksize <= 63")
     if min(h, w) <= max(rmax, d // 2, gauss_ksize // 2):
         raise ValueError(f"{name}: image {h}x{w} too small for the filters")
+
+
+# Blocks per image, in order of preference. On an H100 SXM 17 clusters of 6
+# such blocks run at once and 15 of 8 (cudaOccupancyMaxActiveClusters, as
+# scripts/torch_mask_stages.py prints it), so a B = 16 batch takes one wave
+# at 6 and two at 8; 8 (the portable maximum) takes the images whose strips
+# do not fit at 6.
+CLUSTER_SIZES = (6, 8)
+MAX_SMEM_BYTES = 232448  # shared memory one block may use on the H100
+
+
+class MaskPlan(NamedTuple):
+    """How a K1 / K4 call runs on the card (see `_mask_plan`)."""
+
+    route: str       # 'cluster' or 'tiled'
+    cluster: int     # blocks per image (cluster route)
+    rows: int        # image rows per block; the last block may own fewer
+    stride: int      # floats per strip row (odd: no shared-memory bank conflicts)
+    halo: int        # halo rows above and below a strip, and reflected columns each side
+    smem_bytes: int  # dynamic shared memory per block (cluster route)
+
+
+@functools.lru_cache(maxsize=64)
+def _mask_plan(h: int, w: int, rmax: int, radius: int, ksize: int) -> MaskPlan:
+    """The route of a mask kernel call for an h x w image, box radius rmax
+    (0 for K4), bilateral radius and Gaussian size. The cluster route splits
+    the rows over the first of CLUSTER_SIZES whose strips fit and takes, per
+    block, buffer 0 (its rows plus `halo` rows each side and 3 rows of
+    slack), buffers 1 and 2 (its rows), each row `stride` floats, plus 36
+    floats of maxima; csrc/fused_mask.cu checks the same layout. Images
+    whose strips exceed a block's shared memory even at 8 blocks take the
+    tiled route."""
+    halo = max(rmax, radius, ksize // 2)
+    stride = w + 2 * halo
+    stride += 1 - stride % 2
+    for size in CLUSTER_SIZES:
+        rows = -(-h // size)
+        cluster = -(-h // rows)
+        smem = 4 * ((3 * rows + 2 * halo + 3) * stride + 36)
+        if smem <= MAX_SMEM_BYTES:
+            return MaskPlan("cluster", cluster, rows, stride, halo, smem)
+    return MaskPlan("tiled", cluster, rows, stride, halo, smem)
+
+
+def _halo_rows(plan: MaskPlan, h: int, rank: int, halo: int):
+    """For block `rank`, the rows a stage with `halo` rows each side reads:
+    (image row after reflect-101, owning block, row within that block's
+    strip), as the cluster kernel computes them."""
+    r0 = rank * plan.rows
+    n = min(plan.rows, h - r0)
+    out = []
+    for j in range(n + 2 * halo):
+        yy = abs(r0 - halo + j)
+        if yy >= h:
+            yy = 2 * h - 2 - yy
+        owner = yy // plan.rows
+        out.append((yy, owner, yy - owner * plan.rows))
+    return out
+
+
+def _cluster_args(plan: MaskPlan):
+    return (plan.cluster, plan.rows, plan.stride, plan.halo, plan.smem_bytes)
+
+
+def mask_max_clusters(contextual: bool, h: int, w: int, scales=(1, 2, 3, 4, 5, 6), d: int = 9,
+                      gauss_ksize: int = 31) -> int:
+    """How many clusters of the cluster route the current card runs at once
+    for such a call (`cudaOccupancyMaxActiveClusters`); launches nothing."""
+    import ctypes
+
+    rmax = max(scales) if contextual else 0
+    plan = _mask_plan(h, w, rmax, d // 2, gauss_ksize)
+    if plan.route != "cluster":
+        raise ValueError(f"a {h}x{w} mask takes the tiled route")
+    count = ctypes.c_int(0)
+    err = ck.library().cic_mask_max_clusters(int(contextual), h, w, rmax, d // 2, gauss_ksize,
+                                             *_cluster_args(plan), ctypes.addressof(count))
+    ck.check(err, "mask_max_clusters")
+    return count.value
+
+
+def _count(wrapper, route):
+    wrapper.launches += 1
+    wrapper.route_launches[route] += 1
 
 
 def contextual_mask(
@@ -129,8 +244,8 @@ def contextual_mask(
     gauss_ksize: int = 31,
 ) -> torch.Tensor:
     """Fused contextual mask (B, H, W) float32 from gray255 (B, H, W) and the
-    spectral map (B, r, r). Launches K1 for CUDA tensors; the plain twin runs
-    only for CPU tensors."""
+    spectral map (B, r, r). Launches K1 for CUDA tensors, on the route
+    `_mask_plan` picks; the plain twin runs only for CPU tensors."""
     args = (scales, spectral_weight, fine_weight, d, sigma_color, sigma_space, gauss_ksize)
     if gray255.device.type == "cpu":
         return contextual_mask_plain(gray255, spectral, *args)
@@ -151,28 +266,37 @@ def contextual_mask(
     ck.require_cuda("contextual_mask", gray255, spectral)
     dev = gray255.device
     up = _upsample_tables(dev, rh, rw, h, w)
-    tap_w, gk, n_taps = _filter_tables(dev, d, float(sigma_color), float(sigma_space), gauss_ksize)
-    scratch1 = torch.empty_like(gray255)
-    scratch2 = torch.empty_like(gray255)
-    maxes = torch.empty((b, 4), dtype=torch.float32, device=dev)
-    out = torch.empty_like(gray255)
     scale_mask = 0
     for r in scales:
         scale_mask |= 1 << r
-    err = ck.library().cic_contextual_mask(
-        gray255.data_ptr(), spectral.data_ptr(), b, h, w, rh, rw,
-        up[0].data_ptr(), up[1].data_ptr(), up[2].data_ptr(), up[3].data_ptr(),
-        scale_mask, rmax, float(spectral_weight), float(fine_weight),
-        d // 2, tap_w.data_ptr(), n_taps, gk.data_ptr(), gauss_ksize,
-        scratch1.data_ptr(), scratch2.data_ptr(), maxes.data_ptr(), out.data_ptr(),
-        ck.stream_ptr(dev),
-    )
-    ck.check(err, "contextual_mask")
-    contextual_mask.launches += 1
+    plan = _mask_plan(h, w, rmax, d // 2, gauss_ksize)
+    out = torch.empty_like(gray255)
+    head = (gray255.data_ptr(), spectral.data_ptr(), b, h, w, rh, rw,
+            up[0].data_ptr(), up[1].data_ptr(), up[2].data_ptr(), up[3].data_ptr(),
+            scale_mask, rmax, float(spectral_weight), float(fine_weight), d // 2)
+    if plan.route == "cluster":
+        tap_w, gk, n_taps = _host_filter_tables(d, float(sigma_color), float(sigma_space),
+                                                gauss_ksize)
+        err = ck.library().cic_contextual_mask_cluster(
+            *head, tap_w.ctypes.data, n_taps, gk.ctypes.data, gauss_ksize,
+            *_cluster_args(plan), out.data_ptr(), ck.stream_ptr(dev))
+    else:
+        tap_w, gk, n_taps = _filter_tables(dev, d, float(sigma_color), float(sigma_space),
+                                           gauss_ksize)
+        scratch1 = torch.empty_like(gray255)
+        scratch2 = torch.empty_like(gray255)
+        maxes = torch.empty((b, 4), dtype=torch.float32, device=dev)
+        err = ck.library().cic_contextual_mask(
+            *head, tap_w.data_ptr(), n_taps, gk.data_ptr(), gauss_ksize,
+            scratch1.data_ptr(), scratch2.data_ptr(), maxes.data_ptr(), out.data_ptr(),
+            ck.stream_ptr(dev))
+    ck.check(err, f"contextual_mask ({plan.route} route)")
+    _count(contextual_mask, plan.route)
     return out
 
 
 contextual_mask.launches = 0
+contextual_mask.route_launches = {"cluster": 0, "tiled": 0}
 
 
 def smooth_mask_plain(
@@ -197,8 +321,8 @@ def smooth_mask(
     gauss_ksize: int = 31,
 ) -> torch.Tensor:
     """Smooth mask (B, H, W) or (H, W) float32 of saliency maps of the same
-    shape. Launches K4 for CUDA tensors; the plain twin runs only for CPU
-    tensors."""
+    shape. Launches K4 for CUDA tensors, on the route `_mask_plan` picks;
+    the plain twin runs only for CPU tensors."""
     if saliency.device.type == "cpu":
         return smooth_mask_plain(saliency, d, sigma_color, sigma_space, gauss_ksize)
     if saliency.device.type != "cuda":
@@ -213,18 +337,27 @@ def smooth_mask(
     _check_filter_sizes("smooth_mask", h, w, d, gauss_ksize)
     ck.require_cuda("smooth_mask", saliency)
     dev = saliency.device
-    tap_w, gk, n_taps = _filter_tables(dev, d, float(sigma_color), float(sigma_space), gauss_ksize)
-    scratch = torch.empty_like(saliency)
-    maxes = torch.empty((b, 4), dtype=torch.float32, device=dev)
+    plan = _mask_plan(h, w, 0, d // 2, gauss_ksize)
     out = torch.empty_like(saliency)
-    err = ck.library().cic_smooth_mask(
-        saliency.data_ptr(), b, h, w, d // 2, tap_w.data_ptr(), n_taps,
-        gk.data_ptr(), gauss_ksize, scratch.data_ptr(), maxes.data_ptr(), out.data_ptr(),
-        ck.stream_ptr(dev),
-    )
-    ck.check(err, "smooth_mask")
-    smooth_mask.launches += 1
+    if plan.route == "cluster":
+        tap_w, gk, n_taps = _host_filter_tables(d, float(sigma_color), float(sigma_space),
+                                                gauss_ksize)
+        err = ck.library().cic_smooth_mask_cluster(
+            saliency.data_ptr(), b, h, w, d // 2, tap_w.ctypes.data, n_taps, gk.ctypes.data,
+            gauss_ksize, *_cluster_args(plan), out.data_ptr(), ck.stream_ptr(dev))
+    else:
+        tap_w, gk, n_taps = _filter_tables(dev, d, float(sigma_color), float(sigma_space),
+                                           gauss_ksize)
+        scratch = torch.empty_like(saliency)
+        maxes = torch.empty((b, 4), dtype=torch.float32, device=dev)
+        err = ck.library().cic_smooth_mask(
+            saliency.data_ptr(), b, h, w, d // 2, tap_w.data_ptr(), n_taps,
+            gk.data_ptr(), gauss_ksize, scratch.data_ptr(), maxes.data_ptr(), out.data_ptr(),
+            ck.stream_ptr(dev))
+    ck.check(err, f"smooth_mask ({plan.route} route)")
+    _count(smooth_mask, plan.route)
     return out
 
 
 smooth_mask.launches = 0
+smooth_mask.route_launches = {"cluster": 0, "tiled": 0}

@@ -13,8 +13,12 @@ scale^2), dsigma = g_s * c * scale * (-q), dq = g_s * c * scale * (1 - sigma).
 The 'ste' mode passes the gradient straight to the latent and gives score and
 strength none, so it needs no kernel.
 
-`adaptive_quantize` runs both through one autograd Function: on CUDA tensors
-it launches the kernels, on CPU tensors it runs the twins.
+`adaptive_quantize` launches K3 directly when no input needs a gradient (as
+serving calls it, under `torch.no_grad()`), and otherwise runs both through
+one autograd Function: on CUDA tensors it launches the kernels, on CPU
+tensors it runs the twins. The kernels read score and strength in their own
+dtype, and K3b writes their gradients in it, so a call launches nothing but
+its kernel.
 """
 
 from __future__ import annotations
@@ -29,8 +33,9 @@ DEFAULT_SCALE_COEFF = 3.0
 
 def adaptive_quantize_plain(latent, saliency_score, quant_strength,
                             scale_coeff: float = DEFAULT_SCALE_COEFF):
-    """The quantizer forward in plain PyTorch, float32 inside."""
-    eff = quant_strength.float() * (1.0 - saliency_score.float())
+    """The quantizer forward in plain PyTorch, float32 inside; score and
+    strength (B, 1) or (B,)."""
+    eff = quant_strength.float().reshape(-1, 1) * (1.0 - saliency_score.float().reshape(-1, 1))
     scale = torch.exp(scale_coeff * eff)
     return (torch.round(latent.float() * scale) / scale).to(latent.dtype)
 
@@ -40,8 +45,8 @@ def adaptive_quantize_bwd_plain(latent, saliency_score, quant_strength, g,
     """The 'reference'-mode scale-path gradient in plain PyTorch, float32
     inside. Returns (dscore, dstrength) in the shapes and dtypes of score
     and strength."""
-    q = quant_strength.float()
-    sigma = saliency_score.float()
+    q = quant_strength.float().reshape(-1, 1)
+    sigma = saliency_score.float().reshape(-1, 1)
     scale = torch.exp(scale_coeff * (q * (1.0 - sigma)))
     rounded = torch.round(latent.float() * scale)
     g_scale = torch.sum(g.float() * (-rounded / (scale * scale)), dim=1, keepdim=True)
@@ -51,8 +56,10 @@ def adaptive_quantize_bwd_plain(latent, saliency_score, quant_strength, g,
 
 
 def _rows(name, latent, saliency_score, quant_strength):
-    """Check a (B, D) latent on the card with (B, 1) score and strength;
-    returns B, D and the score and strength as contiguous float32 (B,)."""
+    """Check a (B, D) latent on the card with one score and one strength per
+    row ((B, 1) or (B,), float32 or bfloat16); returns B, D and the three
+    tensors contiguous. Nothing is cast: the kernels read each dtype as
+    stored."""
     if latent.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {latent.device}")
     if latent.ndim != 2:
@@ -60,18 +67,17 @@ def _rows(name, latent, saliency_score, quant_strength):
     b, d = latent.shape
     if saliency_score.numel() != b or quant_strength.numel() != b:
         raise ValueError(f"{name}: score and strength must be (B, 1)")
-    score = saliency_score.reshape(b).float().contiguous()
-    strength = quant_strength.reshape(b).float().contiguous()
-    return b, d, score, strength
+    return b, d, latent.contiguous(), saliency_score.contiguous(), quant_strength.contiguous()
 
 
 def _quantize_kernel(latent, saliency_score, quant_strength, scale_coeff):
-    b, d, score, strength = _rows("adaptive_quantize", latent, saliency_score, quant_strength)
-    latent = latent.contiguous()
+    b, d, latent, score, strength = _rows("adaptive_quantize", latent, saliency_score,
+                                          quant_strength)
     ck.require_cuda("adaptive_quantize", latent, score, strength)
     out = torch.empty_like(latent)
     err = ck.library().cic_adaptive_quantize(
-        ck.dtype_code(latent.dtype), latent.data_ptr(), score.data_ptr(), strength.data_ptr(),
+        ck.dtype_code(latent.dtype), latent.data_ptr(), score.data_ptr(),
+        ck.dtype_code(score.dtype), strength.data_ptr(), ck.dtype_code(strength.dtype),
         float(scale_coeff), out.data_ptr(), b, d, ck.stream_ptr(latent.device),
     )
     ck.check(err, "adaptive_quantize")
@@ -82,27 +88,28 @@ def _quantize_kernel(latent, saliency_score, quant_strength, scale_coeff):
 def adaptive_quantize_bwd(latent, saliency_score, quant_strength, g,
                           scale_coeff: float = DEFAULT_SCALE_COEFF):
     """(dscore, dstrength) of the 'reference' mode for the upstream gradient
-    g of the quantized (B, D) latent. Launches K3b for CUDA tensors; the
-    plain twin runs for CPU tensors."""
+    g of the quantized (B, D) latent, in the shapes and dtypes of score and
+    strength. Launches K3b for CUDA tensors (which writes both in those
+    dtypes itself); the plain twin runs for CPU tensors."""
     if latent.device.type == "cpu":
         return adaptive_quantize_bwd_plain(latent, saliency_score, quant_strength, g, scale_coeff)
-    b, d, score, strength = _rows("adaptive_quantize_bwd", latent, saliency_score,
-                                  quant_strength)
+    b, d, latent, score, strength = _rows("adaptive_quantize_bwd", latent, saliency_score,
+                                          quant_strength)
     if g.shape != latent.shape or g.dtype != latent.dtype:
         raise ValueError("adaptive_quantize_bwd: g must have the latent's shape and dtype")
-    latent, g = latent.contiguous(), g.contiguous()
+    g = g.contiguous()
     ck.require_cuda("adaptive_quantize_bwd", latent, g, score, strength)
-    dscore = torch.empty(b, dtype=torch.float32, device=latent.device)
-    dstrength = torch.empty_like(dscore)
+    dscore = torch.empty(score.shape, dtype=score.dtype, device=latent.device)
+    dstrength = torch.empty(strength.shape, dtype=strength.dtype, device=latent.device)
     err = ck.library().cic_adaptive_quantize_bwd(
         ck.dtype_code(latent.dtype), latent.data_ptr(), g.data_ptr(), score.data_ptr(),
-        strength.data_ptr(), float(scale_coeff), dscore.data_ptr(), dstrength.data_ptr(),
-        b, d, ck.stream_ptr(latent.device),
+        ck.dtype_code(score.dtype), strength.data_ptr(), ck.dtype_code(strength.dtype),
+        float(scale_coeff), dscore.data_ptr(), dstrength.data_ptr(), b, d,
+        ck.stream_ptr(latent.device),
     )
     ck.check(err, "adaptive_quantize_bwd")
     adaptive_quantize_bwd.launches += 1
-    return (dscore.to(saliency_score.dtype).reshape(saliency_score.shape),
-            dstrength.to(quant_strength.dtype).reshape(quant_strength.shape))
+    return dscore, dstrength
 
 
 adaptive_quantize_bwd.launches = 0
@@ -150,6 +157,12 @@ def adaptive_quantize(latent, saliency_score, quant_strength,
         )
     if cfg.grad_mode not in ("reference", "ste"):
         raise ValueError(f"unknown grad_mode {cfg.grad_mode!r}")
+    if not ck.needs_grad(latent, saliency_score, quant_strength):
+        # no autograd Function: one kernel launch (or the twin on the CPU)
+        if latent.device.type == "cpu":
+            return adaptive_quantize_plain(latent, saliency_score, quant_strength,
+                                           float(cfg.scale_coeff))
+        return _quantize_kernel(latent, saliency_score, quant_strength, float(cfg.scale_coeff))
     return _AdaptiveQuantize.apply(latent, saliency_score, quant_strength,
                                    float(cfg.scale_coeff), cfg.grad_mode)
 

@@ -1,0 +1,99 @@
+"""K1, K3, K3b, K4 and the serving call of one checkout of the port, timed
+on one GPU, for parent / change comparisons within one run.
+
+    python3 scripts/torch_tree_times.py PATH_TO_CHECKOUT
+
+Imports contextual_image_compression_tpu_torch from the checkout at PATH
+(the kernels build there at first use) and prints one JSON line: the card,
+and for K1 (16, 256, 256), K3 (one serving call's pair, bf16, under
+no_grad), K3b (one training step's pair, float32) and K4 (64, 256, 256)
+`measure.event_ms` (the host's launch inside) and `measure.device_ms`
+(the device alone), then the median, min and max of 15 serving calls of
+CompressionPipeline(ModelConfig()) at B = 16 after 3 warm-up calls. Run it
+for parent and change in turns (parent, change, change, parent) on one
+machine, one after another: host-inclusive times move between processes
+and machines. It needs a CUDA device.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("checkout", help="root of a checkout holding contextual_image_compression_tpu_torch")
+    root = os.path.realpath(ap.parse_args().checkout)
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, root)
+    from contextual_image_compression_tpu_torch.config import ModelConfig, QuantizerConfig
+    from contextual_image_compression_tpu_torch.measure import (
+        card_name_and_power, device_ms, event_ms, randomize_stats, structured_images)
+    from contextual_image_compression_tpu_torch.ops import cuda_kernels as ck
+    from contextual_image_compression_tpu_torch.ops import image_ops, saliency
+    from contextual_image_compression_tpu_torch.ops.fused_mask import contextual_mask, smooth_mask
+    from contextual_image_compression_tpu_torch.ops.quantize import (
+        adaptive_quantize, adaptive_quantize_bwd)
+    from contextual_image_compression_tpu_torch.serve import CompressionPipeline
+
+    if not ck.__file__.startswith(root):
+        raise RuntimeError(f"imported {ck.__file__}, not the checkout at {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    ck.library()
+    out = {"tree": root, "card": card_name_and_power()}
+    u8 = torch.from_numpy(structured_images(np.random.RandomState(0), 16, 256)).to(dev)
+    gray = image_ops.rgb_to_gray(u8.float()).contiguous()
+    spec = saliency.spectral_residual_small(gray, 64, 3.0).contiguous()
+    sal = torch.rand(64, 256, 256, device=dev)
+    cfg = QuantizerConfig(grad_mode="reference")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q_cases = []
+    for d in (1024, 512):  # the HQ and LQ latents of one call
+        z = (torch.randn(16, d, device=dev, generator=gen) * 2).to(torch.bfloat16)
+        s = torch.rand(16, 1, device=dev, generator=gen).to(torch.bfloat16)
+        q = (torch.rand(16, 1, device=dev, generator=gen) * 0.9).to(torch.bfloat16)
+        q_cases.append((z, s, q))
+    b_cases = [(z.float(), s.float(), q.float(),
+                torch.randn(z.shape, device=dev, generator=gen) * 1e-3) for z, s, q in q_cases]
+
+    def k3_pair():
+        with torch.no_grad():  # as serving calls it
+            return [adaptive_quantize(z, s, q, cfg) for z, s, q in q_cases]
+
+    fns = {
+        "K1": lambda: contextual_mask(gray, spec),
+        "K3": k3_pair,
+        "K3b": lambda: [adaptive_quantize_bwd(*c) for c in b_cases],
+        "K4": lambda: smooth_mask(sal),
+    }
+    for name, fn in fns.items():
+        out[name] = {"ms": event_ms(fn), "device_ms": device_ms(fn)}
+
+    pipe = CompressionPipeline(model_config=ModelConfig(), device=dev, seed=0)
+    randomize_stats(pipe.codec, 0)
+    imgs = structured_images(np.random.RandomState(1), 16, 256)
+    for _ in range(3):
+        pipe(imgs, target_bpp=1.0)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(15):
+        t = time.perf_counter()
+        pipe(imgs, target_bpp=1.0)  # ends in a device->host copy
+        times.append((time.perf_counter() - t) * 1e3)
+    out["serving_call_ms"] = {"median": float(np.median(times)), "min": float(np.min(times)),
+                              "max": float(np.max(times))}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card, in
-the cases chip_smoke.py does not run: ragged sizes, B = 1, K2's backward,
+the cases chip_smoke.py does not run: ragged sizes, B = 1, K1 and K4 on the
+cluster route with halos that span several blocks, a height that is not a
+multiple of the cluster, other filter sizes, and on the tiled route, K3 and
+K3b with score and strength in bf16 (B, 1) and float32 (B,), K2's backward,
 K2 and K6 in bf16 at every key width (DK 4..64) and value width, N from 1 to
 1024 at B = 1 and 3, on unaligned inputs and with every row's max in the last
 key tile, K3b under autograd, K4 on non-square and all-zero maps, K5 at the smallest
@@ -42,6 +45,7 @@ from contextual_image_compression_tpu_torch.ops.dct import (
     quality_tables,
 )
 from contextual_image_compression_tpu_torch.ops.fused_mask import (
+    _mask_plan,
     contextual_mask,
     contextual_mask_plain,
     smooth_mask,
@@ -51,6 +55,7 @@ from contextual_image_compression_tpu_torch.ops.quantize import (
     adaptive_quantize,
     adaptive_quantize_bwd,
     adaptive_quantize_bwd_plain,
+    adaptive_quantize_plain,
 )
 from torch_port_helpers import late_max_attention_inputs
 
@@ -66,17 +71,69 @@ def dev():
     return torch.device("cuda")
 
 
-def test_k1_ragged_matches_twin(dev):
-    """200 is not a multiple of the 32-pixel tile; chip_smoke.py holds K1 at 256^2."""
-    gen = torch.Generator(device=dev).manual_seed(200)
-    u8 = (torch.rand(3, 200, 200, 3, device=dev, generator=gen) * 255).to(torch.uint8)
+def _k1_inputs(dev, b, h, w):
+    gen = torch.Generator(device=dev).manual_seed(h * w + b)
+    u8 = (torch.rand(b, h, w, 3, device=dev, generator=gen) * 255).to(torch.uint8)
     gray = image_ops.rgb_to_gray(u8.float()).contiguous()
-    spec = saliency.spectral_residual_small(gray, 64, 3.0).contiguous()
-    before = contextual_mask.launches
-    got = contextual_mask(gray, spec)
-    assert contextual_mask.launches == before + 1
+    spec = saliency.spectral_residual_small(gray, min(64, h, w), 3.0).contiguous()
+    return gray, spec
+
+
+def _route_of(wrapper, call):
+    """Run call(); assert one launch of the wrapper and return its route."""
+    before = dict(wrapper.route_launches)
+    n = wrapper.launches
+    out = call()
+    assert wrapper.launches == n + 1
+    moved = [r for r in before if wrapper.route_launches[r] != before[r]]
+    assert len(moved) == 1
+    return out, moved[0]
+
+
+@pytest.mark.parametrize("shape", [(3, 200, 200), (1, 256, 256), (2, 48, 64), (2, 50, 64)],
+                         ids=["ragged-200", "B1", "halo-spans-ranks-48x64", "ragged-rank-50x64"])
+def test_k1_ragged_matches_twin(dev, shape):
+    """200 is not a multiple of the 6-block cluster (34 rows a block, the
+    last owning 30); at 48 rows a block owns 8, so the 15-row Gaussian halo
+    comes from blocks up to 2 away and reflects into rows other blocks own;
+    at 50 rows the last block owns 5 of 9. chip_smoke.py holds K1 at
+    (16, 256, 256). Bar 1e-4."""
+    gray, spec = _k1_inputs(dev, *shape)
+    assert _mask_plan(shape[1], shape[2], 6, 4, 31).route == "cluster"
+    got, route = _route_of(contextual_mask, lambda: contextual_mask(gray, spec))
+    assert route == "cluster"
     want = contextual_mask_plain(gray, spec)
     assert (got - want).abs().max().item() <= 1e-4
+    assert torch.equal(got, contextual_mask(gray, spec))  # no atomics: bitwise repeatable
+
+
+def test_k1_cluster_shapes_in_any_order(dev):
+    """A large image after a small one: the kernel's shared-memory limit is
+    set once for the most a block may use, so the 256^2 call launches after
+    a 32 x 64 call with its smaller strips (a limit set per shape refused it
+    with cudaErrorInvalidValue); 300^2 takes clusters of 8."""
+    for shape in [(1, 256, 256), (1, 32, 64), (1, 256, 256), (1, 300, 300)]:
+        gray, spec = _k1_inputs(dev, *shape)
+        got = contextual_mask(gray, spec)
+        assert (got - contextual_mask_plain(gray, spec)).abs().max().item() <= 1e-4
+
+
+def test_k1_other_filter_sizes_match_twin(dev):
+    """scales (1, 3), bilateral d = 5, Gaussian 15: the cluster kernel's
+    generic instantiation (the default sizes are compiled unrolled)."""
+    kw = dict(scales=(1, 3), d=5, gauss_ksize=15)
+    gray, spec = _k1_inputs(dev, 2, 48, 64)
+    got, route = _route_of(contextual_mask, lambda: contextual_mask(gray, spec, **kw))
+    assert route == "cluster"
+    assert (got - contextual_mask_plain(gray, spec, **kw)).abs().max().item() <= 1e-4
+
+
+def test_k1_tiled_route_matches_twin(dev):
+    """360^2 strips do not fit a cluster's shared memory: six tiled launches."""
+    gray, spec = _k1_inputs(dev, 1, 360, 360)
+    got, route = _route_of(contextual_mask, lambda: contextual_mask(gray, spec))
+    assert route == "tiled"
+    assert (got - contextual_mask_plain(gray, spec)).abs().max().item() <= 1e-4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -238,11 +295,68 @@ def test_k3b_runs_in_autograd(dev):
     assert torch.equal(zs[0].grad, g) and not zs[1].grad.any()
 
 
+@pytest.mark.parametrize("latent_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", ["bf16-B1", "f32-B"])
+def test_k3_k3b_take_score_and_strength_as_stored(dev, latent_dtype, rows):
+    """Score and strength in bf16 (B, 1) or float32 (B,): K3, launched
+    outside autograd, reads them as stored and matches the twin bit for bit
+    on >= 99.9% of the outputs (chip_smoke.py's bar); K3b writes dscore and
+    dstrength in their dtype and shape, within 1e-5 of the row's sum of
+    |terms| times the chain factor, plus one bf16 rounding of the twin's
+    value for bf16."""
+    z, s, q, g = _k3b_case(dev, 16, 1000, latent_dtype, 11)
+    if rows == "bf16-B1":
+        s, q = s.to(torch.bfloat16), q.to(torch.bfloat16)
+    else:
+        s, q = s.reshape(16), q.reshape(16)
+    before = adaptive_quantize.launches
+    with torch.no_grad():
+        out = adaptive_quantize(z, s, q, QuantizerConfig(grad_mode="reference"))
+    assert adaptive_quantize.launches == before + 1 and out.grad_fn is None
+    assert (out == adaptive_quantize_plain(z, s, q)).float().mean().item() >= 0.999
+    got = adaptive_quantize_bwd(z, s, q, g)
+    want = adaptive_quantize_bwd_plain(z, s, q, g)
+    scale = torch.exp(3.0 * (q.float().reshape(16, 1) * (1.0 - s.float().reshape(16, 1))))
+    mag = (g.float() * torch.round(z.float() * scale)).abs().sum(1) / scale.reshape(16) * 3.0
+    for x, y, ref, chain in zip(got, want, (s, q), (q.float(), 1.0 - s.float())):
+        assert x.dtype == ref.dtype and x.shape == ref.shape
+        diff = (x.float() - y.float()).reshape(16).abs()
+        bar = 1e-5 * mag * chain.reshape(16).abs() + 1e-30
+        if ref.dtype == torch.bfloat16:
+            bar = bar + y.float().reshape(16).abs() * 2 ** -8
+        assert bool((diff <= bar).all()), (diff / bar).max().item()
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 256), (2, 32, 64)], ids=["B1", "ragged-rank-32x64"])
+def test_k4_cluster_route_at_b1_and_a_ragged_rank(dev, shape):
+    """B = 1; 32 rows over 6 blocks of 6, the last owning 2. Bar 1e-5."""
+    gen = torch.Generator(device=dev).manual_seed(shape[1])
+    sal = torch.rand(*shape, device=dev, generator=gen)
+    got, route = _route_of(smooth_mask, lambda: smooth_mask(sal))
+    assert route == "cluster"
+    assert (got - smooth_mask_plain(sal)).abs().max().item() <= 1e-5
+    assert torch.equal(got, smooth_mask(sal))
+
+
+@pytest.mark.parametrize("shape,kw,route", [
+    ((2, 64, 64), dict(d=5, gauss_ksize=15), "cluster"),
+    ((1, 360, 360), {}, "tiled"),
+], ids=["d5-ksize15", "tiled-360"])
+def test_k4_other_sizes_and_the_tiled_route(dev, shape, kw, route):
+    gen = torch.Generator(device=dev).manual_seed(shape[1] + 1)
+    sal = torch.rand(*shape, device=dev, generator=gen)
+    got, took = _route_of(smooth_mask, lambda: smooth_mask(sal, **kw))
+    assert took == route
+    assert (got - smooth_mask_plain(sal, **kw)).abs().max().item() <= 1e-5
+
+
 @pytest.mark.parametrize("shape", [(2, 200, 200), (3, 32, 64), (48, 40)],
                          ids=["ragged-200", "non-square-32x64", "single-2d"])
 def test_k4_matches_twin(dev, shape):
-    """200 and 40 are not multiples of the 32-pixel tile; chip_smoke.py holds
-    K4 at 64 x 256^2. Bar 1e-5, as on the chip."""
+    """200 and 40 are not multiples of the 32-pixel tile (the tiled route)
+    nor 200 of the 6-block cluster; at 32 x 64 a block owns 6 rows and the
+    Gaussian halo spans 3 blocks. chip_smoke.py holds K4 at 64 x 256^2. Bar
+    1e-5, as on the chip."""
     gen = torch.Generator(device=dev).manual_seed(shape[-1])
     sal = torch.rand(*shape, device=dev, generator=gen)
     before = smooth_mask.launches

@@ -117,8 +117,9 @@ def _imports(path):
 def test_port_never_imports_jax():
     """The port and chip_smoke.py import no jax, flax, optax or JAX-package module."""
     files = sorted((REPO / "contextual_image_compression_tpu_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "scripts" / "torch_pipeline_profile.py",
-              REPO / "scripts" / "torch_train_profile.py"]
+    files += [REPO / "chip_smoke.py"] + [
+        REPO / "scripts" / f"torch_{name}.py"
+        for name in ("pipeline_profile", "train_profile", "mask_stages", "tree_times")]
     assert len(files) > 25
     for path in files:
         for name in _imports(path):
