@@ -56,15 +56,20 @@
    on the card and decoded on the CPU and the reverse, and the round trip's
    images per second and stages (K5 +1 per codec call);
 13. holds K6 (the attention core) against its twin at K2's shapes in bf16
-   and float32, and times it beside softmax(q k^T) v in three calls and SDPA;
+   and float32, and times it beside softmax(q k^T) v in three calls and SDPA
+   (K2 likewise);
 14. holds K7a and K7b (the fused SAGAN block) against their twin with the
    HQ encoder's SelfAttention weights of a full-width codec (gamma 0.5) on
    a (16, 256, 32, 32) activation, K7b reading the NCHW tensor through
    x.permute(0, 2, 3, 1), and against the module's own forward (F.linear
-   projections + K2); times both beside the composed torch yardstick;
+   projections + K2), bf16 on the tensor-core route and float32 on the
+   CUDA-core one (route counts); times both, host-inclusive and on the
+   device alone, beside the composed torch yardstick;
 15. holds K8 (the fused generator tail) against its twin and against
    packed_tail_forward(use_pallas=False) with the HQ generator's deconv4,
-   bn4 (random statistics) and out_conv on a (16, 128, 128, 128) input;
+   bn4 (random statistics) and out_conv on a (16, 128, 128, 128) input,
+   bf16 on the tensor-core route and float32 on the CUDA-core one, and
+   times it the same two ways;
 16. drives the entry points of K6-K8 once at full width in bf16
    (attention_core, sagan_block, sagan_block_spatial,
    packed_tail_forward(use_pallas=True)): each kernel +1 and no other;
@@ -154,7 +159,7 @@ def check_cluster_route(label):
     """The mask kernels of a path at 256^2 took the cluster route only."""
     from contextual_image_compression_tpu_torch import ops
 
-    routes = ops.route_counts()
+    routes = {key: counts for key, counts in ops.route_counts().items() if key in ("K1", "K4")}
     for key, counts in routes.items():
         if counts["tiled"] or counts["cluster"] != ops.launch_counts()[key]:
             raise AssertionError(f"{label}: {key} routes {counts}, want the cluster route only")
@@ -298,23 +303,26 @@ def check_k2(dev, B):
     lib = event_ms(lambda: _three_calls(q, k, v))
     lib32 = event_ms(lambda: _three_calls(*f32[:3]))
     sdpa = event_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+    sdpa32 = event_ms(lambda: F.scaled_dot_product_attention(*f32[:3], scale=1.0))
     # the same calls on the device alone, the host's launch kept out
     dev_ms = device_ms(lambda: attention_block(q, k, v, res, g))
     lib_dev = device_ms(lambda: _three_calls(q, k, v))
+    sdpa_dev = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
     flops = 2.0 * B * N * N * (DK + DV)
     nbytes = (q.numel() + k.numel() + v.numel() + res.numel() + got.numel()) * 2
     b_ms, b_by = bound_ms(nbytes, flops, H100_BF16_TFLOPS)
     log(f"K2 times (host launch inside): kernel bf16 {ms:.4f} ms (device alone {dev_ms:.4f}; "
         f"float32 {ms32:.4f}), twin {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library "
         f"softmax(q k^T) v in three calls {lib:.4f} ms (device alone {lib_dev:.4f}; float32 "
-        f"{lib32:.4f}), scaled_dot_product_attention(scale=1) {sdpa:.4f} ms")
+        f"{lib32:.4f}), scaled_dot_product_attention(scale=1) bf16 {sdpa:.4f} ms (device alone "
+        f"{sdpa_dev:.4f}; float32 {sdpa32:.4f})")
     return dict(name="K2 attention_block", route="cuda",
                 source="contextual_image_compression_tpu_torch/csrc/attention.cu",
                 replaces="contextual_image_compression_tpu/ops/attention.py:174",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib, sdpa_ms=sdpa, float32_ms=ms32, library_float32_ms=lib32,
-                device_ms=dev_ms, library_device_ms=lib_dev, identical_share=same,
-                design="wgmma")
+                library_ms=sdpa, library_device_ms=sdpa_dev, library_float32_ms=sdpa32,
+                yardstick_ms=lib, yardstick_device_ms=lib_dev, yardstick_float32_ms=lib32,
+                float32_ms=ms32, device_ms=dev_ms, identical_share=same, design="wgmma")
 
 
 def check_k3(dev, B):
@@ -1045,22 +1053,25 @@ def check_k6(dev, B):
     lib = event_ms(lambda: _three_calls(q, k, v))
     lib32 = event_ms(lambda: _three_calls(*f32))
     sdpa = event_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+    sdpa32 = event_ms(lambda: F.scaled_dot_product_attention(*f32, scale=1.0))
     dev_ms = device_ms(lambda: attention_core(q, k, v))
     lib_dev = device_ms(lambda: _three_calls(q, k, v))
+    sdpa_dev = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
     flops = 2.0 * B * N * N * (DK + DV)
     nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * 2
     b_ms, b_by = bound_ms(nbytes, flops, H100_BF16_TFLOPS)
     log(f"K6 times (host launch inside): kernel bf16 {ms:.4f} ms (device alone {dev_ms:.4f}; "
         f"float32 {ms32:.4f}), twin {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), softmax(q k^T) "
         f"v in three calls {lib:.4f} ms (device alone {lib_dev:.4f}; float32 {lib32:.4f}), "
-        f"scaled_dot_product_attention(scale=1) {sdpa:.4f} ms")
+        f"scaled_dot_product_attention(scale=1) bf16 {sdpa:.4f} ms (device alone "
+        f"{sdpa_dev:.4f}; float32 {sdpa32:.4f})")
     return dict(name="K6 attention_core", route="cuda",
                 source="contextual_image_compression_tpu_torch/csrc/attention.cu",
                 replaces="contextual_image_compression_tpu/ops/attention.py:156",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib, sdpa_ms=sdpa, float32_ms=ms32, library_float32_ms=lib32,
-                device_ms=dev_ms, library_device_ms=lib_dev, identical_share=same,
-                design="wgmma")
+                library_ms=sdpa, library_device_ms=sdpa_dev, library_float32_ms=sdpa32,
+                yardstick_ms=lib, yardstick_device_ms=lib_dev, yardstick_float32_ms=lib32,
+                float32_ms=ms32, device_ms=dev_ms, identical_share=same, design="wgmma")
 
 
 def _sagan_weights(attn, dt):
@@ -1078,9 +1089,9 @@ def check_k7(dev, B, codec):
     activation seen as (B, H, W, C), with the HQ encoder's SelfAttention
     weights of a full-width codec (gamma 0.5), against their twin and
     against the module's own forward (projections by F.linear, then K2)."""
-    from contextual_image_compression_tpu_torch.measure import event_ms
+    from contextual_image_compression_tpu_torch.measure import device_ms, event_ms
     from contextual_image_compression_tpu_torch.ops.attention import (
-        attention_block, sagan_block, sagan_block_plain, sagan_block_spatial)
+        sagan_block, sagan_block_plain, sagan_block_spatial)
 
     attn = codec.hq_encoder.attention
     C, H = 256, 32
@@ -1093,8 +1104,12 @@ def check_k7(dev, B, codec):
         view = x.permute(0, 2, 3, 1)  # the NCHW activation, read in place
         xf = view.reshape(B, N, C)    # a contiguous (B, N, C) copy
         w = _sagan_weights(attn, dt)
-        got_a, want_a = sagan_block(xf, *w), sagan_block_plain(xf, *w)
-        got_b = sagan_block_spatial(view, *w)
+        route = "wgmma" if dt == torch.bfloat16 else "cuda_core"
+        got_a, route_a = _route_of(sagan_block, lambda: sagan_block(xf, *w))
+        got_b, route_b = _route_of(sagan_block_spatial, lambda: sagan_block_spatial(view, *w))
+        if (route_a, route_b) != (route, route):
+            raise AssertionError(f"K7 {dt} took the {route_a} / {route_b} route, not {route}")
+        want_a = sagan_block_plain(xf, *w)
         want_b = want_a.reshape(B, H, H, C)
         module = attn(x).permute(0, 2, 3, 1)
         torch.cuda.synchronize()
@@ -1126,26 +1141,38 @@ def check_k7(dev, B, codec):
         v = torch.nn.functional.linear(xf, wv.t()) + bv.to(torch.bfloat16)
         return g * (torch.softmax(q @ k.transpose(1, 2), dim=-1) @ v) + xf
 
+    x32v = x32.permute(0, 2, 3, 1)
+    xf32 = x32v.reshape(B, N, C)
+    w32 = _sagan_weights(attn, torch.float32)
     ms_a = event_ms(lambda: sagan_block(xf, *w))
     ms_b = event_ms(lambda: sagan_block_spatial(view, *w))
+    dev_a = device_ms(lambda: sagan_block(xf, *w))
+    dev_b = device_ms(lambda: sagan_block_spatial(view, *w))
+    ms32_a = event_ms(lambda: sagan_block(xf32, *w32))
+    ms32_b = event_ms(lambda: sagan_block_spatial(x32v, *w32))
     plain = event_ms(lambda: sagan_block_plain(xf, *w), reps=5, warmup=1)
     yard = event_ms(composed)
+    yard_dev = device_ms(composed)
     mod = event_ms(lambda: attn(x))
     inner = wq.shape[1]
     flops = 2.0 * B * N * C * (2 * inner + C) + 2.0 * B * N * N * (inner + C)
     nbytes = 2 * x.numel() * 2 + (2 * C * inner + C * C) * 2 + (2 * inner + C) * 4
     b_ms, b_by = bound_ms(nbytes, flops, H100_BF16_TFLOPS)
-    log(f"K7 times bf16: K7a {ms_a:.4f} ms, K7b (NCHW view) {ms_b:.4f} ms, twin {plain:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}); yardsticks: three F.linear + softmax(q k^T) v in three "
-        f"calls + epilogue {yard:.4f} ms, SelfAttention.forward (F.linear + K2) {mod:.4f} ms")
+    log(f"K7 times bf16 (wgmma QKV GEMM + K2's tensor-core kernel): K7a {ms_a:.4f} ms (device "
+        f"alone {dev_a:.4f}), K7b (NCHW view) {ms_b:.4f} ms (device alone {dev_b:.4f}); float32 "
+        f"K7a {ms32_a:.4f}, K7b {ms32_b:.4f} ms; twin {plain:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}); yardsticks: three F.linear + softmax(q k^T) v in three calls + epilogue "
+        f"{yard:.4f} ms (device alone {yard_dev:.4f}), SelfAttention.forward (F.linear + K2) "
+        f"{mod:.4f} ms")
     common = dict(route="cuda", source="contextual_image_compression_tpu_torch/csrc/sagan_block.cu",
                   plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                  yardstick_ms=yard, module_k2_ms=mod)
+                  yardstick_ms=yard, yardstick_device_ms=yard_dev, module_k2_ms=mod,
+                  design="wgmma")
     return (dict(name="K7a sagan_block", replaces="contextual_image_compression_tpu/ops/attention.py:336",
-                 max_abs_err=ea16, ms=ms_a, **common),
+                 max_abs_err=ea16, ms=ms_a, device_ms=dev_a, float32_ms=ms32_a, **common),
             dict(name="K7b sagan_block_spatial",
                  replaces="contextual_image_compression_tpu/ops/attention.py:371",
-                 max_abs_err=eb16, ms=ms_b, **common))
+                 max_abs_err=eb16, ms=ms_b, device_ms=dev_b, float32_ms=ms32_b, **common))
 
 
 def _tail_args(gen_module, dt):
@@ -1171,7 +1198,7 @@ def _tail_forward(gen_module, x, use_pallas):
 def check_k8(dev, B, codec):
     """K8 with the HQ generator's tail (deconv4, bn4 with random statistics,
     out_conv) of a full-width codec on a (B, 128, 128, 128) input."""
-    from contextual_image_compression_tpu_torch.measure import event_ms
+    from contextual_image_compression_tpu_torch.measure import device_ms, event_ms
     from contextual_image_compression_tpu_torch.ops.generator_tail import (
         fused_tail, fused_tail_plain)
 
@@ -1182,7 +1209,9 @@ def check_k8(dev, B, codec):
     for dt in (torch.bfloat16, torch.float32):
         x = x32.to(dt)
         args = _tail_args(gm, dt)
-        got = fused_tail(x, *args)
+        got, route = _route_of(fused_tail, lambda: fused_tail(x, *args))
+        if route != ("wgmma" if dt == torch.bfloat16 else "cuda_core"):
+            raise AssertionError(f"K8 {dt} took the {route} route")
         want = fused_tail_plain(x, *args)
         cudnn = _tail_forward(gm, x, use_pallas=False)
         torch.cuda.synchronize()
@@ -1200,24 +1229,30 @@ def check_k8(dev, B, codec):
         raise AssertionError(f"K8 disagrees: {out}")
     x = x32.to(torch.bfloat16)
     args = _tail_args(gm, torch.bfloat16)
+    args32 = _tail_args(gm, torch.float32)
     ms = event_ms(lambda: fused_tail(x, *args), reps=10)
-    ms32 = event_ms(lambda: fused_tail(x32, *_tail_args(gm, torch.float32)), reps=10)
+    dev = device_ms(lambda: fused_tail(x, *args), reps=10)
+    ms32 = event_ms(lambda: fused_tail(x32, *args32), reps=10)
+    dev32 = device_ms(lambda: fused_tail(x32, *args32), reps=10)
     plain = event_ms(lambda: fused_tail_plain(x, *args), reps=5, warmup=1)
     yard = event_ms(lambda: _tail_forward(gm, x, use_pallas=False))
+    yard_dev = device_ms(lambda: _tail_forward(gm, x, use_pallas=False))
     # useful products: the deconv (4 taps of Cin per output pixel and channel)
     # and the 4x4 out-conv; x read once, the output written once
     px = B * 256 * 256
     flops = 2.0 * px * 32 * 4 * 128 + 2.0 * px * 3 * 16 * 32
     nbytes = x.numel() * 2 + px * 3 * 2
     b_ms, b_by = bound_ms(nbytes, flops, H100_BF16_TFLOPS)
-    log(f"K8 times: kernel bf16 {ms:.4f} ms (float32 {ms32:.4f}), twin {plain:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}); yardstick packed_tail_forward(use_pallas=False) (cuDNN) "
-        f"{yard:.4f} ms")
+    log(f"K8 times: kernel bf16 (wgmma) {ms:.4f} ms (device alone {dev:.4f}), float32 "
+        f"{ms32:.4f} ms (device alone {dev32:.4f}), twin {plain:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}); yardstick packed_tail_forward(use_pallas=False) (cuDNN) {yard:.4f} ms (device "
+        f"alone {yard_dev:.4f})")
     return dict(name="K8 fused_tail", route="cuda",
                 source="contextual_image_compression_tpu_torch/csrc/packed_tail.cu",
                 replaces="contextual_image_compression_tpu/models/packed_tail.py:207",
                 max_abs_err=t16, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, yardstick_ms=yard, float32_ms=ms32)
+                library_ms=None, yardstick_ms=yard, yardstick_device_ms=yard_dev,
+                device_ms=dev, float32_ms=ms32, float32_device_ms=dev32, design="wgmma")
 
 
 def run_entry_points(dev, B, codec):

@@ -174,11 +174,6 @@ __device__ __forceinline__ void stage_tile(unsigned char* tile, const uint16_t* 
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
 // S = Q K^T over ksteps (1..4) slices of 16 of DK; the Q and K tiles are
 // zero beyond DK, so any ksteps >= ceil(DK / 16) gives the same S.
 __device__ __forceinline__ void score_mma(float (&s)[32], uint64_t dq, uint64_t dk, int ksteps) {
@@ -252,13 +247,13 @@ __device__ __forceinline__ void fence_operands(float (&o)[NCH][32], uint32_t (&p
   fence_regs(s);
 }
 
-template <int NCH>
+template <int NCH, bool STRIDED>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_tc_kernel(__grid_constant__ const CUtensorMap kmap, __grid_constant__ const CUtensorMap vmap,
                const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ res,
                const float* __restrict__ gamma, __nv_bfloat16* __restrict__ out, int N, int DK,
-               int ksteps, int k_tma, int v_tma) {
+               int ksteps, int k_tma, int v_tma, const Strides st) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* ring = base + 2 * TILE_BYTES;  // stage s: K tile, then NCH V tiles
@@ -446,33 +441,74 @@ attn_tc_kernel(__grid_constant__ const CUtensorMap kmap, __grid_constant__ const
                         __fmul_rn(sc[h], o[half >> 1][4 * j + 2 * h + 1]));
       }
     bar_sync(BAR_Q + wg, 128);
-    for (int piece = tid & 127; piece < 256; piece += 128) {
-      const int r = piece >> 2, seg = piece & 3, n = q0 + wg * 64 + r;
-      if (n >= N) continue;
-      const float* row = slice + r * 32;
-      const float4 x0 = *reinterpret_cast<const float4*>(row + (((2 * seg) ^ (r & 7)) << 2));
-      const float4 x1 = *reinterpret_cast<const float4*>(row + (((2 * seg + 1) ^ (r & 7)) << 2));
-      float y[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-      const size_t at = ((size_t)b * N + n) * DV + half * 32 + seg * 8;
-      if (res) {
-        uint4 rr;
-        if (vec_res) {
-          rr = *reinterpret_cast<const uint4*>(res + at);
-        } else {
-          const uint16_t* rs = reinterpret_cast<const uint16_t*>(res + at);
-          rr = make_uint4(rs[0] | (uint32_t)rs[1] << 16, rs[2] | (uint32_t)rs[3] << 16,
-                          rs[4] | (uint32_t)rs[5] << 16, rs[6] | (uint32_t)rs[7] << 16);
-        }
-        const uint32_t rw[4] = {rr.x, rr.y, rr.z, rr.w};
+    if constexpr (STRIDED) {
+      // residual and output at element strides: 4 positions of one channel
+      // a thread, neighbouring threads on neighbouring positions, with
+      // 8-byte accesses where the positions are contiguous and aligned (the
+      // NCHW view); the same float32 arithmetic as the contiguous store
+      // below, so either layout gives the same bits
+      const uint16_t* rs = reinterpret_cast<const uint16_t*>(res);
+      uint16_t* os = reinterpret_cast<uint16_t*>(out);
+      for (int idx = tid & 127; idx < 16 * 32; idx += 128) {
+        const int r0 = (idx & 15) * 4, cc = idx >> 4, n0 = q0 + wg * 64 + r0;
+        if (n0 >= N) continue;
+        const long long col = half * 32 + cc;
+        const long long ri = b * st.rb + n0 * st.rn + col * st.rc;
+        const long long oi = b * st.ob + n0 * st.on + col * st.oc;
+        float y[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {  // bf16 -> float32 is exact: the high 16 bits
-          y[2 * e] = __fadd_rn(y[2 * e], __uint_as_float(rw[e] << 16));
-          y[2 * e + 1] = __fadd_rn(y[2 * e + 1], __uint_as_float(rw[e] & 0xffff0000u));
+        for (int e = 0; e < 4; ++e)
+          y[e] = slice[(r0 + e) * 32 + (((cc >> 2) ^ ((r0 + e) & 7)) << 2) + (cc & 3)];
+        const bool vec = st.rn == 1 && st.on == 1 && n0 + 4 <= N && ((ri | oi) & 3) == 0 &&
+                         ((reinterpret_cast<uintptr_t>(rs) | reinterpret_cast<uintptr_t>(os)) & 7) == 0;
+        if (vec) {
+          if (res) {
+            const uint2 rr = *reinterpret_cast<const uint2*>(rs + ri);
+            y[0] = __fadd_rn(y[0], __uint_as_float(rr.x << 16));
+            y[1] = __fadd_rn(y[1], __uint_as_float(rr.x & 0xffff0000u));
+            y[2] = __fadd_rn(y[2], __uint_as_float(rr.y << 16));
+            y[3] = __fadd_rn(y[3], __uint_as_float(rr.y & 0xffff0000u));
+          }
+          *reinterpret_cast<uint2*>(os + oi) = make_uint2(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (n0 + e >= N) continue;
+            float v = y[e];
+            if (res) v = __fadd_rn(v, __uint_as_float((uint32_t)rs[ri + e * st.rn] << 16));
+            out[oi + e * st.on] = __float2bfloat16_rn(v);
+          }
         }
       }
-      const uint4 ov = make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]),
-                                  pack_bf16(y[4], y[5]), pack_bf16(y[6], y[7]));
-      *reinterpret_cast<uint4*>(out + at) = ov;
+    } else {
+      for (int piece = tid & 127; piece < 256; piece += 128) {
+        const int r = piece >> 2, seg = piece & 3, n = q0 + wg * 64 + r;
+        if (n >= N) continue;
+        const float* row = slice + r * 32;
+        const float4 x0 = *reinterpret_cast<const float4*>(row + (((2 * seg) ^ (r & 7)) << 2));
+        const float4 x1 = *reinterpret_cast<const float4*>(row + (((2 * seg + 1) ^ (r & 7)) << 2));
+        float y[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+        const size_t at = ((size_t)b * N + n) * DV + half * 32 + seg * 8;
+        if (res) {
+          uint4 rr;
+          if (vec_res) {
+            rr = *reinterpret_cast<const uint4*>(res + at);
+          } else {
+            const uint16_t* rs = reinterpret_cast<const uint16_t*>(res + at);
+            rr = make_uint4(rs[0] | (uint32_t)rs[1] << 16, rs[2] | (uint32_t)rs[3] << 16,
+                            rs[4] | (uint32_t)rs[5] << 16, rs[6] | (uint32_t)rs[7] << 16);
+          }
+          const uint32_t rw[4] = {rr.x, rr.y, rr.z, rr.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {  // bf16 -> float32 is exact: the high 16 bits
+            y[2 * e] = __fadd_rn(y[2 * e], __uint_as_float(rw[e] << 16));
+            y[2 * e + 1] = __fadd_rn(y[2 * e + 1], __uint_as_float(rw[e] & 0xffff0000u));
+          }
+        }
+        const uint4 ov = make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]),
+                                    pack_bf16(y[4], y[5]), pack_bf16(y[6], y[7]));
+        *reinterpret_cast<uint4*>(out + at) = ov;
+      }
     }
   }
 }
@@ -526,56 +562,76 @@ static_assert(128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS == THREADS * START
               "setmaxnreg must deal out exactly the block's starting registers");
 constexpr int MAX_DEVICES = 64;
 
-template <int NCH>
+template <int NCH, bool STRIDED>
 int prepare(int device) {
   static int ready[MAX_DEVICES] = {};
   if (device < 0 || device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   if (ready[device]) return 0;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, attn_tc_kernel<NCH>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, attn_tc_kernel<NCH, STRIDED>);
   if (err != cudaSuccess) return (int)err;
   if (attr.numRegs != START_REGS) return (int)cudaErrorInvalidKernelImage;
-  err = cudaFuncSetAttribute(attn_tc_kernel<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes<NCH>());
+  err = cudaFuncSetAttribute(attn_tc_kernel<NCH, STRIDED>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<NCH>());
   if (err != cudaSuccess) return (int)err;
   ready[device] = 1;
   return 0;
 }
 
-template <int NCH>
+template <int NCH, bool STRIDED>
 int launch_one(const CUtensorMap& kmap, const CUtensorMap& vmap, const void* q, const void* k,
                const void* v, const void* res, const float* gamma, void* out, int B, int N,
-               int DK, int k_tma, int v_tma, cudaStream_t st) {
+               int DK, int k_tma, int v_tma, const Strides& strides, cudaStream_t st) {
   int device = 0;
   cudaError_t dev_err = cudaGetDevice(&device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  const int err = prepare<NCH>(device);
+  const int err = prepare<NCH, STRIDED>(device);
   if (err != 0) return err;
   const dim3 grid((N + ROWS - 1) / ROWS, B);
-  attn_tc_kernel<NCH><<<grid, THREADS, smem_bytes<NCH>(), st>>>(
+  attn_tc_kernel<NCH, STRIDED><<<grid, THREADS, smem_bytes<NCH>(), st>>>(
       kmap, vmap, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(res), gamma,
-      static_cast<__nv_bfloat16*>(out), N, DK, (DK + 15) / 16, k_tma, v_tma);
+      static_cast<__nv_bfloat16*>(out), N, DK, (DK + 15) / 16, k_tma, v_tma, strides);
   return (int)cudaGetLastError();
 }
 
+template <bool STRIDED>
+int launch_dv(const CUtensorMap& kmap, const CUtensorMap& vmap, const void* q, const void* k,
+              const void* v, const void* res, const float* gamma, void* out, int B, int N,
+              int DK, int DV, int k_tma, int v_tma, const Strides& sd, cudaStream_t st) {
+  switch (DV / 64) {
+    case 1:
+      return launch_one<1, STRIDED>(kmap, vmap, q, k, v, res, gamma, out, B, N, DK, k_tma, v_tma,
+                                    sd, st);
+    case 2:
+      return launch_one<2, STRIDED>(kmap, vmap, q, k, v, res, gamma, out, B, N, DK, k_tma, v_tma,
+                                    sd, st);
+    case 3:
+      return launch_one<3, STRIDED>(kmap, vmap, q, k, v, res, gamma, out, B, N, DK, k_tma, v_tma,
+                                    sd, st);
+    default:
+      return launch_one<4, STRIDED>(kmap, vmap, q, k, v, res, gamma, out, B, N, DK, k_tma, v_tma,
+                                    sd, st);
+  }
+}
+
+// strides: null for a contiguous (B, N, DV) residual and output, else their
+// element strides (the strided epilogue; any alignment).
 int launch(const void* q, const void* k, const void* v, const void* res, const float* gamma,
-           void* out, int B, int N, int DK, int DV, cudaStream_t st) {
+           void* out, int B, int N, int DK, int DV, const Strides* strides, cudaStream_t st) {
   CUtensorMap kmap = {}, vmap = {};
   auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
-  if (!aligned(out)) return (int)cudaErrorMisalignedAddress;  // the epilogue stores 16 bytes
+  if (!strides && !aligned(out)) return (int)cudaErrorMisalignedAddress;  // 16-byte stores
   const int k_tma = DK % 8 == 0 && aligned(k);
   const int v_tma = aligned(v);
   int err = 0;
   if (k_tma && (err = encode_map(&kmap, k, B, N, DK)) != 0) return err;
   if (v_tma && (err = encode_map(&vmap, v, B, N, DV)) != 0) return err;
-  switch (DV / 64) {
-    case 1: return launch_one<1>(kmap, vmap, q, k, v, res, gamma, out, B, N, DK, k_tma, v_tma, st);
-    case 2: return launch_one<2>(kmap, vmap, q, k, v, res, gamma, out, B, N, DK, k_tma, v_tma, st);
-    case 3: return launch_one<3>(kmap, vmap, q, k, v, res, gamma, out, B, N, DK, k_tma, v_tma, st);
-    default:
-      return launch_one<4>(kmap, vmap, q, k, v, res, gamma, out, B, N, DK, k_tma, v_tma, st);
-  }
+  if (strides)
+    return launch_dv<true>(kmap, vmap, q, k, v, res, gamma, out, B, N, DK, DV, k_tma, v_tma,
+                           *strides, st);
+  return launch_dv<false>(kmap, vmap, q, k, v, res, gamma, out, B, N, DK, DV, k_tma, v_tma,
+                          Strides{}, st);
 }
 
 }  // namespace tc
@@ -586,11 +642,19 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, const void*
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_f32(q, k, v, res, gamma, out, B, N, DK, DV, st);
-  if (dtype == 1) return tc::launch(q, k, v, res, gamma, out, B, N, DK, DV, st);
+  if (dtype == 1) return tc::launch(q, k, v, res, gamma, out, B, N, DK, DV, nullptr, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
+
+int cic::attn::tc_block(const void* q, const void* k, const void* v, const void* res,
+                        const float* gamma, void* out, int B, int N, int DK, int DV,
+                        const Strides* strides, cudaStream_t stream) {
+  if (DK < 1 || DK > DK_MAX || DV < 64 || DV > DV_MAX || DV % 64 != 0 || N < 1)
+    return (int)cudaErrorInvalidValue;
+  return tc::launch(q, k, v, res, gamma, out, B, N, DK, DV, strides, stream);
+}
 
 // dtype: 0 = float32, 1 = bfloat16. q, k: (B, N, DK); v, res, out: (B, N, DV);
 // gamma: one float32 on the device.

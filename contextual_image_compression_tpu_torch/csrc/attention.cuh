@@ -26,6 +26,19 @@ constexpr int DV_MAX = 256;  // largest v width taken (multiple of 64)
 constexpr int THREADS = 256;
 constexpr size_t SMEM_FLOATS = DK_MAX * BQ + DK_MAX * BK + BK * DV_MAX + BK * BQ;
 
+// Element strides (batch, position, channel) of a residual and an output.
+struct Strides {
+  long long rb, rn, rc, ob, on, oc;
+};
+
+// K2's bf16 tensor-core kernel (attention.cu) on contiguous bf16 q, k
+// (B, N, DK) and v (B, N, DV), with the residual read and the output written
+// contiguous (B, N, DV) (strides null; out 16-byte aligned) or at the given
+// element strides; K7's second launch.
+int tc_block(const void* q, const void* k, const void* v, const void* res, const float* gamma,
+             void* out, int B, int N, int DK, int DV, const Strides* strides,
+             cudaStream_t stream);
+
 struct Tiles {
   float* Qt;  // [DK_MAX][BQ]  (transposed q tile, filled by the caller)
   float* Kt;  // [DK_MAX][BK]  (transposed)

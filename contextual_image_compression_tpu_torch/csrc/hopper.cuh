@@ -10,6 +10,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -108,9 +109,26 @@ __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
+// Two floats rounded to bf16 (round to nearest even), low half the first.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
 // 16 bytes (8 bf16) into chunk `ch` of row `r` of a 128-byte-swizzled tile.
 __device__ __forceinline__ void store_chunk_sw128(unsigned char* tile, int r, int ch, uint4 val) {
   *reinterpret_cast<uint4*>(tile + r * 128 + ((ch ^ (r & 7)) << 4)) = val;
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8 (16 bytes, 16-byte aligned). As the A fragment of
+// wgmma_rs_m64n64k16_tb: matrices (rows 0-7, k 0-7), (rows 8-15, k 0-7),
+// (rows 0-7, k 8-15), (rows 8-15, k 8-15) of the warp's 16 rows.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr)
+               : "memory");
 }
 
 // ------------------------------------------------------------------- wgmma
@@ -137,6 +155,12 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of wgmma operands across
@@ -185,8 +209,9 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc
 // shared memory). A's fragment, as bf16 pairs (low half the lower column):
 // a[0] row r, columns 2c, 2c+1; a[1] row r + 8, the same columns; a[2], a[3]
 // the same rows at columns + 8; r = 16 * warp + lane / 4, c = lane % 4.
+// scale_d = 0 ignores D's value (a fresh accumulator).
 __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32], const uint32_t (&a)[4],
-                                                      uint64_t desc_b) {
+                                                      uint64_t desc_b, int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -195,7 +220,23 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32], const uint
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
       "}\n"
       : CIC_WGMMA_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 8, float32) (+)= A (64 x 16 bf16, registers, fragment as above)
+// * B (16 x 8, K-major in shared memory: 8 rows of the swizzled layout).
+// d[i] is row 16 * warp + lane / 4 + 8 * (i / 2), column 2 * (lane % 4) + i % 2.
+__device__ __forceinline__ void wgmma_rs_m64n8k16(float (&d)[4], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 #undef CIC_WGMMA_D32

@@ -10,9 +10,10 @@ Counterpart of `contextual_image_compression_tpu/ops/attention.py`, no
   * K7a `sagan_block` (`sagan_block_pallas`) and K7b `sagan_block_spatial`
     (`sagan_block_spatial_pallas`): the whole block with its 1x1 Q/K/V
     projections, gamma * softmax((x Wq + bq)(x Wk + bk)^T)(x Wv + bv) + x,
-    on the (B, N, C) and the (B, H, W, C) views; one strided kernel
-    (`csrc/sagan_block.cu`) reads either in place, the port's NCHW
-    activation as `x.permute(0, 2, 3, 1)` included.
+    on the (B, N, C) and the (B, H, W, C) views; `csrc/sagan_block.cu`
+    reads either in place, the port's NCHW activation as
+    `x.permute(0, 2, 3, 1)` included: in bf16 a wgmma QKV GEMM, then K2's
+    tensor-core kernel with a strided epilogue; in float32 a CUDA-core pair.
 
 Each wrapper launches its kernel for CUDA tensors and its twin (`*_plain`,
 the kernel's rounding) for CPU tensors. `use_pallas=False` runs the `*_jnp`
@@ -222,14 +223,26 @@ def _position_view(x):
     return x, (sb, sw, sc)
 
 
+def _pack_qkv(wq, bq, wk, bk, wv, bv, dt):
+    """K7's bf16 projection weights: [Wq | Wk | Wv] transposed to (out, in),
+    K-major for the wgmma GEMM, in dt; and the three float32 biases in the
+    same row order. Two copies in all: they run on every launch."""
+    w = torch.cat([wq.to(dt).t(), wk.to(dt).t(), wv.to(dt).t()])
+    bias = torch.cat([bq.reshape(-1), bk.reshape(-1), bv.reshape(-1)]).to(torch.float32)
+    return w, bias
+
+
 def _sagan_kernel(owner, x, wq, bq, wk, bk, wv, bv, gamma):
     """Launch K7 on x (B, N, C) or (B, H, W, C) in any layout whose positions
-    share one stride; the output has x's shape and layout. `owner` is the
-    public wrapper whose launch count moves."""
+    share one stride; the output has x's shape and layout. bf16 takes the
+    tensor-core route (a wgmma QKV GEMM, then K2's kernel), float32 the
+    CUDA-core one. `owner` is the public wrapper whose launch and route
+    counts move."""
     name = owner.__name__
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     dt = x.dtype
+    code = ck.dtype_code(dt)
     c = x.shape[-1]
     n = x.numel() // (x.shape[0] * c) if x.numel() else 0
     inner, dv = wq.shape[-1], wv.shape[-1]
@@ -241,21 +254,35 @@ def _sagan_kernel(owner, x, wq, bq, wk, bk, wv, bv, gamma):
     x, (sxb, sxn, sxc) = _position_view(x)
     out = torch.empty_like(x)
     _, (sob, son, soc) = _position_view(out)
-    ws = [w.to(dt).contiguous() for w in (wq, wk, wv)]
-    bs = [t.to(torch.float32).reshape(-1).contiguous() for t in (bq, bk, bv)]
     g = torch.as_tensor(gamma, dtype=torch.float32, device=x.device).reshape(1).contiguous()
     b = x.shape[0]
-    kbuf = torch.empty((b, n, inner), dtype=dt, device=x.device)
-    vbuf = torch.empty((b, n, dv), dtype=dt, device=x.device)
-    ck.require_cuda(name, *ws, *bs, g, kbuf, vbuf)
-    err = ck.library().cic_sagan_block(
-        ck.dtype_code(dt), x.data_ptr(), sxb, sxn, sxc,
-        ws[0].data_ptr(), bs[0].data_ptr(), ws[1].data_ptr(), bs[1].data_ptr(),
-        ws[2].data_ptr(), bs[2].data_ptr(), g.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(),
-        out.data_ptr(), sob, son, soc, b, n, c, inner, dv, ck.stream_ptr(x.device),
-    )
+    lib, stream = ck.library(), ck.stream_ptr(x.device)
+    if code == 1:
+        wqkv, bias = _pack_qkv(wq, bq, wk, bk, wv, bv, dt)
+        # Q, K (B, N, inner) and V (B, N, C) scratch in one allocation
+        scratch = torch.empty(b * n * (2 * inner + c), dtype=dt, device=x.device)
+        ck.require_cuda(name, wqkv, bias, g, scratch)
+        ptr, size = scratch.data_ptr(), scratch.element_size()
+        err = lib.cic_sagan_block_bf16(
+            x.data_ptr(), sxb, sxn, sxc, wqkv.data_ptr(), bias.data_ptr(), g.data_ptr(),
+            ptr, ptr + b * n * inner * size, ptr + 2 * b * n * inner * size, out.data_ptr(),
+            sob, son, soc, b, n, c, inner, stream)
+        route = "wgmma"
+    else:
+        kbuf = torch.empty((b, n, inner), dtype=dt, device=x.device)
+        vbuf = torch.empty((b, n, dv), dtype=dt, device=x.device)
+        ws = [w.to(dt).contiguous() for w in (wq, wk, wv)]
+        bs = [t.to(torch.float32).reshape(-1).contiguous() for t in (bq, bk, bv)]
+        ck.require_cuda(name, *ws, *bs, g, kbuf, vbuf)
+        err = lib.cic_sagan_block(
+            x.data_ptr(), sxb, sxn, sxc,
+            ws[0].data_ptr(), bs[0].data_ptr(), ws[1].data_ptr(), bs[1].data_ptr(),
+            ws[2].data_ptr(), bs[2].data_ptr(), g.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(),
+            out.data_ptr(), sob, son, soc, b, n, c, inner, dv, stream)
+        route = "cuda_core"
     ck.check(err, name)
     owner.launches += 1
+    owner.route_launches[route] += 1
     return out
 
 
@@ -263,6 +290,16 @@ def _gamma_tensor(gamma, like):
     if torch.is_tensor(gamma):
         return gamma.float().reshape(())
     return torch.tensor(float(gamma), device=like.device)
+
+
+def _sagan_apply(fwd, ref, x, *params):
+    """fwd(x, *params) with gamma as a float32 0-dim tensor: outside autograd
+    when nothing needs a gradient (the autograd Function costs host time),
+    else through `_Kernel`, whose backward differentiates `ref`."""
+    args = (x, *params[:-1], _gamma_tensor(params[-1], x))
+    if not ck.needs_grad(*args):
+        return fwd(*args)
+    return _Kernel.apply(fwd, ref, *args)
 
 
 def sagan_block(xf, wq, bq, wk, bk, wv, bv, gamma, use_pallas: bool = True):
@@ -276,8 +313,7 @@ def sagan_block(xf, wq, bq, wk, bk, wv, bv, gamma, use_pallas: bool = True):
     else:
         def fwd(*args):
             return _sagan_kernel(sagan_block, *args)
-    return _Kernel.apply(fwd, sagan_block_jnp, xf, wq, bq, wk, bk, wv, bv,
-                         _gamma_tensor(gamma, xf))
+    return _sagan_apply(fwd, sagan_block_jnp, xf, wq, bq, wk, bk, wv, bv, gamma)
 
 
 def sagan_block_spatial(x, wq, bq, wk, bk, wv, bv, gamma, use_pallas: bool = True):
@@ -292,9 +328,12 @@ def sagan_block_spatial(x, wq, bq, wk, bk, wv, bv, gamma, use_pallas: bool = Tru
     else:
         def fwd(*args):
             return _sagan_kernel(sagan_block_spatial, *args)
-    return _Kernel.apply(fwd, sagan_block_spatial_jnp, x, wq, bq, wk, bk, wv, bv,
-                         _gamma_tensor(gamma, x))
+    return _sagan_apply(fwd, sagan_block_spatial_jnp, x, wq, bq, wk, bk, wv, bv, gamma)
 
 
 sagan_block.launches = 0
 sagan_block_spatial.launches = 0
+# launches per route: "wgmma" (bf16: the QKV GEMM and K2's kernel on the
+# tensor cores), "cuda_core" (float32)
+sagan_block.route_launches = {"wgmma": 0, "cuda_core": 0}
+sagan_block_spatial.route_launches = {"wgmma": 0, "cuda_core": 0}

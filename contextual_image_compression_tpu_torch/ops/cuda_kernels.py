@@ -92,17 +92,27 @@ _SIGNATURES = {
         _P, _P, _P, _P,              # q, k, v, out
         _I, _I, _I, _I, _P,          # B, N, DK, DV, stream
     ],
-    "cic_sagan_block": [
-        _I,                          # dtype code
+    "cic_sagan_block": [         # float32
         _P, _L, _L, _L,              # x and its (batch, position, channel) element strides
         _P, _P, _P, _P, _P, _P,      # wq, bq(f32), wk, bk(f32), wv, bv(f32)
         _P, _P, _P,                  # gamma(f32), K scratch, V scratch
         _P, _L, _L, _L,              # out and its element strides
         _I, _I, _I, _I, _I, _P,      # B, N, C, DK, DV, stream
     ],
-    "cic_packed_tail": [
-        _I,                          # dtype code
+    "cic_sagan_block_bf16": [
+        _P, _L, _L, _L,              # x and its (batch, position, channel) element strides
+        _P, _P, _P,                  # packed QKV weight (K-major), its bias(f32), gamma(f32)
+        _P, _P, _P,                  # Q, K, V scratch
+        _P, _L, _L, _L,              # out and its element strides
+        _I, _I, _I, _I, _P,          # B, N, C, DK, stream
+    ],
+    "cic_packed_tail": [         # float32
         _P, _P, _P, _P, _P, _P,      # x, packed deconv taps, shift, out weight, bias(f32), out
+        _I, _I, _I, _I, _I, _I,      # B, Cin, H, W, Cmid, Co
+        _F, _P,                      # LeakyReLU slope, stream
+    ],
+    "cic_packed_tail_bf16": [
+        _P, _P, _P, _P, _P, _P,      # x, tap tiles, shift, out weight, bias(f32), out
         _I, _I, _I, _I, _I, _I,      # B, Cin, H, W, Cmid, Co
         _F, _P,                      # LeakyReLU slope, stream
     ],

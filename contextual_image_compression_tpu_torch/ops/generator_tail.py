@@ -4,8 +4,10 @@ K8 replaces `contextual_image_compression_tpu/models/packed_tail.py::
 fused_tail_pallas`, which `packed_tail_forward(use_pallas=True)` reaches:
 BN-folded 4x4/s2 transposed conv -> + shift -> LeakyReLU -> zeros outside
 the image -> 4x4/s1 SAME conv -> + bias -> tanh, in NCHW. `fused_tail`
-launches the kernel in `csrc/packed_tail.cu` for CUDA tensors and runs the
-twin `fused_tail_plain` for CPU tensors. The twin keeps the TPU kernel's
+launches the kernel in `csrc/packed_tail.cu` for CUDA tensors (bf16: the
+deconv's tap products and the out-conv on the tensor cores; float32: CUDA
+cores) and runs the twin
+`fused_tail_plain` for CPU tensors. The twin keeps the TPU kernel's
 roundings: each of the four polyphase tap products rounded to the compute
 dtype and added into a dtype accumulator in the kernel's order, LeakyReLU in
 float32, the out-conv in float32. Inference only (no backward), as in JAX.
@@ -69,13 +71,41 @@ def fused_tail_plain(x, folded, shift, out_weight, out_bias, leaky_slope: float 
 
 def _pack_taps(folded: torch.Tensor) -> torch.Tensor:
     """(Cin, Cmid, 4, 4) -> (4, Cin, 4 * Cmid): taps r * 2 + s, columns
-    (a * 2 + b) * Cmid + o, from kernel index (3 - a - 2r, 3 - b - 2s)."""
-    taps = []
-    for r in (0, 1):
-        for s in (0, 1):
-            cols = [folded[:, :, _tap(a, r)[1], _tap(bb, s)[1]] for a in (0, 1) for bb in (0, 1)]
-            taps.append(torch.cat(cols, dim=1))
-    return torch.stack(taps).contiguous()
+    (a * 2 + b) * Cmid + o, from kernel index (3 - a - 2r, 3 - b - 2s): in the
+    flipped kernel that is index (2r + a, 2s + b), so one flip and one
+    permutation (two copies, few host calls: it runs on every launch)."""
+    cin, cmid = folded.shape[:2]
+    fl = folded.flip(2, 3).reshape(cin, cmid, 2, 2, 2, 2)  # (ci, o, r, a, s, b)
+    return fl.permute(2, 4, 0, 3, 5, 1).reshape(4, cin, 4 * cmid)
+
+
+# The bf16 kernel's tile (csrc/packed_tail.cu, namespace tc: PR, PC): planar
+# rows and columns of one tile, 128 positions, one per wgmma row. A tile
+# owns 2 (PR - 2) x 2 (PC - 2) output pixels, from planar row M0 = ty (PR - 2)
+# and column J0 = tx (PC - 2); it reads x rows M0 - 1 .. M0 + PR - 1 and
+# columns J0 - 1 .. J0 + PC - 1.
+TC_PLANAR_TILE = (8, 16)
+
+
+def tc_tile_grid(h: int, w: int):
+    """(tiles_y, tiles_x, output rows, output columns) of one image's tiles
+    on the bf16 route, for an (h, w) input and a (2h, 2w) output."""
+    pr, pc = TC_PLANAR_TILE
+    th, tw = 2 * (pr - 2), 2 * (pc - 2)
+    return -(-2 * h // th), -(-2 * w // tw), th, tw
+
+
+def _pack_tap_tiles(folded: torch.Tensor) -> torch.Tensor:
+    """The bf16 route's tap weights: `_pack_taps`' (4, Cin, 4 Cmid) cut into
+    (4, ceil(4 Cmid / 64), Cin padded to a multiple of 16, 64) tiles (tap,
+    64-column group, input channel, column), zeros in the padding: the wgmma B
+    operand, K = Cin deep, 64 columns a group."""
+    wpk = _pack_taps(folded)
+    _, cin, nc = wpk.shape
+    ng, cin_pad = -(-nc // 64), -(-cin // 16) * 16
+    if ng * 64 != nc or cin_pad != cin:
+        wpk = F.pad(wpk, (0, ng * 64 - nc, 0, cin_pad - cin))
+    return wpk.reshape(4, cin_pad, ng, 64).permute(0, 2, 1, 3).contiguous()
 
 
 def fused_tail(x, folded, shift, out_weight, out_bias, leaky_slope: float = 0.2):
@@ -92,21 +122,26 @@ def fused_tail(x, folded, shift, out_weight, out_bias, leaky_slope: float = 0.2)
         raise ValueError("fused_tail: expected folded (Cin, Cmid, 4, 4) and out_weight (Co, Cmid, 4, 4)")
     if cin > 128 or cmid > 32 or co > 4:
         raise ValueError(f"fused_tail: kernel takes Cin <= 128, Cmid <= 32, Co <= 4; got {cin}, {cmid}, {co}")
+    code = ck.dtype_code(dt)
     x = x.contiguous()
-    wpk = _pack_taps(folded.to(dt))
+    # bf16: the tensor-core kernel and its tap tiles; float32: the CUDA-core one
+    taps = _pack_tap_tiles(folded.to(dt)) if code == 1 else _pack_taps(folded.to(dt))
     shift = shift.to(dt).contiguous()
     wo = out_weight.to(dt).contiguous()
     bias = out_bias.to(torch.float32).contiguous()
-    ck.require_cuda("fused_tail", x, wpk, shift, wo, bias)
+    ck.require_cuda("fused_tail", x, taps, shift, wo, bias)
     out = torch.empty((b, co, 2 * h, 2 * w), dtype=dt, device=x.device)
-    err = ck.library().cic_packed_tail(
-        ck.dtype_code(dt), x.data_ptr(), wpk.data_ptr(), shift.data_ptr(), wo.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), b, cin, h, w, cmid, co, float(leaky_slope),
-        ck.stream_ptr(x.device),
-    )
+    lib = ck.library()
+    entry = lib.cic_packed_tail_bf16 if code == 1 else lib.cic_packed_tail
+    err = entry(x.data_ptr(), taps.data_ptr(), shift.data_ptr(), wo.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), b, cin, h, w, cmid, co, float(leaky_slope),
+                ck.stream_ptr(x.device))
     ck.check(err, "fused_tail")
     fused_tail.launches += 1
+    fused_tail.route_launches["wgmma" if code == 1 else "cuda_core"] += 1
     return out
 
 
 fused_tail.launches = 0
+# launches per route: "wgmma" (bf16, on the tensor cores), "cuda_core" (float32)
+fused_tail.route_launches = {"wgmma": 0, "cuda_core": 0}

@@ -1,14 +1,18 @@
-"""K1, K3, K3b, K4 and the serving call of one checkout of the port, timed
-on one GPU, for parent / change comparisons within one run.
+"""K1, K3, K3b, K4, K7a, K7b, K8 and the serving call of one checkout of the
+port, timed on one GPU, for parent / change comparisons within one run.
 
     python3 scripts/torch_tree_times.py PATH_TO_CHECKOUT
 
 Imports contextual_image_compression_tpu_torch from the checkout at PATH
 (the kernels build there at first use) and prints one JSON line: the card,
 and for K1 (16, 256, 256), K3 (one serving call's pair, bf16, under
-no_grad), K3b (one training step's pair, float32) and K4 (64, 256, 256)
-`measure.event_ms` (the host's launch inside) and `measure.device_ms`
-(the device alone), then the median, min and max of 15 serving calls of
+no_grad), K3b (one training step's pair, float32), K4 (64, 256, 256), K7a
+and K7b (the fused SAGAN block on a (16, 256, 32, 32) bf16 activation with
+seeded weights of the HQ encoder's shapes, C 256 and C/8 32, gamma 0.5;
+K7b on the NCHW tensor viewed (B, H, W, C)) and K8 (the fused generator
+tail on a (16, 128, 128, 128) bf16 input, Cmid 32, Co 3), in bf16 and
+float32, `measure.event_ms` (the host's launch inside) and
+`measure.device_ms` (the device alone), then the median, min and max of 15 serving calls of
 CompressionPipeline(ModelConfig()) at B = 16 after 3 warm-up calls. Run it
 for parent and change in turns (parent, change, change, parent) on one
 machine, one after another: host-inclusive times move between processes
@@ -38,6 +42,9 @@ def main():
         card_name_and_power, device_ms, event_ms, randomize_stats, structured_images)
     from contextual_image_compression_tpu_torch.ops import cuda_kernels as ck
     from contextual_image_compression_tpu_torch.ops import image_ops, saliency
+    from contextual_image_compression_tpu_torch.ops.attention import (
+        sagan_block, sagan_block_spatial)
+    from contextual_image_compression_tpu_torch.ops.generator_tail import fused_tail
     from contextual_image_compression_tpu_torch.ops.fused_mask import contextual_mask, smooth_mask
     from contextual_image_compression_tpu_torch.ops.quantize import (
         adaptive_quantize, adaptive_quantize_bwd)
@@ -75,8 +82,30 @@ def main():
         "K3b": lambda: [adaptive_quantize_bwd(*c) for c in b_cases],
         "K4": lambda: smooth_mask(sal),
     }
-    for name, fn in fns.items():
-        out[name] = {"ms": event_ms(fn), "device_ms": device_ms(fn)}
+    # K7 / K8 inputs, seeded, at the entry points' full-width shapes
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def r(*shape, scale=0.1):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    act = r(16, 256, 32, 32, scale=0.5)
+    sagan_w = [r(256, 32), r(32), r(256, 32), r(32), r(256, 256), r(256)]
+    tail_in = r(16, 128, 128, 128, scale=0.5)
+    tail_w = [r(128, 32, 4, 4), r(32), r(3, 32, 4, 4), r(3)]
+    g = torch.tensor(0.5, device=dev)
+    for dt, tag in ((torch.bfloat16, ""), (torch.float32, "_float32")):
+        x = act.to(dt)
+        w = [t.to(dt) if i % 2 == 0 else t for i, t in enumerate(sagan_w)]
+        xf = x.permute(0, 2, 3, 1).reshape(16, 1024, 256)
+        view = x.permute(0, 2, 3, 1)
+        tx = tail_in.to(dt)
+        tw = [t.to(dt) for t in tail_w[:3]] + [tail_w[3]]
+        fns["K7a" + tag] = lambda xf=xf, w=w: sagan_block(xf, *w, g)
+        fns["K7b" + tag] = lambda view=view, w=w: sagan_block_spatial(view, *w, g)
+        fns["K8" + tag] = lambda tx=tx, tw=tw: fused_tail(tx, *tw)
+    with torch.no_grad():
+        for name, fn in fns.items():
+            out[name] = {"ms": event_ms(fn), "device_ms": device_ms(fn)}
 
     pipe = CompressionPipeline(model_config=ModelConfig(), device=dev, seed=0)
     randomize_stats(pipe.codec, 0)

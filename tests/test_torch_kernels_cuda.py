@@ -7,8 +7,10 @@ K2 and K6 in bf16 at every key width (DK 4..64) and value width, N from 1 to
 1024 at B = 1 and 3, on unaligned inputs and with every row's max in the last
 key tile, K3b under autograd, K4 on non-square and all-zero maps, K5 at the smallest
 and a ragged width and at the extreme quality tables, K6 and K7 at ragged N
-and value widths 64 and 128, K7b on a permuted (non-contiguous) view, K7's
-backward, K8 at an odd batch, a ragged size and in float32.
+and value widths 64 and 128, K7b on a permuted (non-contiguous) view, K7 in
+bf16 at DK 8, 16 and 32 on the tensor-core route, K7's backward, K8 at an
+odd batch, a ragged size, Cin not a multiple of 16, the full path shape and
+in float32, each K7 / K8 call on the route its dtype takes.
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels build at
 first use); elsewhere they skip. The file imports torch only, so it runs on a
@@ -466,6 +468,25 @@ def test_k7b_reads_a_permuted_nchw_view_in_place(dev, dtype):
         assert _rel_err(got, flat) <= 2e-2
 
 
+@pytest.mark.parametrize("n", [100, 1024])
+@pytest.mark.parametrize("c", [64, 128, 256], ids=["dk8", "dk16", "dk32"])
+def test_k7_bf16_takes_the_tensor_core_route(dev, c, n):
+    """bf16 at DK = C / 8 in {8, 16, 32} and a ragged N: the wgmma QKV GEMM
+    and K2's kernel (route "wgmma"), within 2e-2 of max |out| of the twin,
+    on the (B, N, C) view and on the permuted NCHW view."""
+    params, g = _sagan_params(dev, c, 3 * n + c)
+    x_nchw = torch.randn(2, c, n, 1, device=dev).to(torch.bfloat16)
+    view = x_nchw.permute(0, 2, 3, 1)
+    xf = view.reshape(2, n, c)
+    got, route = _route_of(sagan_block, lambda: sagan_block(xf, *params, g))
+    assert route == "wgmma"
+    want = sagan_block_plain(xf, *params, g)
+    assert _rel_err(got, want) <= 2e-2
+    got_b, route_b = _route_of(sagan_block_spatial, lambda: sagan_block_spatial(view, *params, g))
+    assert route_b == "wgmma" and got_b.stride() == view.stride()
+    assert torch.equal(got_b.reshape(2, n, c), got)
+
+
 def test_k7_backward_runs_through_the_jnp_formula(dev):
     params, g = _sagan_params(dev, 64, 9)
     x = torch.randn(1, 64, 64, device=dev, requires_grad=True)
@@ -482,20 +503,27 @@ def test_k7_backward_runs_through_the_jnp_formula(dev):
     (3, 16, 128, 32, torch.float32),
     (1, 12, 40, 8, torch.float32),
     (2, 12, 128, 32, torch.bfloat16),
-], ids=["odd-batch-bf16", "odd-batch-f32", "ragged-narrow-f32", "ragged-bf16"])
+    (1, 12, 40, 8, torch.bfloat16),
+    (2, 9, 24, 5, torch.bfloat16),
+    (16, 128, 128, 32, torch.bfloat16),
+], ids=["odd-batch-bf16", "odd-batch-f32", "ragged-narrow-f32", "ragged-bf16",
+        "ragged-narrow-bf16", "cin24-cmid5-bf16", "full-path-bf16"])
 def test_k8_matches_twin(dev, b, h, cin, cmid, dtype):
-    """H = 12 gives a 24-pixel output, not a multiple of the 16-pixel tile.
-    Bars: float32 2e-5 (as the CPU tests), bf16 1.6e-2 absolute on a tanh
-    output (two bf16 ulps of 1), identical on >= 99% of outputs."""
+    """H = 12 gives a 24-pixel output, not a multiple of the 16-pixel tile
+    of float32 nor of the 12 x 28 tile of bf16; Cin 40 and 24 are not
+    multiples of 16 (zero-padded in the bf16 route's K dimension), Cmid 5
+    not a multiple of 8; full-path-bf16 is chip_smoke's shape. bf16 takes
+    the tensor-core route, float32 the CUDA-core one. Bars: float32 2e-5
+    (as the CPU tests), bf16 1.6e-2 absolute on a tanh output (two bf16 ulps
+    of 1), identical on >= 99% of outputs."""
     gen = torch.Generator(device=dev).manual_seed(b * h + cin)
     x = (torch.randn(b, cin, h, h, device=dev, generator=gen) * 0.5).to(dtype)
     folded = (torch.randn(cin, cmid, 4, 4, device=dev, generator=gen) * 0.1).to(dtype)
     shift = (torch.randn(cmid, device=dev, generator=gen) * 0.1).to(dtype)
     ow = (torch.randn(3, cmid, 4, 4, device=dev, generator=gen) * 0.1).to(dtype)
     ob = torch.randn(3, device=dev, generator=gen) * 0.1
-    before = fused_tail.launches
-    got = fused_tail(x, folded, shift, ow, ob)
-    assert fused_tail.launches == before + 1
+    got, route = _route_of(fused_tail, lambda: fused_tail(x, folded, shift, ow, ob))
+    assert route == ("wgmma" if dtype == torch.bfloat16 else "cuda_core")
     assert got.shape == (b, 3, 2 * h, 2 * h) and got.dtype == dtype
     want = fused_tail_plain(x, folded, shift, ow, ob)
     err = (got.float() - want.float()).abs()
