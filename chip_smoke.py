@@ -5,17 +5,18 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from contextual_image_compression_tpu_torch/csrc
    and its range coder (g++) from contextual_image_compression_tpu_torch/native,
-   printing each kernel's registers and spills (and failing if the K2 / K6
-   tensor-core kernel spills or starts at other than the 168 registers its
-   setmaxnreg split deals out);
+   printing each kernel's registers and spills (and failing if a K2 / K6
+   tensor-core kernel, bf16 or float32, spills or starts at other than the
+   168 registers its setmaxnreg split deals out);
 3. holds the serving kernels (K1 contextual mask, K2 attention block, K3 quantizer)
    against its plain PyTorch twin on the card at the serving path's shapes
    (B = 16, 256^2, D = 512) and times kernel, twin and, where one exists, a
    library call with CUDA events (`measure.event_ms`: the host's launch
    inside, as a caller pays it) and on the device alone (`measure.device_ms`,
    K1-K3); K2 also beside the library call timed the same way, in float32
-   beside the float32 library call, and with the share of bf16 outputs
-   bit-identical to the twin. K1 must take the cluster route at 256^2, run one
+   (the "tf32x3" route: three TF32 passes on the tensor cores) beside the
+   float32 library calls (TF32 off) and the float32 bound, and with the share
+   of bf16 outputs bit-identical to the twin. K1 must take the cluster route at 256^2, run one
    kernel and no memset per call (torch.profiler) and repeat bit for bit;
    its tiled route is held at (2, 512, 512). K3 runs under no_grad, one
    kernel per call;
@@ -31,7 +32,8 @@
    per call, and times it;
 7. checks two GAN training steps (with and without D) of a tiny codec on the
    card against the same steps on the CPU: losses, per-component gradients,
-   parameters and BatchNorm statistics;
+   parameters and BatchNorm statistics, with the perceptual loss's VGG19
+   ReLU and max-pool decisions on the card taken from the CPU step;
 8. trains at full width (TrainConfig() defaults, random VGG19 for the
    perceptual loss): masks of 32 synthetic images through K1, a
    device-resident dataset, GANTrainer.fit for 4 steps after one warm-up
@@ -49,7 +51,8 @@
    plus one batch of binary masks, checking the masks against the port on
    the CPU on the first images, and times one batch's stages;
 11. holds K5 (the DCT transform and quantizer) against its twin at B = 128,
-   256^2, quality 75, and times it beside a cuBLAS formulation;
+   256^2, quality 75, and times it (host-inclusive and on the device alone)
+   beside a cuBLAS formulation;
 12. runs the DCT baseline at full width on 128 seeded images: evaluate at
    qualities 10..90 with PSNR / SSIM, entropy bpp and the measured bpp of 4
    range-coded streams (the coder is built with g++ first), streams encoded
@@ -57,7 +60,7 @@
    images per second and stages (K5 +1 per codec call);
 13. holds K6 (the attention core) against its twin at K2's shapes in bf16
    and float32, and times it beside softmax(q k^T) v in three calls and SDPA
-   (K2 likewise);
+   (K2 likewise, float32 on the "tf32x3" route);
 14. holds K7a and K7b (the fused SAGAN block) against their twin with the
    HQ encoder's SelfAttention weights of a full-width codec (gamma 0.5) on
    a (16, 256, 32, 32) activation, K7b reading the NCHW tensor through
@@ -80,7 +83,9 @@
    the decode held against the direct call, with the measured bpp and the
    encode, decode and host-coder times;
 18. checks that the serving, training, mask and storable-codec paths at 256^2
-   ran K1 and K4 on the cluster route only;
+   ran K1 and K4 on the cluster route only, and K2 / K6 on the route of
+   their dtype (serving, storable codec and entry points "wgmma", training
+   "tf32x3");
 19. prints a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -98,6 +103,7 @@ import torch
 
 H100_BF16_TFLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_FP32_TFLOPS = 67e12   # CUDA-core float32 peak
+H100_TF32_TFLOPS = 495e12  # dense TF32 tensor-core peak
 H100_HBM_BYTES_S = 3.35e12
 
 
@@ -153,6 +159,41 @@ def one_kernel_per_call(label, fn, wrapper, kernel, calls=3):
         raise AssertionError(f"{label}: want one {kernel} launch per call and nothing else, got "
                              f"{launched} launches, activities {names}")
     return launched // calls
+
+
+def kernel_device_ms(fn, calls=5):
+    """Mean device milliseconds a call of each kernel fn launches, from
+    torch.profiler (CUPTI may drop records under load: information only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us > 0:
+            name = ev.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            name = name.split("(")[0].split("::")[-1]
+            out[name] = us / calls / 1e3
+    return out
+
+
+def check_attention_route(label, route):
+    """K2 and K6 took `route` on every launch of the path."""
+    from contextual_image_compression_tpu_torch import ops
+
+    routes = {key: counts for key, counts in ops.route_counts().items() if key in ("K2", "K6")}
+    for key, counts in routes.items():
+        if counts[route] != ops.launch_counts()[key]:
+            raise AssertionError(f"{label}: {key} routes {counts}, want {route} only")
+    log(f"{label}: attention routes {routes}")
+    return routes
 
 
 def check_cluster_route(label):
@@ -279,8 +320,10 @@ def check_k2(dev, B):
     att = attention_block(q, k, v, zero, g)
     att_want = attention_block_plain(q, k, v, zero, g)
     f32 = [t.float() for t in (q, k, v, res)]
-    got32 = attention_block(*f32, g)
+    got32, route32 = _route_of(attention_block, lambda: attention_block(*f32, g))
     want32 = attention_block_plain(*f32, g)
+    if route32 != "tf32x3":
+        raise AssertionError(f"K2 float32 took the {route32} route")
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     rel = err / want.float().abs().max().item()
@@ -308,21 +351,55 @@ def check_k2(dev, B):
     dev_ms = device_ms(lambda: attention_block(q, k, v, res, g))
     lib_dev = device_ms(lambda: _three_calls(q, k, v))
     sdpa_dev = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+    dev32, lib32_dev, sdpa32_dev = _float32_device_times(
+        lambda: attention_block(*f32, g), f32[:3])
+    parts32 = kernel_device_ms(lambda: attention_block(*f32, g))
+    log(f"K2 float32 kernels a call (torch.profiler, device ms): {json.dumps(parts32)}")
     flops = 2.0 * B * N * N * (DK + DV)
     nbytes = (q.numel() + k.numel() + v.numel() + res.numel() + got.numel()) * 2
     b_ms, b_by = bound_ms(nbytes, flops, H100_BF16_TFLOPS)
+    # float32: three TF32 passes of every product, 4-byte elements
+    b32_ms, b32_by = bound_ms(2 * nbytes, 3 * flops, H100_TF32_TFLOPS)
     log(f"K2 times (host launch inside): kernel bf16 {ms:.4f} ms (device alone {dev_ms:.4f}; "
-        f"float32 {ms32:.4f}), twin {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library "
-        f"softmax(q k^T) v in three calls {lib:.4f} ms (device alone {lib_dev:.4f}; float32 "
-        f"{lib32:.4f}), scaled_dot_product_attention(scale=1) bf16 {sdpa:.4f} ms (device alone "
-        f"{sdpa_dev:.4f}; float32 {sdpa32:.4f})")
+        f"float32 {ms32:.4f}, device alone {dev32:.4f}), twin {plain:.4f} ms, bound bf16 "
+        f"{b_ms:.4f} ms ({b_by}), float32 {b32_ms:.4f} ms ({b32_by}; "
+        f"{flops / H100_FP32_TFLOPS * 1e3:.4f} ms at the CUDA cores' rate), library "
+        f"softmax(q k^T) v in three calls {lib:.4f} ms (device alone {lib_dev:.4f}; float32, "
+        f"TF32 off, {lib32:.4f}, device alone {lib32_dev:.4f}), scaled_dot_product_attention"
+        f"(scale=1) bf16 {sdpa:.4f} ms (device alone {sdpa_dev:.4f}; float32 {sdpa32:.4f}, "
+        f"device alone {sdpa32_dev:.4f})")
     return dict(name="K2 attention_block", route="cuda",
                 source="contextual_image_compression_tpu_torch/csrc/attention.cu",
                 replaces="contextual_image_compression_tpu/ops/attention.py:174",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=sdpa, library_device_ms=sdpa_dev, library_float32_ms=sdpa32,
                 yardstick_ms=lib, yardstick_device_ms=lib_dev, yardstick_float32_ms=lib32,
-                float32_ms=ms32, device_ms=dev_ms, identical_share=same, design="wgmma")
+                float32_ms=ms32, device_ms=dev_ms, identical_share=same,
+                float32_kernels_device_ms=parts32,
+                **_float32_fields(err32, dev32, lib32_dev, sdpa32_dev, b32_ms, b32_by, flops))
+
+
+def _float32_device_times(call, qkv):
+    """Device-alone times of a float32 K2 / K6 call and of its yardsticks,
+    the three library calls (with TF32 off, which main() sets) and SDPA."""
+    import torch.nn.functional as F
+    from contextual_image_compression_tpu_torch.measure import device_ms
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the float32 yardsticks are timed with TF32 off")
+    return (device_ms(call), device_ms(lambda: _three_calls(*qkv)),
+            device_ms(lambda: F.scaled_dot_product_attention(*qkv, scale=1.0)))
+
+
+def _float32_fields(err32, dev32, lib32_dev, sdpa32_dev, b32_ms, b32_by, flops):
+    """The float32 route's entries of K2's and K6's records."""
+    return dict(design="wgmma", route_bfloat16="wgmma", route_float32="tf32x3",
+                design_float32="three TF32 passes a_hi b_hi + a_hi b_lo + a_lo b_hi on wgmma "
+                               "(cvt.rna splits; a pre-pass writes q, k and V^T as hi / lo)",
+                max_abs_err_float32=err32, float32_device_ms=dev32,
+                yardstick_float32_device_ms=lib32_dev, yardstick_float32_tf32="off",
+                library_float32_device_ms=sdpa32_dev, float32_bound_ms=b32_ms, float32_bound_by=b32_by,
+                float32_cuda_core_bound_ms=flops / H100_FP32_TFLOPS * 1e3)
 
 
 def check_k3(dev, B):
@@ -455,6 +532,7 @@ def run_full_pipeline(dev, card):
             raise AssertionError("symbols must be float32")
     counts = ops.launch_counts()
     check_cluster_route("serving")
+    check_attention_route("serving", "wgmma")
     med = float(np.median(times))
     log(f"full-width pipeline B={B}, 256x256: 3 calls, median {med * 1e3:.2f} ms/call, "
         f"{B / med:.1f} img/s on {card}; launches {counts}")
@@ -553,6 +631,62 @@ def _train_restore(state, snap):
     state.step = snap["step"]
 
 
+class _PinnedVggDecisions:
+    """Within the block, VGG19's ReLU masks and max-pool positions on the
+    card are those of the CPU step just before it: each CPU call records
+    its decisions in order, and the card's matching call replays them. The
+    card's VGG19 still computes every value; only which elements pass a
+    ReLU or win a pool comes from the CPU. Without this, a pre-activation
+    within ~1e-6 of zero falls on the other side of a ReLU when the card's
+    blended image differs from the CPU's by float32 rounding, and one such
+    flip moves the step's codec gradients by ~1e-4 relative L2 whatever the
+    port's kernels compute: K2's twin, run on the card in place of its
+    kernel, moved them by 1.21e-4, and with the decisions pinned the step
+    agrees to ~3e-6 (cuDNN convolutions included)."""
+
+    def __enter__(self):
+        import collections
+        import types
+
+        import torch.nn.functional as F
+        from contextual_image_compression_tpu_torch.models import vgg
+
+        queue = collections.deque()
+
+        def replay(x):
+            if not queue:
+                raise AssertionError("the card's VGG19 made a call the CPU step did not")
+            return queue.popleft().to(x.device)
+
+        def relu(x):
+            if x.device.type == "cpu":
+                queue.append(x > 0)
+                return F.relu(x)
+            mask = replay(x)
+            if mask.shape != x.shape:
+                raise AssertionError(f"VGG19 ReLU {tuple(x.shape)} against {tuple(mask.shape)}")
+            return x * mask
+
+        def max_pool2d(x, kernel_size, stride=None):
+            if x.device.type == "cpu":
+                out, idx = F.max_pool2d(x, kernel_size, stride, return_indices=True)
+                queue.append(idx)
+                return out
+            idx = replay(x)
+            return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+        self.queue, self.vgg, self.saved = queue, vgg, vgg.F
+        vgg.F = types.SimpleNamespace(relu=relu, max_pool2d=max_pool2d)
+        return self
+
+    def drained(self):
+        if self.queue:
+            raise AssertionError(f"{len(self.queue)} VGG19 decisions of the CPU step unused")
+
+    def __exit__(self, *exc):
+        self.vgg.F = self.saved
+
+
 def _small_train_step_agreement(dev, label):
     """Two steps (with D, then without) of a tiny codec (TINY_TRAIN) on the
     CPU (twins), with seeded weights, batch and random VGG19 in bn_mode
@@ -563,7 +697,9 @@ def _small_train_step_agreement(dev, label):
     everywhere (Adam's first steps move a parameter by ~lr whatever the size
     of its gradient, so gradients at rounding level, such as those of a bias
     feeding a batch-statistics BatchNorm, flip), BatchNorm statistics within
-    1e-6. Returns (loss, gradient, share, worst, statistics) errors."""
+    1e-6. VGG19's ReLU and max-pool decisions on the card are the CPU's
+    (_PinnedVggDecisions). Returns (loss, gradient, share, worst,
+    statistics) errors."""
     from contextual_image_compression_tpu_torch.config import (
         ModelConfig, QuantizerConfig, TrainConfig)
     from contextual_image_compression_tpu_torch.measure import randomize_stats
@@ -602,7 +738,9 @@ def _small_train_step_agreement(dev, label):
     share = 1.0
     for do_d in (True, False):
         _train_restore(sides[1][1], _train_snapshot(sides[0][1]))
-        (mc, gc, pc), (mg, gg, pg) = step(sides[0], do_d), step(sides[1], do_d)
+        with _PinnedVggDecisions() as pinned:
+            (mc, gc, pc), (mg, gg, pg) = step(sides[0], do_d), step(sides[1], do_d)
+            pinned.drained()
         loss_rel = max([loss_rel] + [abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc])
         rels = {n: float((gg[n] - gc[n]).norm() / gc[n].norm().clamp(min=1e-30)) for n in gc}
         log(f"  step {'with' if do_d else 'without'} D, gradients relative L2: "
@@ -621,13 +759,10 @@ def _small_train_step_agreement(dev, label):
 
 def check_small_train_step_against_cpu(dev):
     """The tiny train step on the card against the CPU, at the bars of
-    _small_train_step_agreement, with convolutions outside cuDNN. cuDNN's
-    float32 convolution algorithms (TF32 off, deterministic or not) move the
-    step's codec gradients by up to ~3e-4 relative L2 from the CPU's through
-    the VGG19 and train-mode BatchNorm backward, and by different amounts
-    from run to run; that run is printed for information. Without cuDNN the
-    card's convolutions are float32 GEMMs and the step is held to 1e-4; K2,
-    K3 and K3b launch in both runs."""
+    _small_train_step_agreement, with convolutions outside cuDNN. The run
+    with cuDNN's float32 convolution algorithms (TF32 off) is printed for
+    information; without cuDNN the card's convolutions are float32 GEMMs and
+    the step is held to 1e-4; K2, K3 and K3b launch in both runs."""
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         _small_train_step_agreement(dev, "cuDNN convolutions, information only")
     with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
@@ -687,6 +822,7 @@ def run_full_training(dev, card):
     if counts != want:
         raise AssertionError(f"training launches {counts}, want {want}")
     check_cluster_route("training")
+    check_attention_route("training", "tf32x3")
     bad = [k for k, v in hist.items() if not all(math.isfinite(x) for x in v)]
     bad += [f"probe {b}" for b, r, g in probe if not (math.isfinite(r) and math.isfinite(g))]
     if bad:
@@ -873,7 +1009,7 @@ def _planes_of(imgs):
 
 def check_k5(dev, B):
     from contextual_image_compression_tpu_torch.data.images import synthetic_images
-    from contextual_image_compression_tpu_torch.measure import event_ms
+    from contextual_image_compression_tpu_torch.measure import device_ms, event_ms
     from contextual_image_compression_tpu_torch.ops.dct import (
         _dct_matrix, dct_strips, dct_strips_plain, quality_tables)
 
@@ -904,6 +1040,7 @@ def check_k5(dev, B):
         return d.T @ (s * qt) @ d, s
 
     ms = event_ms(lambda: dct_strips(planes, tables))
+    dev_ms = device_ms(lambda: dct_strips(planes, tables))
     plain = event_ms(lambda: dct_strips_plain(planes, tables), reps=5, warmup=1)
     lib = event_ms(cublas)
     # four 8-term products per coefficient (2 x 8 x 4 operations), the divide,
@@ -911,13 +1048,17 @@ def check_k5(dev, B):
     ops_per_px = 2 * 8 * 4 + 3
     nbytes = planes.numel() * 4 * 3
     b_ms, b_by = bound_ms(nbytes, ops_per_px * planes.numel(), H100_FP32_TFLOPS)
-    log(f"K5 times: kernel {ms:.4f} ms, twin {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-        f"library none; cuBLAS yardstick (batched 8x8 products + round) {lib:.4f} ms")
+    log(f"K5 times: kernel {ms:.4f} ms (device alone {dev_ms:.4f}, {b_ms / dev_ms:.1%} of the "
+        f"bound), twin {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library none; cuBLAS "
+        f"yardstick (batched 8x8 products + round) {lib:.4f} ms")
     return dict(name="K5 dct_strips", route="cuda",
                 source="contextual_image_compression_tpu_torch/csrc/dct.cu",
                 replaces="contextual_image_compression_tpu/ops/dct.py:152",
                 max_abs_err=rec_err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, cublas_yardstick_ms=lib, symbols_identical=same)
+                library_ms=None, cublas_yardstick_ms=lib, symbols_identical=same,
+                device_ms=dev_ms, design="persistent grid (2 blocks of 256 threads an SM), 4 "
+                "tiles a warp, 16-byte loads and streaming stores, D in registers, per-warp "
+                "shared transposes under __syncwarp")
 
 
 def run_dct_path(dev, card):
@@ -1036,7 +1177,10 @@ def check_k6(dev, B):
     v = torch.randn(B, N, DV, device=dev, generator=gen).to(torch.bfloat16)
     got, want = attention_core(q, k, v), attention_core_plain(q, k, v)
     f32 = [t.float() for t in (q, k, v)]
-    got32, want32 = attention_core(*f32), attention_core_plain(*f32)
+    got32, route32 = _route_of(attention_core, lambda: attention_core(*f32))
+    want32 = attention_core_plain(*f32)
+    if route32 != "tf32x3":
+        raise AssertionError(f"K6 float32 took the {route32} route")
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     rel = _rel(got, want)
@@ -1057,21 +1201,26 @@ def check_k6(dev, B):
     dev_ms = device_ms(lambda: attention_core(q, k, v))
     lib_dev = device_ms(lambda: _three_calls(q, k, v))
     sdpa_dev = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+    dev32, lib32_dev, sdpa32_dev = _float32_device_times(lambda: attention_core(*f32), f32)
     flops = 2.0 * B * N * N * (DK + DV)
     nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * 2
     b_ms, b_by = bound_ms(nbytes, flops, H100_BF16_TFLOPS)
+    b32_ms, b32_by = bound_ms(2 * nbytes, 3 * flops, H100_TF32_TFLOPS)
     log(f"K6 times (host launch inside): kernel bf16 {ms:.4f} ms (device alone {dev_ms:.4f}; "
-        f"float32 {ms32:.4f}), twin {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), softmax(q k^T) "
-        f"v in three calls {lib:.4f} ms (device alone {lib_dev:.4f}; float32 {lib32:.4f}), "
-        f"scaled_dot_product_attention(scale=1) bf16 {sdpa:.4f} ms (device alone "
-        f"{sdpa_dev:.4f}; float32 {sdpa32:.4f})")
+        f"float32 {ms32:.4f}, device alone {dev32:.4f}), twin {plain:.4f} ms, bound bf16 "
+        f"{b_ms:.4f} ms ({b_by}), float32 {b32_ms:.4f} ms ({b32_by}), softmax(q k^T) v in "
+        f"three calls {lib:.4f} ms (device alone {lib_dev:.4f}; float32, TF32 off, "
+        f"{lib32:.4f}, device alone {lib32_dev:.4f}), scaled_dot_product_attention(scale=1) "
+        f"bf16 {sdpa:.4f} ms (device alone {sdpa_dev:.4f}; float32 {sdpa32:.4f}, device alone "
+        f"{sdpa32_dev:.4f})")
     return dict(name="K6 attention_core", route="cuda",
                 source="contextual_image_compression_tpu_torch/csrc/attention.cu",
                 replaces="contextual_image_compression_tpu/ops/attention.py:156",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=sdpa, library_device_ms=sdpa_dev, library_float32_ms=sdpa32,
                 yardstick_ms=lib, yardstick_device_ms=lib_dev, yardstick_float32_ms=lib32,
-                float32_ms=ms32, device_ms=dev_ms, identical_share=same, design="wgmma")
+                float32_ms=ms32, device_ms=dev_ms, identical_share=same,
+                **_float32_fields(err32, dev32, lib32_dev, sdpa32_dev, b32_ms, b32_by, flops))
 
 
 def _sagan_weights(attn, dt):
@@ -1283,6 +1432,7 @@ def run_entry_points(dev, B, codec):
     want = expect(K6=1, K7a=1, K7b=1, K8=1)
     if counts != want:
         raise AssertionError(f"entry-point launches {counts}, want {want}")
+    check_attention_route("entry points", "wgmma")
     shapes = {"attention_core": (B, 1024, 256), "sagan_block": (B, 1024, 256),
               "sagan_block_spatial": (B, 32, 32, 256),
               "packed_tail_forward(use_pallas=True)": (B, 3, 256, 256)}
@@ -1360,6 +1510,7 @@ def run_codec_path(dev, card):
     if counts != want:
         raise AssertionError(f"storable codec launches {counts}, want {want}")
     check_cluster_route("storable codec")
+    check_attention_route("storable codec", "wgmma")
     t0 = time.perf_counter()
     latent_streams, bpp = pipe.serialize_latents(info)
     t_coder = time.perf_counter() - t0
@@ -1413,9 +1564,10 @@ def main():
             spills = line.strip()
         elif "Used" in line and "registers" in line:
             log(f"  ptxas: {entry[:110]}: {spills}; {line.split(':', 1)[-1].strip()}")
-            if "attn_tc_kernel" in entry and not spills.startswith("0 bytes stack frame, 0 bytes spill"):
+            attn = "attn_tc_kernel" in entry or "attn_tf32_kernel" in entry
+            if attn and not spills.startswith("0 bytes stack frame, 0 bytes spill"):
                 raise AssertionError(f"the K2 / K6 tensor-core kernel spills: {entry} {spills}")
-            if "attn_tc_kernel" in entry and "Used 168 registers" not in line:
+            if attn and "Used 168 registers" not in line:
                 raise AssertionError(f"the K2 / K6 tensor-core kernel does not start at the 168 "
                                      f"registers its setmaxnreg split deals out: {entry} {line}")
         elif "error" in line.lower() or "warning" in line.lower():

@@ -48,9 +48,13 @@
 // needs up to 128 of them; the launcher refuses a build that starts at
 // another count.
 //
-// float32 (training, one launch a step, bar 1e-5 with TF32 off) keeps the
-// CUDA-core flash loop of attention.cuh (attn_kernel): float32 FMA, online
-// softmax; it is bound by FMA throughput and shared-memory bandwidth.
+// float32 (training, one call a step, bar 1e-5 with TF32 off) runs on the
+// tensor cores too (attn_tf32_kernel), as three TF32 passes per product:
+// a_hi b_hi + a_hi b_lo + a_lo b_hi, with hi = cvt.rna.tf32(x) and lo =
+// cvt.rna.tf32(x - hi), accumulated in float32 (see namespace tf below). Its
+// bound is the tensor cores' TF32 rate for three passes: 3 * 2 * N^2 * (DK +
+// DV) per image at 495 TFLOP/s, 0.0586 ms at B = 16 against 0.0163 ms for the
+// 54.5 MB of float32 q, k, v, residual and output.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -64,63 +68,6 @@
 namespace {
 
 using namespace cic::attn;
-
-// ------------------------------------------------- float32: CUDA-core loop
-
-__global__ void __launch_bounds__(THREADS)
-attn_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-            const float* __restrict__ res, const float* __restrict__ gamma, float* __restrict__ out,
-            int N, int DK, int DV) {
-  extern __shared__ float smem[];
-  const Tiles s = carve(smem);
-  const int b = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int rg = tid / 16, cg = tid % 16;
-  const int nchunks = DV / 64;
-
-  const float* qb = q + (size_t)b * N * DK;
-  for (int i = tid; i < BQ * DK; i += THREADS) {
-    const int r = i / DK, d = i % DK, n = q0 + r;
-    s.Qt[d * BQ + r] = n < N ? qb[(size_t)n * DK + d] : 0.f;
-  }
-
-  float m[4], l[4], acc[4][16];
-  flash_loop<float>(s, k + (size_t)b * N * DK, v + (size_t)b * N * DV, N, DK, DV, m, l, acc);
-
-  const float g = res ? *gamma : 1.f;
-  const float* rb = res ? res + (size_t)b * N * DV : nullptr;
-  float* ob = out + (size_t)b * N * DV;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = q0 + rg * 4 + i;
-    if (n >= N) continue;
-    const float recip = 1.0f / l[i];
-    const float scale = g * recip;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (c >= nchunks) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const size_t o = (size_t)n * DV + c * 64 + cg * 4 + e;
-        const float a = acc[i][c * 4 + e];
-        ob[o] = rb ? scale * a + rb[o] : a * recip;
-      }
-    }
-  }
-}
-
-int launch_f32(const void* q, const void* k, const void* v, const void* res, const float* gamma,
-               void* out, int B, int N, int DK, int DV, cudaStream_t st) {
-  const size_t smem = SMEM_FLOATS * sizeof(float);
-  cudaError_t err =
-      cudaFuncSetAttribute(attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + BQ - 1) / BQ, B);
-  attn_kernel<<<grid, THREADS, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(res), gamma, static_cast<float*>(out), N, DK, DV);
-  return (int)cudaGetLastError();
-}
 
 // ------------------------------------------------------ bf16: tensor cores
 
@@ -536,19 +483,20 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The (B, N, W) bf16 tensor at ptr as a 3-D map with 64 x 64 boxes, 128-byte
-// swizzle, zero fill outside (the ragged key tile, DK below 64).
-int encode_map(CUtensorMap* map, const void* ptr, int B, int N, int W) {
+// The (B, rows, W) tensor at ptr, of elements `bytes` wide, as a 3-D map
+// with boxes of box_w x box_rows, 128-byte swizzle (box_w * bytes = 128), and
+// zero fill outside (the ragged key tile, DK below the box).
+int encode_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int bytes, int B,
+               int rows, int W, int box_w, int box_rows) {
   EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)N, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)W * 2, (cuuint64_t)N * W * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)W * bytes, (cuuint64_t)rows * W * bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)box_w, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = enc(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -625,8 +573,9 @@ int launch(const void* q, const void* k, const void* v, const void* res, const f
   const int k_tma = DK % 8 == 0 && aligned(k);
   const int v_tma = aligned(v);
   int err = 0;
-  if (k_tma && (err = encode_map(&kmap, k, B, N, DK)) != 0) return err;
-  if (v_tma && (err = encode_map(&vmap, v, B, N, DV)) != 0) return err;
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (k_tma && (err = encode_map(&kmap, k, bf16, 2, B, N, DK, 64, 64)) != 0) return err;
+  if (v_tma && (err = encode_map(&vmap, v, bf16, 2, B, N, DV, 64, 64)) != 0) return err;
   if (strides)
     return launch_dv<true>(kmap, vmap, q, k, v, res, gamma, out, B, N, DK, DV, k_tma, v_tma,
                            *strides, st);
@@ -636,12 +585,507 @@ int launch(const void* q, const void* k, const void* v, const void* res, const f
 
 }  // namespace tc
 
+// ------------------------------------------------- float32: three TF32 passes
+
+// The bf16 kernel's plan (two consumer warpgroups of 64 query rows taking
+// turns on the tensor cores, a producer streaming key tiles by TMA into a
+// ring, pass 1 the row max, pass 2 e = expf(s - m) and O += e V) with every
+// product as three TF32 wgmma passes. What TF32 changes:
+//  * wgmma takes TF32 operands K-major only. Q and K are K-major for S = Q K^T
+//    already; V (N, DV) is not for O = P V. A pre-pass (split_kernel) writes
+//    hi and lo of q and k, and hi and lo of V^T (B, DV, NP), into scratch the
+//    wrapper allocates; the main kernel loads all of it by TMA, so unaligned
+//    inputs and any DK (zero-padded to 32 or 64) take the same path.
+//  * P comes from S's accumulator. A thread holds the keys 2t, 2t + 1 of each
+//    group of 8; the A fragment of m64n64k8 wants the k positions t, t + 4.
+//    The pre-pass stores V^T's keys of each group of 8 in the order 0, 2, 4,
+//    6, 1, 3, 5, 7, so S's registers, split into hi and lo, serve as A as
+//    they are.
+//  * A 64-key float32 V tile with its lo half is 128 KB: tiles here are 32
+//    keys (one 128-byte swizzled row of V^T), 64 KB of V^T hi and lo at
+//    DV = 256, in a ring of its own beside K's (see vstages) and the 64 KB
+//    of Q: two V^T stages and two to four K stages.
+//  * The accumulator (128 registers a thread at DV = 256), S (16) and P's hi
+//    and lo (16 each) fit the bf16 kernel's 232-register consumer budget.
+// The global max of pass 1 is the bf16 kernel's; in float32 a running max
+// would do as well, but the two passes keep one plan for both types at the
+// cost of recomputing S (DK / (DK + DV) more products).
+namespace tf {
+
+using namespace cic::hop;
+
+constexpr int ROWS = 128;                 // query rows per block
+constexpr int KEYS = 32;                  // keys per tile
+constexpr int CONSUMERS = 256;            // two warpgroups
+constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup (one thread loads)
+constexpr int BAR_TURN = 1;               // named barriers 1, 2: whose turn on the tensor cores
+constexpr int Q_PART = 64 * 128;          // 64 rows x 32 floats of Q, hi or lo, swizzled
+constexpr int Q_BYTES = 4 * Q_PART;       // a warpgroup's Q: hi, lo x two 32-column blocks
+constexpr int K_PART = KEYS * 128;        // 32 keys x 32 floats of K, hi or lo
+constexpr int K_BYTES = 4 * K_PART;       // hi, lo x two 32-column blocks
+constexpr int V_PART = 64 * 128;          // 64 columns of V (rows of V^T) x 32 keys, hi or lo
+constexpr int SMEM_LIMIT = 232448;        // an H100 block's dynamic shared memory
+
+constexpr int STAGES_MAX = 4;
+constexpr int HEAD = 1024;                // the barriers, ahead of Q
+
+// K and V^T stream through rings of their own. A turn runs tile t's scores
+// and tile t - 1's e.V, so a V^T tile is held for one turn more than its K
+// tile: with one ring, tile t + 1 could load only after tile t - 1's e.V, and
+// each turn would wait for its load. With two, V^T tile t loads during the
+// turn that uses tile t - 1.
+template <int NCH>
+__host__ __device__ constexpr int vstage_bytes() { return 2 * NCH * V_PART; }
+
+template <int NCH>
+__host__ __device__ constexpr int vstages() {
+  return (SMEM_LIMIT - 1024 - HEAD - 2 * Q_BYTES - 2 * K_BYTES) / vstage_bytes<NCH>() <
+                 STAGES_MAX
+             ? (SMEM_LIMIT - 1024 - HEAD - 2 * Q_BYTES - 2 * K_BYTES) / vstage_bytes<NCH>()
+             : STAGES_MAX;
+}
+
+// K stages (hi and lo of kblocks 32-column blocks each) in what V^T leaves.
+template <int NCH>
+__host__ __device__ constexpr int kstages(int kblocks) {
+  return (SMEM_LIMIT - 1024 - HEAD - 2 * Q_BYTES - vstages<NCH>() * vstage_bytes<NCH>()) /
+                     (2 * kblocks * K_PART) <
+                 STAGES_MAX
+             ? (SMEM_LIMIT - 1024 - HEAD - 2 * Q_BYTES - vstages<NCH>() * vstage_bytes<NCH>()) /
+                   (2 * kblocks * K_PART)
+             : STAGES_MAX;
+}
+static_assert(vstages<4>() >= 2 && kstages<4>(2) >= 2, "two stages of each ring at DV = 256");
+
+// q, k (B, N, DK) -> hi and lo (B, N, DKP), zero beyond DK; v (B, N, DV) ->
+// hi and lo of V^T (B, DV, NP), zero beyond N, each group of 8 keys in the
+// order 0, 2, 4, 6, 1, 3, 5, 7 (position p < 4 holds key 2p, p >= 4 key
+// 2p - 7). A block: 32 keys of one image. Any alignment.
+__global__ void __launch_bounds__(256)
+split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ qh, float* __restrict__ ql,
+             float* __restrict__ kh, float* __restrict__ kl, float* __restrict__ vh,
+             float* __restrict__ vl, int N, int DK, int DV, int DKP, int NP) {
+  __shared__ float vs[KEYS][65];
+  const int b = blockIdx.y, n0 = blockIdx.x * KEYS, tid = threadIdx.x;
+  uint32_t hi, lo;
+  for (int i = tid; i < KEYS * DKP; i += 256) {
+    const int r = i / DKP, d = i - r * DKP, n = n0 + r;
+    if (n >= N) break;
+    const size_t src = ((size_t)b * N + n) * DK + d, dst = ((size_t)b * N + n) * DKP + d;
+    tf32_split(d < DK ? q[src] : 0.f, hi, lo);
+    qh[dst] = __uint_as_float(hi);
+    ql[dst] = __uint_as_float(lo);
+    tf32_split(d < DK ? k[src] : 0.f, hi, lo);
+    kh[dst] = __uint_as_float(hi);
+    kl[dst] = __uint_as_float(lo);
+  }
+  for (int c0 = 0; c0 < DV; c0 += 64) {
+    __syncthreads();  // the previous columns are written out
+    for (int i = tid; i < KEYS * 64; i += 256) {
+      const int r = i >> 6, c = i & 63, n = n0 + r;
+      vs[r][c] = n < N ? v[((size_t)b * N + n) * DV + c0 + c] : 0.f;
+    }
+    __syncthreads();
+    for (int i = tid; i < 64 * KEYS; i += 256) {
+      const int col = i / KEYS, p = i % KEYS, e = p & 7;
+      tf32_split(vs[(p & ~7) + (e < 4 ? 2 * e : 2 * e - 7)][col], hi, lo);
+      const size_t dst = ((size_t)b * DV + c0 + col) * NP + n0 + p;
+      vh[dst] = __uint_as_float(hi);
+      vl[dst] = __uint_as_float(lo);
+    }
+  }
+}
+
+// Descriptor offset (16-byte units) of k8 slice kk of a tile whose 32-float
+// column blocks lie `part` bytes apart.
+__device__ __forceinline__ uint64_t slice(int kk, int part) {
+  return (uint64_t)(((kk >> 2) * part + (kk & 3) * 32) >> 4);
+}
+
+// S = Q K^T over ksteps (1..8) slices of 8 of DK, each as lo.hi + hi.lo +
+// hi.hi; the tiles are zero beyond DK.
+__device__ __forceinline__ void score_mma(float (&s)[16], uint64_t dqh, uint64_t dql,
+                                          uint64_t dkh, uint64_t dkl, int ksteps) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if (kk < ksteps) {
+      const uint64_t oq = slice(kk, Q_PART), ok = slice(kk, K_PART);
+      wgmma_ss_m64n32k8_tf32(s, dqh + oq, dkl + ok, kk > 0);
+      wgmma_ss_m64n32k8_tf32(s, dql + oq, dkh + ok, 1);
+      wgmma_ss_m64n32k8_tf32(s, dqh + oq, dkh + ok, 1);
+    }
+  }
+}
+
+// O += P V over a 32-key tile: 4 slices of 8 keys, NCH 64-column chunks,
+// each as lo.hi + hi.lo + hi.hi. vt: the stage's V^T hi, then its lo.
+template <int NCH>
+__device__ __forceinline__ void value_mma(float (&o)[NCH][32], const uint32_t (&ph)[4][4],
+                                          const uint32_t (&pl)[4][4], const unsigned char* vt) {
+  const uint64_t dvh = sw128_desc(vt, 16, 1024), dvl = sw128_desc(vt + NCH * V_PART, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const uint64_t off = (uint64_t)((c * V_PART + kk * 32) >> 4);
+      wgmma_rs_m64n64k8_tf32(o[c], pl[kk], dvh + off);
+      wgmma_rs_m64n64k8_tf32(o[c], ph[kk], dvl + off);
+      wgmma_rs_m64n64k8_tf32(o[c], ph[kk], dvh + off);
+    }
+}
+
+// Keys >= N of the tile at key0 score -inf.
+__device__ __forceinline__ void mask_keys(float (&s)[16], int key0, int N, int qd) {
+  if (key0 + KEYS <= N) return;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (key0 + 8 * j + 2 * qd + e >= N) {
+        s[4 * j + e] = -INFINITY;
+        s[4 * j + 2 + e] = -INFINITY;
+      }
+}
+
+// e = exp(s - m) of the tile at key0 in float32 into the row sums l, and its
+// TF32 hi and lo into the A fragments of the e.V product: slice j's position
+// qd is key 8j + 2qd (s[4j], s[4j + 2] for rows r, r + 8), position qd + 4
+// key 8j + 2qd + 1 (s[4j + 1], s[4j + 3]), the order of V^T's keys.
+__device__ __forceinline__ void softmax_tile(float (&s)[16], float m0, float m1, float& l0,
+                                             float& l1, uint32_t (&ph)[4][4],
+                                             uint32_t (&pl)[4][4], int key0, int N, int qd) {
+  mask_keys(s, key0, N, qd);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float e0 = expf(s[4 * j + e] - m0);
+      const float e1 = expf(s[4 * j + 2 + e] - m1);
+      l0 += e0;
+      l1 += e1;
+      s[4 * j + e] = e0;
+      s[4 * j + 2 + e] = e1;
+    }
+    tf32_split(s[4 * j + 0], ph[j][0], pl[j][0]);
+    tf32_split(s[4 * j + 2], ph[j][1], pl[j][1]);
+    tf32_split(s[4 * j + 1], ph[j][2], pl[j][2]);
+    tf32_split(s[4 * j + 3], ph[j][3], pl[j][3]);
+  }
+}
+
+template <int NCH>
+__device__ __forceinline__ void fence_operands(float (&o)[NCH][32], uint32_t (&ph)[4][4],
+                                               uint32_t (&pl)[4][4], float (&s)[16]) {
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) fence_regs(o[c]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    fence_regs(ph[kk]);
+    fence_regs(pl[kk]);
+  }
+  fence_regs(s);
+}
+
+struct Maps {
+  CUtensorMap qh, ql, kh, kl, vh, vl;
+};
+
+template <int NCH>
+__global__ void __launch_bounds__(THREADS, 1)
+attn_tf32_kernel(__grid_constant__ const Maps maps, const float* __restrict__ res,
+                 const float* __restrict__ gamma, float* __restrict__ out, int N, int ksteps,
+                 int kblocks) {
+  constexpr int VST = vstages<NCH>();
+  constexpr int DV = NCH * 64;
+  const int KST = kstages<NCH>(kblocks), kstage = 2 * kblocks * K_PART;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* kfull = reinterpret_cast<uint64_t*>(base);
+  uint64_t* kempty = kfull + STAGES_MAX;
+  uint64_t* vfull = kempty + STAGES_MAX;
+  uint64_t* vempty = vfull + STAGES_MAX;
+  uint64_t* qfull = vempty + STAGES_MAX;
+  unsigned char* qtiles = base + HEAD;                  // per warpgroup: hi, lo
+  unsigned char* vring = qtiles + 2 * Q_BYTES;          // stage: V^T hi, V^T lo
+  unsigned char* kring = vring + VST * vstage_bytes<NCH>();  // stage: K hi, K lo
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y, q0 = blockIdx.x * ROWS;
+  const int T = (N + KEYS - 1) / KEYS;  // key tiles; pass 1 and pass 2 stream K, pass 2 V
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES_MAX; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&kempty[s], CONSUMERS);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&vempty[s], CONSUMERS);
+    }
+    mbar_init(qfull, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ------------------------------------------------------------ producer
+    reg_dealloc<tc::PRODUCER_REGS>();
+    if (tid != CONSUMERS) return;
+    mbar_arrive_tx(qfull, 2 * 2 * kblocks * Q_PART);
+    for (int wg = 0; wg < 2; ++wg)
+      for (int cb = 0; cb < kblocks; ++cb) {
+        unsigned char* qt = qtiles + wg * Q_BYTES + cb * Q_PART;
+        tma_load_3d(qt, &maps.qh, qfull, cb * 32, q0 + 64 * wg, b);
+        tma_load_3d(qt + 2 * Q_PART, &maps.ql, qfull, cb * 32, q0 + 64 * wg, b);
+      }
+    // K tile i (pass 1: i < T, pass 2: T + t) into the K ring
+    auto load_k = [&](int i) {
+      const int s = i % KST, key0 = (i < T ? i : i - T) * KEYS;
+      mbar_wait(&kempty[s], ((i / KST) & 1) ^ 1);
+      unsigned char* st = kring + s * kstage;
+      mbar_arrive_tx(&kfull[s], kstage);
+      for (int cb = 0; cb < kblocks; ++cb) {
+        tma_load_3d(st + cb * K_PART, &maps.kh, &kfull[s], cb * 32, key0, b);
+        tma_load_3d(st + (kblocks + cb) * K_PART, &maps.kl, &kfull[s], cb * 32, key0, b);
+      }
+    };
+    for (int t = 0; t < T; ++t) load_k(t);
+    for (int t = 0; t < T; ++t) {
+      load_k(T + t);
+      const int s = t % VST;
+      mbar_wait(&vempty[s], ((t / VST) & 1) ^ 1);
+      unsigned char* st = vring + s * vstage_bytes<NCH>();
+      mbar_arrive_tx(&vfull[s], vstage_bytes<NCH>());
+      tma_load_3d(st, &maps.vh, &vfull[s], t * KEYS, 0, b);
+      tma_load_3d(st + NCH * V_PART, &maps.vl, &vfull[s], t * KEYS, 0, b);
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------- consumers
+  reg_alloc<tc::CONSUMER_REGS>();
+  const int wg = tid >> 7;  // rows q0 + 64 wg .. + 63
+  const int warp = (tid & 127) >> 5, lane = tid & 31, qd = lane & 3;
+
+  const unsigned char* qt = qtiles + wg * Q_BYTES;
+  const uint64_t dqh = sw128_desc(qt, 16, 1024), dql = sw128_desc(qt + 2 * Q_PART, 16, 1024);
+  auto kdesc = [&](int i, int lo) {
+    return sw128_desc(kring + (i % KST) * kstage + lo * kblocks * K_PART, 16, 1024);
+  };
+  auto vtile = [&](int t) { return vring + (t % VST) * vstage_bytes<NCH>(); };
+  auto k_wait = [&](int i) { mbar_wait(&kfull[i % KST], (i / KST) & 1); };
+  auto v_wait = [&](int t) { mbar_wait(&vfull[t % VST], (t / VST) & 1); };
+  mbar_wait(qfull, 0);
+
+  // Turns on the tensor cores, as in the bf16 kernel.
+  if (wg == 1) bar_arrive(BAR_TURN, CONSUMERS);
+  auto turn_begin = [&]() { bar_sync(BAR_TURN + wg, CONSUMERS); };
+  auto turn_end = [&](bool last) {
+    if (!(last && wg == 1)) bar_arrive(BAR_TURN + (wg ^ 1), CONSUMERS);
+  };
+
+  float s[16];
+
+  // Pass 1: the row max over all keys.
+  float m0 = -INFINITY, m1 = -INFINITY;
+  for (int t = 0; t < T; ++t) {
+    k_wait(t);
+    turn_begin();
+    fence_regs(s);
+    wgmma_fence();
+    score_mma(s, dqh, dql, kdesc(t, 0), kdesc(t, 1), ksteps);
+    wgmma_commit();
+    turn_end(false);
+    wgmma_wait_all();
+    fence_regs(s);
+    mbar_arrive(&kempty[t % KST]);
+    mask_keys(s, t * KEYS, N, qd);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      m0 = fmaxf(m0, fmaxf(s[4 * j], s[4 * j + 1]));
+      m1 = fmaxf(m1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+  }
+
+  // Pass 2: e = exp(s - m); l += e; O += e V. The turn of tile t runs the
+  // products of tile t - 1's e with its V and tile t's scores.
+  float o[NCH][32];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  float l0 = 0.f, l1 = 0.f;
+  uint32_t ph[4][4], pl[4][4];
+
+  k_wait(T);
+  turn_begin();
+  fence_regs(s);
+  wgmma_fence();
+  score_mma(s, dqh, dql, kdesc(T, 0), kdesc(T, 1), ksteps);
+  wgmma_commit();
+  turn_end(false);
+  wgmma_wait_all();
+  fence_regs(s);
+  mbar_arrive(&kempty[T % KST]);
+  softmax_tile(s, m0, m1, l0, l1, ph, pl, 0, N, qd);
+  for (int t = 1; t < T; ++t) {
+    const int i = T + t;
+    k_wait(i);
+    v_wait(t - 1);
+    turn_begin();
+    fence_operands(o, ph, pl, s);
+    wgmma_fence();
+    value_mma<NCH>(o, ph, pl, vtile(t - 1));
+    score_mma(s, dqh, dql, kdesc(i, 0), kdesc(i, 1), ksteps);
+    wgmma_commit();
+    turn_end(false);
+    wgmma_wait_all();
+    fence_operands(o, ph, pl, s);
+    mbar_arrive(&kempty[i % KST]);
+    mbar_arrive(&vempty[(t - 1) % VST]);
+    softmax_tile(s, m0, m1, l0, l1, ph, pl, t * KEYS, N, qd);
+  }
+  v_wait(T - 1);
+  turn_begin();
+  fence_operands(o, ph, pl, s);
+  wgmma_fence();
+  value_mma<NCH>(o, ph, pl, vtile(T - 1));
+  wgmma_commit();
+  turn_end(true);
+  wgmma_wait_all();
+  fence_operands(o, ph, pl, s);
+  mbar_arrive(&vempty[(T - 1) % VST]);
+
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+
+  // Epilogue: K2 (gamma / l) * acc + residual, K6 acc * (1 / l), in float32
+  // with the twin's roundings, straight from the accumulator: a thread's two
+  // neighbouring columns as one 8-byte access where res and out allow.
+  const float g = res ? *gamma : 1.f;
+  const float sc[2] = {__fmul_rn(g, 1.0f / l0), __fmul_rn(g, 1.0f / l1)};
+  const bool vec =
+      ((reinterpret_cast<uintptr_t>(res) | reinterpret_cast<uintptr_t>(out)) & 7) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = q0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * h;
+    if (n >= N) continue;
+    const size_t row = ((size_t)b * N + n) * DV;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const size_t at = row + c * 64 + 8 * j + 2 * qd;
+        float y0 = __fmul_rn(sc[h], o[c][4 * j + 2 * h]);
+        float y1 = __fmul_rn(sc[h], o[c][4 * j + 2 * h + 1]);
+        if (vec) {
+          if (res) {
+            const float2 r = *reinterpret_cast<const float2*>(res + at);
+            y0 = __fadd_rn(y0, r.x);
+            y1 = __fadd_rn(y1, r.y);
+          }
+          *reinterpret_cast<float2*>(out + at) = make_float2(y0, y1);
+        } else {
+          if (res) {
+            y0 = __fadd_rn(y0, res[at]);
+            y1 = __fadd_rn(y1, res[at + 1]);
+          }
+          out[at] = y0;
+          out[at + 1] = y1;
+        }
+      }
+  }
+}
+
+template <int NCH>
+int prepare(int device) {
+  static int ready[tc::MAX_DEVICES] = {};
+  if (device < 0 || device >= tc::MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (ready[device]) return 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, attn_tf32_kernel<NCH>);
+  if (err != cudaSuccess) return (int)err;
+  if (attr.numRegs != tc::START_REGS) return (int)cudaErrorInvalidKernelImage;
+  err = cudaFuncSetAttribute(attn_tf32_kernel<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_LIMIT);
+  if (err != cudaSuccess) return (int)err;
+  ready[device] = 1;
+  return 0;
+}
+
+template <int NCH>
+int launch_one(const Maps& maps, const float* res, const float* gamma, float* out, int B, int N,
+               int ksteps, int kblocks, cudaStream_t st) {
+  int device = 0;
+  cudaError_t dev_err = cudaGetDevice(&device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  const int err = prepare<NCH>(device);
+  if (err != 0) return err;
+  const dim3 grid((N + ROWS - 1) / ROWS, B);
+  attn_tf32_kernel<NCH><<<grid, THREADS, SMEM_LIMIT, st>>>(maps, res, gamma, out, N, ksteps,
+                                                           kblocks);
+  return (int)cudaGetLastError();
+}
+
+// Scratch (float32 elements): hi and lo of q and k, (B, N, DKP) each, then hi
+// and lo of V^T, (B, DV, NP) each; ops/attention.py::_tf32_scratch_elems.
+int launch(const void* q, const void* k, const void* v, const void* res, const float* gamma,
+           void* out, void* scratch, long long scratch_elems, int B, int N, int DK, int DV,
+           cudaStream_t st) {
+  const int DKP = DK <= 32 ? 32 : 64, NP = (N + KEYS - 1) / KEYS * KEYS;
+  const long long nq = (long long)B * N * DKP, nv = (long long)B * DV * NP;
+  if (scratch == nullptr || scratch_elems < 4 * nq + 2 * nv) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(scratch) & 15) || (reinterpret_cast<uintptr_t>(out) & 3))
+    return (int)cudaErrorMisalignedAddress;
+  float* qh = static_cast<float*>(scratch);
+  float* ql = qh + nq;
+  float* kh = ql + nq;
+  float* kl = kh + nq;
+  float* vh = kl + nq;
+  float* vl = vh + nv;
+  split_kernel<<<dim3(NP / KEYS, B), 256, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      qh, ql, kh, kl, vh, vl, N, DK, DV, DKP, NP);
+  cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess) return (int)launched;
+  Maps maps;
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  int err = 0;
+  if ((err = tc::encode_map(&maps.qh, qh, f32, 4, B, N, DKP, 32, 64)) != 0 ||
+      (err = tc::encode_map(&maps.ql, ql, f32, 4, B, N, DKP, 32, 64)) != 0 ||
+      (err = tc::encode_map(&maps.kh, kh, f32, 4, B, N, DKP, 32, KEYS)) != 0 ||
+      (err = tc::encode_map(&maps.kl, kl, f32, 4, B, N, DKP, 32, KEYS)) != 0 ||
+      (err = tc::encode_map(&maps.vh, vh, f32, 4, B, DV, NP, 32, DV)) != 0 ||
+      (err = tc::encode_map(&maps.vl, vl, f32, 4, B, DV, NP, 32, DV)) != 0)
+    return err;
+  const float* r = static_cast<const float*>(res);
+  float* o = static_cast<float*>(out);
+  const int ksteps = (DK + 7) / 8, kblocks = DKP / 32;
+  switch (DV / 64) {
+    case 1: return launch_one<1>(maps, r, gamma, o, B, N, ksteps, kblocks, st);
+    case 2: return launch_one<2>(maps, r, gamma, o, B, N, ksteps, kblocks, st);
+    case 3: return launch_one<3>(maps, r, gamma, o, B, N, ksteps, kblocks, st);
+    default: return launch_one<4>(maps, r, gamma, o, B, N, ksteps, kblocks, st);
+  }
+}
+
+}  // namespace tf
+
 int dispatch(int dtype, const void* q, const void* k, const void* v, const void* res,
-             const float* gamma, void* out, int B, int N, int DK, int DV, void* stream) {
+             const float* gamma, void* out, void* scratch, long long scratch_elems, int B, int N,
+             int DK, int DV, void* stream) {
   if (DK < 1 || DK > DK_MAX || DV < 64 || DV > DV_MAX || DV % 64 != 0 || N < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(q, k, v, res, gamma, out, B, N, DK, DV, st);
+  if (dtype == 0)
+    return tf::launch(q, k, v, res, gamma, out, scratch, scratch_elems, B, N, DK, DV, st);
   if (dtype == 1) return tc::launch(q, k, v, res, gamma, out, B, N, DK, DV, nullptr, st);
   return (int)cudaErrorInvalidValue;
 }
@@ -657,16 +1101,20 @@ int cic::attn::tc_block(const void* q, const void* k, const void* v, const void*
 }
 
 // dtype: 0 = float32, 1 = bfloat16. q, k: (B, N, DK); v, res, out: (B, N, DV);
-// gamma: one float32 on the device.
+// gamma: one float32 on the device. scratch: float32 for the float32 route
+// (scratch_elems of them, 16-byte aligned; tf::launch), null for bf16.
 extern "C" int cic_attention_block(int dtype, const void* q, const void* k, const void* v,
-                                   const void* res, const float* gamma, void* out, int B, int N,
-                                   int DK, int DV, void* stream) {
+                                   const void* res, const float* gamma, void* out, void* scratch,
+                                   long long scratch_elems, int B, int N, int DK, int DV,
+                                   void* stream) {
   if (res == nullptr || gamma == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch(dtype, q, k, v, res, gamma, out, B, N, DK, DV, stream);
+  return dispatch(dtype, q, k, v, res, gamma, out, scratch, scratch_elems, B, N, DK, DV, stream);
 }
 
 // K6: as cic_attention_block with no residual and no gamma; out: (B, N, DV).
 extern "C" int cic_attention_core(int dtype, const void* q, const void* k, const void* v, void* out,
-                                  int B, int N, int DK, int DV, void* stream) {
-  return dispatch(dtype, q, k, v, nullptr, nullptr, out, B, N, DK, DV, stream);
+                                  void* scratch, long long scratch_elems, int B, int N, int DK,
+                                  int DV, void* stream) {
+  return dispatch(dtype, q, k, v, nullptr, nullptr, out, scratch, scratch_elems, B, N, DK, DV,
+                  stream);
 }

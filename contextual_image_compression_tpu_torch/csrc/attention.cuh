@@ -1,5 +1,5 @@
-// The flash-style attention loop shared by K2 / K6 (attention.cu) and K7
-// (sagan_block.cu).
+// The constants and declarations shared by K2 / K6 (attention.cu) and K7
+// (sagan_block.cu), and the flash-style attention loop of K7's float32 route.
 //
 // A block of THREADS threads owns BQ = 64 query rows of one image. It walks
 // the image's keys in tiles of BK = 64 through shared memory and keeps an

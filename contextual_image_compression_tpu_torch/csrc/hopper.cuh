@@ -2,8 +2,8 @@
 // the proxy fence, named barriers, setmaxnreg and warpgroup matrix multiplies
 // (wgmma) with 128-byte-swizzled shared-memory operands.
 //
-// Tiles handed to wgmma here are 64 rows of 128 bytes (64 bf16), 1024-byte
-// aligned, with the 128-byte swizzle: the 16-byte chunk `ch` of row `r` lies at
+// Tiles handed to wgmma here are rows of 128 bytes (64 bf16 or 32 TF32),
+// 1024-byte aligned, with the 128-byte swizzle: the 16-byte chunk `ch` of row `r` lies at
 // r * 128 + ((ch ^ (r % 8)) * 16). TMA writes that layout with
 // CU_TENSOR_MAP_SWIZZLE_128B and a 64 x 64 box; `store_chunk_sw128` writes it
 // from registers.
@@ -239,6 +239,69 @@ __device__ __forceinline__ void wgmma_rs_m64n8k16(float (&d)[4], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// ------------------------------------------------------------- TF32 wgmma
+//
+// TF32 operands are K-major only (the transpose immediates exist for 16-bit
+// types alone); a k8 slice is 32 bytes of a 128-byte swizzled row, so slice
+// kk of a 32-float-wide tile starts 32 * kk bytes in (descriptor + 2 * kk).
+
+// x rounded to TF32 (10 mantissa bits, round to nearest, ties away from
+// zero), as a float32 bit pattern whose low 13 bits are zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The three-pass split x = hi + lo, both TF32: hi = rna(x), lo = rna(x - hi)
+// (x - hi is exact).
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+#define CIC_WGMMA_D16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define CIC_WGMMA_ACC16(d)                                                               \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),    \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),         \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+// D (64 x 32, float32) (+)= A (64 x 8, K-major in shared memory)
+// * B (8 x 32, K-major in shared memory), TF32 inputs. D's fragment as
+// wgmma_ss_m64n64k16's, columns 0..31. scale_d = 0 ignores D's value.
+__device__ __forceinline__ void wgmma_ss_m64n32k8_tf32(float (&d)[16], uint64_t desc_a,
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " CIC_WGMMA_D16
+      ", %16, %17, p, 1, 1;\n"
+      "}\n"
+      : CIC_WGMMA_ACC16(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 64, float32) += A (64 x 8 TF32, registers) * B (8 x 64, K-major in
+// shared memory). A's fragment: a[0] row r, column c; a[1] row r + 8, column
+// c; a[2] row r, column c + 4; a[3] row r + 8, column c + 4; r = 16 * warp +
+// lane / 4, c = lane % 4. scale_d = 0 ignores D's value.
+__device__ __forceinline__ void wgmma_rs_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " CIC_WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : CIC_WGMMA_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+#undef CIC_WGMMA_D16
+#undef CIC_WGMMA_ACC16
 #undef CIC_WGMMA_D32
 #undef CIC_WGMMA_ACC32
 

@@ -4,9 +4,13 @@ Counterpart of `contextual_image_compression_tpu/ops/attention.py`, no
 1/sqrt(d) scaling anywhere:
 
   * K2 `attention_block` (`attention_block_pallas`): gamma * softmax(Q K^T) V
-    + residual, q, k (B, N, Dk), v and residual (B, N, Dv);
+    + residual, q, k (B, N, Dk), v and residual (B, N, Dv), on the tensor
+    cores (`csrc/attention.cu`): bf16 as one pass (route "wgmma"), float32
+    as three TF32 passes per product (route "tf32x3": a pre-pass splits q,
+    k and V^T into TF32 hi and lo in a scratch buffer, then the wgmma
+    kernel);
   * K6 `attention_core` (`attention_core_pallas`): softmax(Q K^T) V, the
-    same kernel (`csrc/attention.cu`) with no epilogue;
+    same kernels with no epilogue;
   * K7a `sagan_block` (`sagan_block_pallas`) and K7b `sagan_block_spatial`
     (`sagan_block_spatial_pallas`): the whole block with its 1x1 Q/K/V
     projections, gamma * softmax((x Wq + bq)(x Wk + bk)^T)(x Wv + bv) + x,
@@ -29,6 +33,8 @@ from __future__ import annotations
 import torch
 
 from contextual_image_compression_tpu_torch.ops import cuda_kernels as ck
+
+TF32_KEY_TILE = 32  # keys a tile of the float32 route (csrc/attention.cu tf::KEYS)
 
 
 def attention_core_jnp(q, k, v):
@@ -66,10 +72,10 @@ def attention_block_plain(q, k, v, residual, gamma):
 
 def _launch_attention(name, q, k, v, residual=None, gamma=None):
     """Launch K2 (residual and gamma, a float32 tensor of one element) or K6
-    (neither) and return the output. The host work is a handful of tensor
-    calls: at the serving shape the kernel itself takes a few hundredths of
-    a millisecond, so each call of host overhead shows in the time serving
-    pays."""
+    (neither) and return the output and its route. The host work is a
+    handful of tensor calls: at the serving shape the kernel itself takes a
+    few hundredths of a millisecond, so each call of host overhead shows in
+    the time serving pays."""
     dev, dt = q.device, q.dtype
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
@@ -90,31 +96,47 @@ def _launch_attention(name, q, k, v, residual=None, gamma=None):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((b, n, dv), dtype=dt, device=dev)
     lib, code, stream = ck.library(), ck.dtype_code(dt), ck.stream_ptr(dev)
+    ptr, elems = None, 0
+    if code == 0:  # the float32 route's TF32 hi / lo, written by its pre-pass
+        elems = _tf32_scratch_elems(b, n, dk, dv)
+        scratch = torch.empty(elems, dtype=torch.float32, device=dev)
+        ptr = scratch.data_ptr()
     if residual is None:
         err = lib.cic_attention_core(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                     out.data_ptr(), b, n, dk, dv, stream)
+                                     out.data_ptr(), ptr, elems, b, n, dk, dv, stream)
     else:
         if gamma.numel() != 1:
             raise ValueError(f"{name}: gamma must hold one value, got shape {tuple(gamma.shape)}")
         residual, gamma = residual.contiguous(), gamma.to(torch.float32)
         err = lib.cic_attention_block(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                       residual.data_ptr(), gamma.data_ptr(), out.data_ptr(),
-                                      b, n, dk, dv, stream)
+                                      ptr, elems, b, n, dk, dv, stream)
     ck.check(err, name)
-    return out
+    return out, ("tf32x3" if code == 0 else "wgmma")
+
+
+def _tf32_scratch_elems(b, n, dk, dv):
+    """float32 elements of the float32 route's scratch: TF32 hi and lo of q
+    and k at DK zero-padded to 32 or 64, and of V^T (B, DV, N rounded up to
+    the key tile)."""
+    dkp = 32 if dk <= 32 else 64
+    np_ = -(-n // TF32_KEY_TILE) * TF32_KEY_TILE
+    return 4 * b * n * dkp + 2 * b * dv * np_
 
 
 def _attention_core_kernel(q, k, v):
     """Launch K6."""
-    out = _launch_attention("attention_core", q, k, v)
+    out, route = _launch_attention("attention_core", q, k, v)
     attention_core.launches += 1
+    attention_core.route_launches[route] += 1
     return out
 
 
 def _attention_block_kernel(q, k, v, residual, gamma):
     """Launch K2. gamma: a float32 tensor of one element on q's device."""
-    out = _launch_attention("attention_block", q, k, v, residual, gamma)
+    out, route = _launch_attention("attention_block", q, k, v, residual, gamma)
     attention_block.launches += 1
+    attention_block.route_launches[route] += 1
     return out
 
 
@@ -153,6 +175,8 @@ def attention_block(q, k, v, residual, gamma):
 
 
 attention_block.launches = 0
+# launches per route: "wgmma" (bf16), "tf32x3" (float32, three TF32 passes)
+attention_block.route_launches = {"wgmma": 0, "tf32x3": 0}
 
 
 def attention_core(q, k, v, use_pallas: bool = True):
@@ -167,6 +191,7 @@ def attention_core(q, k, v, use_pallas: bool = True):
 
 
 attention_core.launches = 0
+attention_core.route_launches = {"wgmma": 0, "tf32x3": 0}
 
 
 # ----------------------------------------------------------------- K7a / K7b

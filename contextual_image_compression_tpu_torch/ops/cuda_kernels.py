@@ -85,11 +85,13 @@ _SIGNATURES = {
     "cic_attention_block": [
         _I,                          # dtype code (0 f32, 1 bf16)
         _P, _P, _P, _P, _P, _P,      # q, k, v, residual, gamma (f32 on device), out
+        _P, _L,                      # float32 scratch (null for bf16), its element count
         _I, _I, _I, _I, _P,          # B, N, DK, DV, stream
     ],
     "cic_attention_core": [
         _I,                          # dtype code
         _P, _P, _P, _P,              # q, k, v, out
+        _P, _L,                      # float32 scratch (null for bf16), its element count
         _I, _I, _I, _I, _P,          # B, N, DK, DV, stream
     ],
     "cic_sagan_block": [         # float32
@@ -175,11 +177,13 @@ def build(verbose: bool = False) -> Path:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log = []
     failed = []
+    failed_logs = []
     for src, cmd, proc in procs:
         out, _ = proc.communicate()
         log.append(f"$ {' '.join(cmd)}\n{out}")
         if proc.returncode != 0:
             failed.append(src.name)
+            failed_logs.append(log[-1][-6000:])
     if not failed:
         cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
                *[str(tmp / (s.stem + ".o")) for s in srcs], "-o", str(tmp / LIB_NAME)]
@@ -187,12 +191,13 @@ def build(verbose: bool = False) -> Path:
         log.append(f"$ {' '.join(cmd)}\n{res.stdout}")
         if res.returncode != 0:
             failed.append("link")
+            failed_logs.append(log[-1][-6000:])
     log.append(f"build seconds: {time.time() - t0:.1f}\n")
     (tmp / "build.log").write_text("\n".join(log))
     if failed:
         raise RuntimeError(
             f"CUDA kernel build failed ({', '.join(failed)}); log in {tmp / 'build.log'}:\n"
-            + "\n".join(log)[-6000:]
+            + "\n".join(failed_logs)
         )
     if verbose:
         print("\n".join(log))

@@ -161,6 +161,10 @@ def dct_strips(planes: torch.Tensor, tables: torch.Tensor):
     if planes.dtype != torch.float32 or tables.dtype != torch.float32:
         raise TypeError("dct_strips: planes and tables must be float32")
     _check_planes(planes, tables)
+    # the kernel reads and writes 16 bytes at a time
+    planes, tables = planes.contiguous(), tables.contiguous()
+    if planes.data_ptr() % 16:
+        planes = planes.clone()
     ck.require_cuda("dct_strips", planes, tables)
     b, c, h, w = planes.shape
     dev = planes.device

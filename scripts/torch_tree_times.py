@@ -1,5 +1,6 @@
-"""K1, K3, K3b, K4, K7a, K7b, K8 and the serving call of one checkout of the
-port, timed on one GPU, for parent / change comparisons within one run.
+"""K1, K2 / K6 float32, K3, K3b, K4, K5, K7a, K7b, K8 and the serving call of
+one checkout of the port, timed on one GPU, for parent / change comparisons
+within one run.
 
     python3 scripts/torch_tree_times.py PATH_TO_CHECKOUT
 
@@ -11,7 +12,11 @@ and K7b (the fused SAGAN block on a (16, 256, 32, 32) bf16 activation with
 seeded weights of the HQ encoder's shapes, C 256 and C/8 32, gamma 0.5;
 K7b on the NCHW tensor viewed (B, H, W, C)) and K8 (the fused generator
 tail on a (16, 128, 128, 128) bf16 input, Cmid 32, Co 3), in bf16 and
-float32, `measure.event_ms` (the host's launch inside) and
+float32, K2 and K6 in float32 at the paths' shape (q, k (16, 1024, 32), v
+and residual (16, 1024, 256), gamma 0.5) beside their yardsticks
+softmax(q k^T) v in three calls (TF32 off) and one SDPA call (scale 1),
+and K5 on the level-shifted planes of 128 synthetic 256^2 images at
+quality 75, each by `measure.event_ms` (the host's launch inside) and
 `measure.device_ms` (the device alone), then the median, min and max of 15 serving calls of
 CompressionPipeline(ModelConfig()) at B = 16 after 3 warm-up calls. Run it
 for parent and change in turns (parent, change, change, parent) on one
@@ -42,8 +47,11 @@ def main():
         card_name_and_power, device_ms, event_ms, randomize_stats, structured_images)
     from contextual_image_compression_tpu_torch.ops import cuda_kernels as ck
     from contextual_image_compression_tpu_torch.ops import image_ops, saliency
+    from contextual_image_compression_tpu_torch.data.images import synthetic_images
     from contextual_image_compression_tpu_torch.ops.attention import (
-        sagan_block, sagan_block_spatial)
+        attention_block, attention_core, sagan_block, sagan_block_spatial)
+    from contextual_image_compression_tpu_torch.ops.dct import (
+        dct_strips, quality_tables, rgb_to_ycbcr)
     from contextual_image_compression_tpu_torch.ops.generator_tail import fused_tail
     from contextual_image_compression_tpu_torch.ops.fused_mask import contextual_mask, smooth_mask
     from contextual_image_compression_tpu_torch.ops.quantize import (
@@ -103,6 +111,19 @@ def main():
         fns["K7a" + tag] = lambda xf=xf, w=w: sagan_block(xf, *w, g)
         fns["K7b" + tag] = lambda view=view, w=w: sagan_block_spatial(view, *w, g)
         fns["K8" + tag] = lambda tx=tx, tw=tw: fused_tail(tx, *tw)
+    # K2 / K6 float32 and their yardsticks at the paths' shape
+    gen = torch.Generator(device=dev).manual_seed(2)
+    aq, ak = (torch.randn(16, 1024, 32, device=dev, generator=gen) * 0.4 for _ in range(2))
+    av, ares = (torch.randn(16, 1024, 256, device=dev, generator=gen) for _ in range(2))
+    fns["K2_float32"] = lambda: attention_block(aq, ak, av, ares, g)
+    fns["K6_float32"] = lambda: attention_core(aq, ak, av)
+    fns["three_calls_float32"] = lambda: torch.softmax(aq @ ak.transpose(1, 2), dim=-1) @ av
+    fns["sdpa_float32"] = lambda: torch.nn.functional.scaled_dot_product_attention(
+        aq, ak, av, scale=1.0)
+    imgs = torch.from_numpy(synthetic_images(128, (256, 256), seed=50)).to(dev)
+    planes = (rgb_to_ycbcr((imgs + 1.0) * 127.5) - 128.0).permute(0, 3, 1, 2).contiguous()
+    tables = torch.from_numpy(quality_tables(75)).to(dev)
+    fns["K5"] = lambda: dct_strips(planes, tables)
     with torch.no_grad():
         for name, fn in fns.items():
             out[name] = {"ms": event_ms(fn), "device_ms": device_ms(fn)}

@@ -5,8 +5,12 @@ multiple of the cluster, other filter sizes, and on the tiled route, K3 and
 K3b with score and strength in bf16 (B, 1) and float32 (B,), K2's backward,
 K2 and K6 in bf16 at every key width (DK 4..64) and value width, N from 1 to
 1024 at B = 1 and 3, on unaligned inputs and with every row's max in the last
-key tile, K3b under autograd, K4 on non-square and all-zero maps, K5 at the smallest
-and a ragged width and at the extreme quality tables, K6 and K7 at ragged N
+key tile, K2 and K6 in float32 (three TF32 passes, route "tf32x3") at DK 5
+and 33, DV 64 and 256, N 1, 100 and 1024, on unaligned inputs and with every
+row's max in the last key tile, K3b under autograd, K4 on non-square and
+all-zero maps, K5 at the smallest and a ragged width, at the extreme quality
+tables, at B = 128 (the persistent walk wrapping many times) and on unaligned
+planes, K6 and K7 at ragged N
 and value widths 64 and 128, K7b on a permuted (non-contiguous) view, K7 in
 bf16 at DK 8, 16 and 32 on the tensor-core route, K7's backward, K8 at an
 odd batch, a ragged size, Cin not a multiple of 16, the full path shape and
@@ -251,6 +255,68 @@ def test_bf16_attention_rounds_at_the_global_max(dev, kind):
     assert (got == want).float().mean().item() >= 0.99
 
 
+def _f32_attention(dev, kind, b, n, dk, dv, seed, misalign=False, inputs=None):
+    """K2 (random residual, gamma 0.5) or K6 in float32 against its twin;
+    asserts that the call added one launch on the "tf32x3" route and no
+    other. misalign: q, k, v and the residual start 4 bytes past a 16-byte
+    boundary. Returns max |kernel - twin|."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def mk(*shape, scale=1.0):
+        x = torch.randn(*shape, device=dev, generator=gen) * scale
+        if not misalign:
+            return x
+        buf = torch.empty(x.numel() + 1, device=dev)
+        buf[1:] = x.reshape(-1)
+        return buf[1:].view(*shape)
+
+    if inputs is None:
+        q, k, v = mk(b, n, dk, scale=0.5), mk(b, n, dk, scale=0.5), mk(b, n, dv)
+    else:
+        q, k, v = (t.to(dev).float() for t in inputs)
+    wrapper = attention_block if kind == "K2" else attention_core
+    if kind == "K2":
+        r, g = mk(*v.shape), torch.tensor(0.5, device=dev)
+        call, want = (lambda: attention_block(q, k, v, r, g)), attention_block_plain(q, k, v, r, g)
+    else:
+        call, want = (lambda: attention_core(q, k, v)), attention_core_plain(q, k, v)
+    got, route = _route_of(wrapper, call)
+    assert route == "tf32x3" and got.dtype == torch.float32 and got.shape == want.shape
+    return (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("kind", ["K2", "K6"])
+@pytest.mark.parametrize("dv", [64, 256])
+@pytest.mark.parametrize("dk", [5, 33])
+def test_f32_attention_widths_match_twin(dev, kind, dk, dv):
+    """The three-pass TF32 kernel at key widths that are not multiples of 8
+    (zero-padded to 32 and 64 in the pre-pass) and the smallest and largest
+    value widths; N = 100 is a partial 128-row block and a partial 32-key
+    tile. Bar 1e-5."""
+    assert _f32_attention(dev, kind, 2, 100, dk, dv, 10 * dk + dv) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["K2", "K6"])
+@pytest.mark.parametrize("b,n", [(1, 1), (3, 1), (1, 100), (3, 100), (2, 1024)])
+def test_f32_attention_sizes_match_twin(dev, kind, b, n):
+    """One key, a partial tile and the path's N (DK = 32, DV = 256). Bar 1e-5."""
+    assert _f32_attention(dev, kind, b, n, 32, 256, 7 * b + n) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["K2", "K6"])
+def test_f32_attention_unaligned_inputs_match_twin(dev, kind):
+    assert _f32_attention(dev, kind, 2, 300, 32, 128, 301, misalign=True) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["K2", "K6"])
+def test_f32_attention_late_max_matches_twin(dev, kind):
+    """Every row's largest score is in the last key tile
+    (`late_max_attention_inputs`, here in float32): the kernel's e = exp(s -
+    m) at the global max is the twin's. Bar 1e-5."""
+    inputs = late_max_attention_inputs()
+    assert _f32_attention(dev, kind, 2, 1024, 32, 256, 0, inputs=inputs) <= 1e-5
+
+
 def _k3b_case(dev, b, d, dtype, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     z = (torch.randn(b, d, device=dev, generator=gen) * 2).to(dtype)
@@ -380,14 +446,11 @@ def _dct_case(dev, b, h, w, quality, seed):
     return planes, torch.from_numpy(quality_tables(quality)).to(dev)
 
 
-@pytest.mark.parametrize("b,h,w,quality", [
-    (1, 8, 8, 75), (2, 16, 264, 75), (2, 64, 64, 1), (2, 64, 64, 100),
-], ids=["one-tile", "w264", "quality-1", "quality-100"])
-def test_k5_matches_twin(dev, b, h, w, quality):
-    """W = 264 is not a multiple of the block's 32 columns. Symbols within
-    +-1 and identical on >= 99.99%; rec within 1e-4 on blocks whose symbols
-    agree (one symbol at a half step moves its whole block)."""
-    planes, tables = _dct_case(dev, b, h, w, quality, w + quality)
+def _check_k5(planes, tables):
+    """K5 against its twin: one launch; symbols within +-1 and identical on
+    >= 99.99%; rec within 1e-4 on blocks whose symbols agree (one symbol at a
+    half step moves its whole block)."""
+    b, _, h, w = planes.shape
     before = dct_strips.launches
     rec, sym = dct_strips(planes, tables)
     assert dct_strips.launches == before + 1
@@ -397,6 +460,32 @@ def test_k5_matches_twin(dev, b, h, w, quality):
     agree = (sym == sym_p).reshape(b, 3, h // 8, 8, w // 8, 8).all(5).all(3)
     err = (rec - rec_p).abs().reshape(b, 3, h // 8, 8, w // 8, 8).amax((3, 5))
     assert err[agree].max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("b,h,w,quality", [
+    (1, 8, 8, 75), (2, 16, 264, 75), (2, 64, 64, 1), (2, 64, 64, 100),
+], ids=["one-tile", "w264", "quality-1", "quality-100"])
+def test_k5_matches_twin(dev, b, h, w, quality):
+    """One tile (one warp of the persistent grid, 3 of its 4 tile slots
+    empty); W = 264, 33 tiles a strip, so a warp's 4 tiles span two strips;
+    the extreme quality tables."""
+    _check_k5(*_dct_case(dev, b, h, w, quality, w + quality))
+
+
+@pytest.mark.parametrize("case", ["b128-256sq", "unaligned"])
+def test_k5_persistent_walk_matches_twin(dev, case):
+    """B = 128 at 256^2 (the DCT path's shape: 393,216 tiles, so each warp of
+    the persistent grid walks many tasks), and planes that start 4 bytes past
+    a 16-byte boundary, which the wrapper copies to an aligned buffer."""
+    if case == "b128-256sq":
+        _check_k5(*_dct_case(dev, 128, 256, 256, 75, 128))
+        return
+    planes, tables = _dct_case(dev, 2, 24, 40, 50, 3)
+    buf = torch.empty(planes.numel() + 1, device=dev)
+    buf[1:] = planes.reshape(-1)
+    shifted = buf[1:].view(planes.shape)
+    assert shifted.data_ptr() % 16 == 4
+    _check_k5(shifted, tables)
 
 
 def _rel_err(got, want):
