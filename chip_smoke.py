@@ -88,6 +88,36 @@
    "tf32x3");
 19. prints a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 
+Checkpoints (the JAX package's files, read and written without flax) and
+the autoencoder run in four more phases, after step 5, in step 8 and after
+step 17:
+
+(a) serves the JAX-trained tiny GAN of tests/fixtures/jax_tiny_gan
+   (CompressionPipeline(model_dir=...), provenance all 'final', K1 +1, K2
+   +1, K3 +2) against the JAX pipeline's committed outputs and the port's
+   CPU pipeline on the same files;
+(b) saves the seeded full-width codec's float32 state through the store
+   into a temporary directory (1.67 GB) and serves it from there at B = 16,
+   bitwise equal to the pipeline built from the state dict, with the bytes,
+   write and load seconds and GB/s;
+(c) in step 8, fit writes the full-width train state ('final', ~5 GB, the
+   background writer) into a temporary model_dir; the save is timed once
+   more on its own, a fresh GANTrainer(...).init_state(resume=True) on the
+   card restores it bitwise (parameters, BN statistics, Adam moments and
+   steps, the step counter; the history equal), and one step with D from
+   each agrees within 1e-5; at the tiny config a 'host' mode save matches a
+   'background' one byte for byte and nan_guard raises FloatingPointError
+   on a NaN parameter;
+(d) loads the trained autoencoder of runs/ae_ref on the card: 64 seeded
+   128^2 images within 1e-5 of the CPU port, ae_metrics and images per
+   second, 2 epochs of fit at B = 16, a save / load round trip bitwise, and
+   no kernel launch.
+
+K7a / K7b and K8 are also timed against their float32 library calls with
+TF32 off: the SAGAN block composed of F.linear and softmax(q k^T) v in three
+calls (and SelfAttention.forward, F.linear + K2), and
+packed_tail_forward(use_pallas=False) on cuDNN.
+
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. Without CUDA, or without the port package beside it, it exits 1.
 """
@@ -95,7 +125,11 @@ printed. Without CUDA, or without the port package beside it, it exits 1.
 import copy
 import json
 import math
+import os
+import pathlib
+import shutil
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -497,11 +531,12 @@ def run_full_pipeline(dev, card):
     from contextual_image_compression_tpu_torch.config import ModelConfig
     from contextual_image_compression_tpu_torch.measure import randomize_stats, structured_images
     from contextual_image_compression_tpu_torch.serve import CompressionPipeline
+    from contextual_image_compression_tpu_torch.utils.tree import param_count
 
     t0 = time.time()
     pipe = CompressionPipeline(model_config=ModelConfig(), device=dev, seed=0)
     randomize_stats(pipe.codec, 0)
-    n_params = sum(t.numel() for t in pipe.codec.state_dict().values())
+    n_params = param_count(pipe.codec)
     log(f"full-width pipeline built in {time.time() - t0:.1f} s: {n_params / 1e6:.1f}M parameters "
         f"(int8 latent/fc rows counted), bf16, w8, folded int8 tail")
     B = 16
@@ -602,9 +637,15 @@ def check_k3b(dev, B):
 
 
 # The tiny codec of the CPU training tests, with 64 channels at the attention
-# stage (K2 takes value widths of 64..256 in steps of 64).
+# stage (K2's value tiles are 64 wide; narrower widths are zero-padded).
 TINY_TRAIN = dict(img_size=(32, 32), base_latent_dim=16, encoder_channels=(8, 16, 64, 32),
                   generator_channels=(24, 16, 8, 8), generator_base_hw=2, generator_base_ch=32)
+
+
+# The tiny codec of the JAX-trained checkpoint in tests/fixtures/jax_tiny_gan
+# (24 channels at the attention stage: Dk 3, Dv 24, N 16).
+JAX_TINY = dict(img_size=(32, 32), base_latent_dim=16, encoder_channels=(8, 16, 24, 32),
+                generator_channels=(24, 16, 8, 8), generator_base_hw=2, generator_base_ch=32)
 
 
 def _component_grads(codec):
@@ -778,16 +819,19 @@ def check_small_train_step_against_cpu(dev):
         raise AssertionError("the training step on the card disagrees with the CPU step")
 
 
-def run_full_training(dev, card):
-    """The training main path at full width; returns its launch counts."""
+def run_full_training(dev, card, model_dir):
+    """The training main path at full width, its fit writing the 'final'
+    checkpoint into model_dir; then the save timed on its own and the
+    resume check (check_full_resume). Returns the path's launch counts."""
     from contextual_image_compression_tpu_torch import ops
     from contextual_image_compression_tpu_torch.config import TrainConfig
     from contextual_image_compression_tpu_torch.data.images import synthetic_images
     from contextual_image_compression_tpu_torch.data.pipeline import (
         CompressionDataset, prepare_masks)
     from contextual_image_compression_tpu_torch.train.loop import GANTrainer
+    from contextual_image_compression_tpu_torch.utils.tree import param_bytes
 
-    cfg = TrainConfig(vgg_weights_path="random:0")
+    cfg = TrainConfig(vgg_weights_path="random:0", model_dir=model_dir)
     imgs = synthetic_images(32, cfg.model.img_size, seed=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -811,7 +855,12 @@ def run_full_training(dev, card):
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
     t0 = time.perf_counter()
-    hist = trainer.fit(ds, epochs=1, steps_per_epoch=4, artifacts=False)
+    state_bytes = param_bytes(state.codec) + param_bytes(state.disc) + 2 * 4 * n_params
+    free = shutil.disk_usage(model_dir).free
+    if free < 2 * state_bytes:
+        raise AssertionError(f"the train-state checkpoint needs ~{state_bytes / 1e9:.2f} GB and room "
+                             f"to rewrite it; {model_dir} has {free / 1e9:.2f} GB free")
+    hist = trainer.fit(ds, epochs=1, steps_per_epoch=4, artifacts=False)  # saves 'final'
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
     probe = trainer.rate_control_probe(ds.first_samples())
@@ -837,6 +886,7 @@ def run_full_training(dev, card):
         raise AssertionError("BatchNorm running statistics did not move in bn_mode 'train'")
     if state.step != 5:
         raise AssertionError(f"step counter {state.step}, want 5")
+    check_full_resume(trainer, ds, card)
 
     # step times outside the counted main path, alternating D / no D
     t_d, t_nd = [], []
@@ -862,6 +912,302 @@ def run_full_training(dev, card):
         f"launches {counts}")
     log(f"history {json.dumps(hist)}; probe {probe}")
     return counts
+
+
+def _states_equal(a, b):
+    """Names of the tensors or values in which two GAN train states differ
+    bit for bit: parameters, buffers, Adam exp_avg / exp_avg_sq / step, the
+    step counter."""
+    bad = []
+    for name in ("codec", "disc"):
+        sa, sb = getattr(a, name).state_dict(), getattr(b, name).state_dict()
+        if list(sa) != list(sb):
+            bad.append(f"{name} keys")
+        bad += [f"{name}.{k}" for k in sa if k in sb and not torch.equal(sa[k], sb[k])]
+    for opt in ("g_opt", "ls_opt", "rd_opt", "d_opt"):
+        oa, ob = getattr(a, opt), getattr(b, opt)
+        for i, (pa, pb) in enumerate(zip(oa.params, ob.params)):
+            ta, tb = oa.adam.state.get(pa, {}), ob.adam.state.get(pb, {})
+            if set(ta) != set(tb):
+                bad.append(f"{opt}[{i}] state keys")
+                continue
+            for key in ta:
+                if not torch.equal(ta[key].cpu(), tb[key].cpu()):
+                    bad.append(f"{opt}[{i}].{key}")
+    if a.step != b.step:
+        bad.append("step")
+    return bad
+
+
+def check_full_resume(trainer, ds, card):
+    """Phase (c) at full width: the 'final' checkpoint that fit wrote in
+    background mode (saved once more here to time it alone: the blocking
+    part, the clone on the card, and the whole, written), restored by a
+    fresh GANTrainer(...).init_state(resume=True) on the card; every
+    parameter, BN statistic, Adam moment and step, and the step counter
+    bitwise equal, the history equal; then one step with D from each on the
+    same batch, losses within 1e-5 relative (cuDNN's backward may use
+    atomics)."""
+    from contextual_image_compression_tpu_torch.train.loop import GANTrainer
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.save("final")
+    t_block = time.perf_counter() - t0
+    trainer._join_saver()
+    t_whole = time.perf_counter() - t0
+    model_dir = trainer.cfg.model_dir
+    nbytes = sum(os.path.getsize(os.path.join(model_dir, f)) for f in os.listdir(model_dir)
+                 if f.endswith("_final.msgpack"))
+    t0 = time.perf_counter()
+    fresh = GANTrainer(trainer.cfg, device=trainer.device, log_fn=lambda msg: None)
+    restored = fresh.init_state(resume=True)
+    torch.cuda.synchronize()
+    t_resume = time.perf_counter() - t0
+    bad = _states_equal(trainer.state, restored)
+    log(f"train-state checkpoint at full width on {card}: {nbytes / 1e9:.3f} GB in 9 files; "
+        f"background save: blocking part (clone on the card) {t_block:.3f} s, whole (converted, "
+        f"written) {t_whole:.2f} s, {nbytes / 1e9 / t_whole:.2f} GB/s; resume (build, read, "
+        f"convert, load on the card) {t_resume:.2f} s, {nbytes / 1e9 / t_resume:.2f} GB/s; "
+        f"tensors differing bitwise: {len(bad)}; history equal: {fresh.history == trainer.history}")
+    if bad or fresh.history != trainer.history or fresh.start_epoch != 1:
+        raise AssertionError(f"the resumed train state differs: {bad[:10]}, history "
+                             f"{fresh.history == trainer.history}, epoch {fresh.start_epoch}")
+    batch = next(ds.epoch())
+    _, m_a = trainer.builder.train_step(trainer.state, batch, True)
+    _, m_b = fresh.builder.train_step(restored, batch, True)
+    rel = max(abs(m_b[k].item() - m_a[k].item()) / max(abs(m_a[k].item()), 1e-30) for k in m_a)
+    log(f"one step with D from the writer's state and from the resumed one: losses within {rel:.2e} "
+        f"relative (bar 1e-5)")
+    if not rel <= 1e-5:
+        raise AssertionError(f"the resumed state steps differently: {rel}")
+    del fresh, restored
+
+
+def check_small_checkpoint_modes(dev):
+    """At the tiny config on the card: a 'host' mode save of a trained state,
+    the same state saved in 'background' mode into another directory,
+    byte-identical files, resumed bitwise; and nan_guard's FloatingPointError
+    on a NaN put into one parameter."""
+    from contextual_image_compression_tpu_torch.checkpoint import CheckpointStore
+    from contextual_image_compression_tpu_torch.config import (
+        ModelConfig, QuantizerConfig, TrainConfig)
+    from contextual_image_compression_tpu_torch.data.images import synthetic_images
+    from contextual_image_compression_tpu_torch.data.pipeline import CompressionDataset
+    from contextual_image_compression_tpu_torch.train.loop import GANTrainer
+
+    mcfg = ModelConfig(**JAX_TINY, quantizer=QuantizerConfig(grad_mode="reference"))
+    imgs = synthetic_images(8, (32, 32), seed=90)
+    masks = np.random.RandomState(90).rand(8, 32, 32, 1).astype(np.float32)
+    ds = CompressionDataset(imgs, masks, batch_size=4, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        host_dir, bg_dir = os.path.join(tmp, "host"), os.path.join(tmp, "background")
+        cfg = TrainConfig(model=mcfg, batch_size=4, use_perceptual=False, model_dir=host_dir)
+        trainer = GANTrainer(cfg, device=dev, log_fn=lambda msg: None, save_mode="host")
+        trainer.init_state(resume=False)
+        trainer.fit(ds, epochs=1, steps_per_epoch=2, artifacts=False)  # 'final', host mode
+        trainer.save_mode, trainer.store = "background", CheckpointStore(bg_dir)
+        trainer.save("final")
+        trainer._join_saver()
+        names = sorted(os.listdir(host_dir))
+        differ = [n for n in names if pathlib.Path(host_dir, n).read_bytes()
+                  != pathlib.Path(bg_dir, n).read_bytes()]
+        fresh = GANTrainer(cfg, device=dev, log_fn=lambda msg: None)
+        bad = _states_equal(trainer.state, fresh.init_state(resume=True))
+        guard = GANTrainer(TrainConfig(model=mcfg, batch_size=4, use_perceptual=False,
+                                       model_dir=os.path.join(tmp, "guard")),
+                           device=dev, log_fn=lambda msg: None, nan_guard=True)
+        state = guard.init_state(resume=False)
+        with torch.no_grad():
+            state.codec.lq_generator.deconv2.weight[0, 0, 1, 1] = float("nan")
+        try:
+            guard.fit(ds, epochs=1, steps_per_epoch=1, artifacts=False)
+            raised = ""
+        except FloatingPointError as exc:
+            raised = str(exc)
+    log(f"tiny config on the card: 'host' and 'background' saves of one state, {len(names)} files, "
+        f"{len(differ)} differ; resumed from the 'host' files, {len(bad)} tensors differ; "
+        f"nan_guard raised FloatingPointError: {bool(raised)} ({raised[:90]}...)")
+    if differ or bad or len(names) != 10 or "lq_generator.deconv2.weight" not in raised:
+        raise AssertionError(f"checkpoint modes: differ {differ}, resumed {bad[:5]}, "
+                             f"guard {raised[:200]!r}")
+
+
+def run_jax_trained_serving(dev, card):
+    """Phase (a): the committed JAX-trained tiny GAN served on the card from
+    its model_dir: provenance all 'final'; against the JAX pipeline's
+    committed outputs and against the port's CPU pipeline on the same
+    files, decoded PSNR >= 40 dB and symbols within +-1 and >= 95% identical
+    (the mask, too, within 1e-4 of the CPU's). Returns the launch counts of
+    the call."""
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.config import ModelConfig
+    from contextual_image_compression_tpu_torch.serve import CompressionPipeline
+
+    fixture = pathlib.Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_tiny_gan"
+    ref = np.load(fixture / "outputs.npz")
+    u8, bpp = ref["images"], float(ref["target_bpp"])
+    cfg = ModelConfig(**JAX_TINY)
+    pipe = CompressionPipeline(model_dir=str(fixture), model_config=cfg, device=dev)
+    if sorted(pipe.provenance.values()) != ["final"] * 7:
+        raise AssertionError(f"provenance {pipe.provenance}")
+    pipe(u8, target_bpp=bpp)  # warm-up of the batch shape
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    dec, info = pipe(u8, target_bpp=bpp)
+    counts = ops.launch_counts()
+    if counts != expect(K1=1, K2=1, K3=2):
+        raise AssertionError(f"JAX-trained serving launches {counts}, want K1 1, K2 1, K3 2")
+    check_cluster_route("JAX-trained serving")
+    check_attention_route("JAX-trained serving", "wgmma")
+    cpu_dec, cpu_info = CompressionPipeline(model_dir=str(fixture), model_config=cfg,
+                                            device="cpu")(u8, target_bpp=bpp)
+
+    def psnr(a, b):
+        mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+        return 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+
+    sym = {k: info[k].float().cpu().numpy() for k in ("hq_symbols", "lq_symbols")}
+    rows = {}
+    for name, (d, s) in {"JAX's outputs": (ref["decoded"], ref),
+                         "the CPU port": (cpu_dec, {k: cpu_info[k].float().numpy() for k in sym})
+                         }.items():
+        rows[name] = (psnr(dec, d), min(float(np.mean(sym[k] == s[k])) for k in sym),
+                      max(float(np.abs(sym[k] - s[k]).max()) for k in sym))
+    mask_err = float((info["mask"].float().cpu() - cpu_info["mask"].float()).abs().max())
+    nonzero = float(np.mean(np.concatenate([v.ravel() for v in sym.values()]) != 0))
+    log(f"JAX-trained tiny GAN (tests/fixtures/jax_tiny_gan, 32^2, B = {len(u8)}) served on {card} "
+        f"from model_dir, provenance all 'final': " + "; ".join(
+            f"vs {n}: decoded PSNR {p:.2f} dB, symbols identical {same:.4f}, max |diff| {mx}"
+            for n, (p, same, mx) in rows.items())
+        + f"; mask vs the CPU port {mask_err:.3e} (bars 40 dB, 0.95, 1, 1e-4); nonzero symbols "
+          f"{nonzero:.4f} (four steps of training leave the latents below half a quantizer step)")
+    if not (all(p >= 40.0 and same >= 0.95 and mx <= 1.0 for p, same, mx in rows.values())
+            and mask_err <= 1e-4):
+        raise AssertionError(f"JAX-trained serving disagrees: {rows}, mask {mask_err}")
+    return counts
+
+
+def run_checkpoint_serving(dev, card):
+    """Phase (b): the seeded full-width codec's float32 state carried to
+    JAX's layout and saved by the store into a temporary directory (1.67
+    GB), then CompressionPipeline(model_dir=...) against the pipeline built
+    from the same state dict at B = 16: decoded images and symbols bitwise
+    equal (cuDNN's deterministic algorithms in both). Returns the launch
+    counts of the checkpoint pipeline's call."""
+    from contextual_image_compression_tpu_torch import convert, ops
+    from contextual_image_compression_tpu_torch.checkpoint import CheckpointStore
+    from contextual_image_compression_tpu_torch.measure import structured_images
+    from contextual_image_compression_tpu_torch.serve import CompressionPipeline
+    from contextual_image_compression_tpu_torch.utils.tree import param_bytes
+
+    codec = _full_width_codec(dev)
+    sd = {k: v.clone() for k, v in codec.state_dict().items()}
+    B = 16
+    u8 = structured_images(np.random.RandomState(21), B, 256)
+    with tempfile.TemporaryDirectory() as tmp:
+        need = param_bytes(sd)
+        free = shutil.disk_usage(tmp).free
+        if free < 2 * need:
+            raise AssertionError(f"the codec checkpoint needs {need / 1e9:.2f} GB; {tmp} has "
+                                 f"{free / 1e9:.2f} GB free")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CheckpointStore(tmp).save_components(convert.codec_variables(codec), "final")
+        t_write = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        del codec
+        t0 = time.perf_counter()
+        pipe = CompressionPipeline(model_dir=tmp, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    if sorted(pipe.provenance.values()) != ["final"] * 7:
+        raise AssertionError(f"provenance {pipe.provenance}")
+    direct = CompressionPipeline(state_dict=sd, device=dev)
+    del sd
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+        pipe(u8, target_bpp=1.0)  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        dec, info = pipe(u8, target_bpp=1.0)
+        counts = ops.launch_counts()
+        if counts != expect(K1=1, K2=1, K3=2):
+            raise AssertionError(f"checkpoint serving launches {counts}, want K1 1, K2 1, K3 2")
+        check_cluster_route("checkpoint serving")
+        check_attention_route("checkpoint serving", "wgmma")
+        want_dec, want_info = direct(u8, target_bpp=1.0)
+    same = [k for k in ("hq_symbols", "lq_symbols", "mask", "bit_allocation")
+            if torch.equal(info[k], want_info[k])]
+    log(f"full-width serving from a checkpoint on {card}: {nbytes / 1e9:.3f} GB in 7 files; write "
+        f"(convert to JAX's layout, copy to the host, write) {t_write:.2f} s, "
+        f"{nbytes / 1e9 / t_write:.2f} GB/s; load (seeded build, read, convert, load, w8 and bf16 "
+        f"on the card) {t_load:.2f} s, {nbytes / 1e9 / t_load:.2f} GB/s; against the pipeline "
+        f"from the state dict at B = {B}: decoded bitwise equal {np.array_equal(dec, want_dec)}, "
+        f"bitwise equal {same}")
+    if not (np.array_equal(dec, want_dec) and len(same) == 4):
+        raise AssertionError("serving from the checkpoint differs from serving the state dict")
+    return counts
+
+
+def run_autoencoder(dev, card):
+    """Phase (d): the trained autoencoder of runs/ae_ref on the card:
+    reconstructions of 64 seeded synthetic 128^2 images within 1e-5 of the
+    CPU port (TF32 off), ae_metrics and images per second; `fit` for 2
+    epochs at B = 16 on 128 images (losses finite, the second below the
+    first); a save / load round trip bitwise. No kernel of the port runs."""
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.data.images import synthetic_images
+    from contextual_image_compression_tpu_torch.ops.metrics import ae_metrics
+    from contextual_image_compression_tpu_torch.train.ae_trainer import AETrainer
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the autoencoder is held to the CPU with TF32 off")
+    ae_dir = str(pathlib.Path(__file__).resolve().parent / "runs" / "ae_ref" / "model")
+    imgs = ((synthetic_images(64, (128, 128), seed=80) + 1.0) / 2.0).astype(np.float32)
+    ops.reset_launch_counts()
+    card_ae = AETrainer(device=dev, log_fn=log)
+    card_ae.load(ae_dir)
+    got = card_ae.reconstruct(imgs)
+    cpu_ae = AETrainer(device="cpu", log_fn=lambda msg: None)
+    cpu_ae.load(ae_dir)
+    err = float(np.abs(got - cpu_ae.reconstruct(imgs)).max())
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_ae.reconstruct(imgs)
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+
+    def u8(x):
+        return torch.from_numpy(np.round(np.clip(x, 0, 1) * 255).astype(np.uint8))
+
+    m = {k: float(v.mean()) for k, v in ae_metrics(u8(imgs), u8(got)).items()}
+    train = ((synthetic_images(128, (128, 128), seed=81) + 1.0) / 2.0).astype(np.float32)
+    fresh = AETrainer(device=dev, log_fn=log)
+    fresh.init(seed=42)
+    t0 = time.perf_counter()
+    hist = fresh.fit(train, epochs=2, batch_size=16)
+    t_fit = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        fresh.save(tmp)
+        back = AETrainer(device=dev, log_fn=lambda msg: None)
+        back.init(seed=7)
+        back.load(tmp)
+    same = all(torch.equal(a, b) for a, b in zip(fresh.model.state_dict().values(),
+                                                  back.model.state_dict().values()))
+    counts = ops.launch_counts()
+    log(f"autoencoder from runs/ae_ref on {card}: 64 images 128^2, card vs CPU port max |diff| "
+        f"{err:.3e} (bar 1e-5); ae_metrics mean psnr {m['psnr']:.3f} dB, ssim {m['ssim']:.4f}, "
+        f"mse {m['mse']:.3f}; reconstruct {med * 1e3:.2f} ms, {64 / med:.1f} img/s (host clock, "
+        f"numpy in / out, median of 5); fit 2 epochs at B = 16 on 128 images {t_fit:.2f} s, "
+        f"losses {hist['loss']}, val {hist['val_loss']}; save / load bitwise {same}; kernel "
+        f"launches {counts}")
+    losses = hist["loss"] + hist["val_loss"]
+    if not (err <= 1e-5 and all(math.isfinite(x) for x in losses)
+            and hist["loss"][1] < hist["loss"][0] and same and counts == expect()):
+        raise AssertionError(f"autoencoder: err {err}, history {hist}, round trip {same}, "
+                             f"launches {counts}")
 
 
 MASK_METHODS = ("spectral_residual", "fine_grained")
@@ -1307,6 +1653,28 @@ def check_k7(dev, B, codec):
     flops = 2.0 * B * N * C * (2 * inner + C) + 2.0 * B * N * N * (inner + C)
     nbytes = 2 * x.numel() * 2 + (2 * C * inner + C * C) * 2 + (2 * inner + C) * 4
     b_ms, b_by = bound_ms(nbytes, flops, H100_BF16_TFLOPS)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the float32 library calls are timed with TF32 off")
+    wq32, bq32, wk32, bk32, wv32, bv32, g32 = w32
+
+    def composed32():  # the yardstick in float32, TF32 off: library calls only
+        q = torch.nn.functional.linear(xf32, wq32.t()) + bq32
+        k = torch.nn.functional.linear(xf32, wk32.t()) + bk32
+        v = torch.nn.functional.linear(xf32, wv32.t()) + bv32
+        return g32 * (torch.softmax(q @ k.transpose(1, 2), dim=-1) @ v) + xf32
+
+    x32c = x32.contiguous()
+    lib32 = event_ms(composed32)
+    lib32_dev = device_ms(composed32)
+    mod32 = event_ms(lambda: attn(x32c))  # SelfAttention.forward: F.linear + K2 "tf32x3"
+    mod32_dev = device_ms(lambda: attn(x32c))
+    dev32_a = device_ms(lambda: sagan_block(xf32, *w32))
+    dev32_b = device_ms(lambda: sagan_block_spatial(x32v, *w32))
+    log(f"K7 float32 (CUDA-core route) K7a {ms32_a:.4f} ms (device alone {dev32_a:.4f}), K7b "
+        f"{ms32_b:.4f} (device alone {dev32_b:.4f}); float32 with TF32 off: three F.linear + "
+        f"softmax(q k^T) v in three calls + epilogue {lib32:.4f} ms (device alone "
+        f"{lib32_dev:.4f}); SelfAttention.forward (F.linear + K2 on \"tf32x3\") {mod32:.4f} ms "
+        f"(device alone {mod32_dev:.4f})")
     log(f"K7 times bf16 (wgmma QKV GEMM + K2's tensor-core kernel): K7a {ms_a:.4f} ms (device "
         f"alone {dev_a:.4f}), K7b (NCHW view) {ms_b:.4f} ms (device alone {dev_b:.4f}); float32 "
         f"K7a {ms32_a:.4f}, K7b {ms32_b:.4f} ms; twin {plain:.4f} ms, bound {b_ms:.4f} ms "
@@ -1316,12 +1684,16 @@ def check_k7(dev, B, codec):
     common = dict(route="cuda", source="contextual_image_compression_tpu_torch/csrc/sagan_block.cu",
                   plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None,
                   yardstick_ms=yard, yardstick_device_ms=yard_dev, module_k2_ms=mod,
-                  design="wgmma")
+                  library_float32_ms=lib32, library_float32_device_ms=lib32_dev,
+                  library_float32_tf32="off", module_k2_float32_ms=mod32,
+                  module_k2_float32_device_ms=mod32_dev, design="wgmma")
     return (dict(name="K7a sagan_block", replaces="contextual_image_compression_tpu/ops/attention.py:336",
-                 max_abs_err=ea16, ms=ms_a, device_ms=dev_a, float32_ms=ms32_a, **common),
+                 max_abs_err=ea16, ms=ms_a, device_ms=dev_a, float32_ms=ms32_a,
+                 float32_device_ms=dev32_a, **common),
             dict(name="K7b sagan_block_spatial",
                  replaces="contextual_image_compression_tpu/ops/attention.py:371",
-                 max_abs_err=eb16, ms=ms_b, device_ms=dev_b, float32_ms=ms32_b, **common))
+                 max_abs_err=eb16, ms=ms_b, device_ms=dev_b, float32_ms=ms32_b,
+                 float32_device_ms=dev32_b, **common))
 
 
 def _tail_args(gen_module, dt):
@@ -1386,6 +1758,10 @@ def check_k8(dev, B, codec):
     plain = event_ms(lambda: fused_tail_plain(x, *args), reps=5, warmup=1)
     yard = event_ms(lambda: _tail_forward(gm, x, use_pallas=False))
     yard_dev = device_ms(lambda: _tail_forward(gm, x, use_pallas=False))
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the float32 library calls are timed with TF32 off")
+    yard32 = event_ms(lambda: _tail_forward(gm, x32, use_pallas=False), reps=10)
+    yard32_dev = device_ms(lambda: _tail_forward(gm, x32, use_pallas=False), reps=10)
     # useful products: the deconv (4 taps of Cin per output pixel and channel)
     # and the 4x4 out-conv; x read once, the output written once
     px = B * 256 * 256
@@ -1395,13 +1771,16 @@ def check_k8(dev, B, codec):
     log(f"K8 times: kernel bf16 (wgmma) {ms:.4f} ms (device alone {dev:.4f}), float32 "
         f"{ms32:.4f} ms (device alone {dev32:.4f}), twin {plain:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}); yardstick packed_tail_forward(use_pallas=False) (cuDNN) {yard:.4f} ms (device "
-        f"alone {yard_dev:.4f})")
+        f"alone {yard_dev:.4f}), in float32 with TF32 off {yard32:.4f} ms (device alone "
+        f"{yard32_dev:.4f})")
     return dict(name="K8 fused_tail", route="cuda",
                 source="contextual_image_compression_tpu_torch/csrc/packed_tail.cu",
                 replaces="contextual_image_compression_tpu/models/packed_tail.py:207",
                 max_abs_err=t16, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, yardstick_ms=yard, yardstick_device_ms=yard_dev,
-                device_ms=dev, float32_ms=ms32, float32_device_ms=dev32, design="wgmma")
+                library_float32_ms=yard32, library_float32_device_ms=yard32_dev,
+                library_float32_tf32="off", device_ms=dev, float32_ms=ms32,
+                float32_device_ms=dev32, design="wgmma")
 
 
 def run_entry_points(dev, B, codec):
@@ -1585,9 +1964,13 @@ def main():
     records = [check_k1(dev, rng, B), check_k2(dev, B), check_k3(dev, B)]
     check_small_pipeline_against_cpu(dev)
     serving, med = run_full_pipeline(dev, card)
+    jax_trained = run_jax_trained_serving(dev, card)
+    from_checkpoint = run_checkpoint_serving(dev, card)
     records.append(check_k3b(dev, B))
     check_small_train_step_against_cpu(dev)
-    training = run_full_training(dev, card)
+    with tempfile.TemporaryDirectory() as model_dir:
+        training = run_full_training(dev, card, model_dir)
+    check_small_checkpoint_modes(dev)
     records.append(check_k4(dev, 64))
     mask_path = run_mask_path(dev, card)
     records.append(check_k5(dev, 128))
@@ -1600,11 +1983,14 @@ def main():
     del codec
     check_small_codec_against_cpu(dev)
     codec_path = run_codec_path(dev, card)
-    paths = {"serving": serving, "training": training, "masks": mask_path, "dct": dct_path,
-             "entry_points": entry_points, "storable_codec": codec_path}
-    runs_it = {"K1": ("serving", "training", "storable_codec"),
-               "K2": ("serving", "training", "storable_codec"),
-               "K3": ("serving", "training", "storable_codec"), "K3b": ("training",),
+    run_autoencoder(dev, card)
+    paths = {"serving": serving, "jax_trained_serving": jax_trained,
+             "checkpoint_serving": from_checkpoint, "training": training, "masks": mask_path,
+             "dct": dct_path, "entry_points": entry_points, "storable_codec": codec_path}
+    serving_paths = ("serving", "jax_trained_serving", "checkpoint_serving", "training",
+                     "storable_codec")
+    runs_it = {"K1": serving_paths, "K2": serving_paths, "K3": serving_paths,
+               "K3b": ("training",),
                "K4": ("masks",), "K5": ("dct",), "K6": ("entry_points",),
                "K7a": ("entry_points",), "K7b": ("entry_points",), "K8": ("entry_points",)}
     keys_in_order = ("K1", "K2", "K3", "K3b", "K4", "K5", "K6", "K7a", "K7b", "K8")

@@ -16,6 +16,10 @@ These paths run here with hand-written Hopper kernels:
     quantizer, and range-coded streams (native/);
   * the storable codec (serve.py, ops/bitstream.py): latent streams and
     self-contained containers, decoded from bytes by the generators alone;
+  * checkpoints in the JAX package's files (checkpoint/, convert.py):
+    serving from a checkpoint directory, training save and resume;
+  * the baseline autoencoder (models/autoencoder.py, train/ae_trainer.py),
+    which runs on cuDNN and no kernel of the port;
   * the remaining kernel entry points, which no default path runs: K6 the
     attention core and K7a / K7b the fused SAGAN block (ops/attention.py),
     K8 the fused generator tail (packed_tail_forward(use_pallas=True),
@@ -26,6 +30,7 @@ each kernel's plain PyTorch twin runs instead.
 """
 
 from contextual_image_compression_tpu_torch.config import (
+    AutoencoderConfig,
     DCTCodecConfig,
     LossConfig,
     ModelConfig,
@@ -34,5 +39,5 @@ from contextual_image_compression_tpu_torch.config import (
     TrainConfig,
 )
 
-__all__ = ["DCTCodecConfig", "LossConfig", "ModelConfig", "QuantizerConfig", "SaliencyConfig",
-           "TrainConfig"]
+__all__ = ["AutoencoderConfig", "DCTCodecConfig", "LossConfig", "ModelConfig", "QuantizerConfig",
+           "SaliencyConfig", "TrainConfig"]

@@ -2,10 +2,10 @@
 
 Field names and defaults are those of `contextual_image_compression_tpu.config`
 (`SaliencyConfig`, `QuantizerConfig`, `ModelConfig`, `LossConfig`,
-`TrainConfig`, `DCTCodecConfig`), so a default-constructed config describes
-the same codec, mask engine, DCT baseline and GAN training run in both
-packages. The evaluation and autoencoder configs come with the slices that
-port those subsystems.
+`TrainConfig`, `DCTCodecConfig`, `AutoencoderConfig`), so a
+default-constructed config describes the same codec, mask engine, DCT
+baseline, GAN training run and autoencoder in both packages. The
+evaluation config comes with the slice that ports the evaluation harness.
 """
 
 from __future__ import annotations
@@ -140,6 +140,24 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class AutoencoderConfig:
+    """The baseline skip-connection autoencoder and its training run."""
+
+    img_size: Tuple[int, int] = (128, 128)
+    channels: int = 3
+    enc_channels: Tuple[int, int] = (32, 64)
+    epochs: int = 50
+    batch_size: int = 16
+    validation_split: float = 0.1
+    learning_rate: float = 1e-3  # keras Adam's default
+    dtype: str = "float32"
+
+    @property
+    def img_shape(self) -> Tuple[int, int, int]:
+        return (self.img_size[0], self.img_size[1], self.channels)
+
+
+@dataclasses.dataclass(frozen=True)
 class LossConfig:
     """Generator, latent-saliency and RD loss weights and formula switches."""
 
@@ -169,8 +187,8 @@ class LossConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """GAN training run. Checkpoint and artifact fields are kept so configs
-    round-trip between packages; the port writes neither yet."""
+    """GAN training run. The artifact fields are kept so configs round-trip
+    between packages; the port writes no artifacts yet."""
 
     model: ModelConfig = ModelConfig()
     loss: LossConfig = LossConfig()

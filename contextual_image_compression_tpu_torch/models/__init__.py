@@ -1,4 +1,5 @@
 from contextual_image_compression_tpu_torch.models.adaptive import AdaptiveCodec, CodecOutput
+from contextual_image_compression_tpu_torch.models.autoencoder import Autoencoder
 from contextual_image_compression_tpu_torch.models.discriminator import Discriminator
 from contextual_image_compression_tpu_torch.models.encoder import Encoder
 from contextual_image_compression_tpu_torch.models.generator import Generator
@@ -8,6 +9,7 @@ from contextual_image_compression_tpu_torch.models.vgg import VGG19Features
 
 __all__ = [
     "AdaptiveCodec",
+    "Autoencoder",
     "CodecOutput",
     "Discriminator",
     "Encoder",

@@ -4,7 +4,9 @@ Counterpart of `contextual_image_compression_tpu/ops/attention.py`, no
 1/sqrt(d) scaling anywhere:
 
   * K2 `attention_block` (`attention_block_pallas`): gamma * softmax(Q K^T) V
-    + residual, q, k (B, N, Dk), v and residual (B, N, Dv), on the tensor
+    + residual, q, k (B, N, Dk <= 64), v and residual (B, N, Dv <= 256; a
+    Dv off the kernels' 64-wide value tiles is zero-padded up to one and the
+    output cut back), on the tensor
     cores (`csrc/attention.cu`): bf16 as one pass (route "wgmma"), float32
     as three TF32 passes per product (route "tf32x3": a pre-pass splits q,
     k and V^T into TF32 hi and lo in a scratch buffer, then the wgmma
@@ -91,27 +93,36 @@ def _launch_attention(name, q, k, v, residual=None, gamma=None):
     if k.shape != (b, n, dk) or v.shape != (b, n, dv) or (
             residual is not None and residual.shape != v.shape):
         raise ValueError(f"{name}: expected q, k (B, N, Dk) and v, residual (B, N, Dv)")
-    if dk > 64 or dv % 64 != 0 or dv > 256:
-        raise ValueError(f"{name}: kernel takes Dk <= 64 and Dv in 64..256 step 64, got {dk}, {dv}")
+    if dk > 64 or dv > 256:
+        raise ValueError(f"{name}: kernel takes Dk <= 64 and Dv <= 256, got {dk}, {dv}")
+    dvp = -(-dv // 64) * 64
+    if dvp != dv:
+        # the kernels' value tiles are 64 wide: zero columns of V (and of the
+        # residual) leave the softmax and the first Dv outputs as they are
+        v = torch.nn.functional.pad(v, (0, dvp - dv))
+        if residual is not None:
+            residual = torch.nn.functional.pad(residual, (0, dvp - dv))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty((b, n, dv), dtype=dt, device=dev)
+    out = torch.empty((b, n, dvp), dtype=dt, device=dev)
     lib, code, stream = ck.library(), ck.dtype_code(dt), ck.stream_ptr(dev)
     ptr, elems = None, 0
     if code == 0:  # the float32 route's TF32 hi / lo, written by its pre-pass
-        elems = _tf32_scratch_elems(b, n, dk, dv)
+        elems = _tf32_scratch_elems(b, n, dk, dvp)
         scratch = torch.empty(elems, dtype=torch.float32, device=dev)
         ptr = scratch.data_ptr()
     if residual is None:
         err = lib.cic_attention_core(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                     out.data_ptr(), ptr, elems, b, n, dk, dv, stream)
+                                     out.data_ptr(), ptr, elems, b, n, dk, dvp, stream)
     else:
         if gamma.numel() != 1:
             raise ValueError(f"{name}: gamma must hold one value, got shape {tuple(gamma.shape)}")
         residual, gamma = residual.contiguous(), gamma.to(torch.float32)
         err = lib.cic_attention_block(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                       residual.data_ptr(), gamma.data_ptr(), out.data_ptr(),
-                                      ptr, elems, b, n, dk, dv, stream)
+                                      ptr, elems, b, n, dk, dvp, stream)
     ck.check(err, name)
+    if dvp != dv:
+        out = out[..., :dv].contiguous()
     return out, ("tf32x3" if code == 0 else "wgmma")
 
 

@@ -78,14 +78,20 @@ def contextual_mask_plain(
 
     spec = spectral.to(torch.float32)
     if tuple(spec.shape[-2:]) != (h, w):
-        dev = spec.device
-        uph = torch.from_numpy(resize_op_matrix(spec.shape[-2], h)).to(dev)
-        upw = torch.from_numpy(resize_op_matrix(spec.shape[-1], w)).to(dev)
-        with _full_fp32_matmul(dev):
-            spec = (uph @ spec) @ upw.T
+        spec = resize_spectral(spec, h, w)
     comb = iops.normalize_max(spectral_weight * spec + fine_weight * fine)
     y = iops.bilateral_filter_taylor(comb, d, sigma_color, sigma_space)
     return iops.normalize_max(iops.gaussian_blur(y, gauss_ksize, 0.0))
+
+
+def resize_spectral(spec: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(B, r, r) -> (B, h, w) by the linear resize operator matrices in full
+    float32 (jax.image.resize 'linear': antialiased when it shrinks)."""
+    dev = spec.device
+    uph = torch.from_numpy(resize_op_matrix(spec.shape[-2], h)).to(dev)
+    upw = torch.from_numpy(resize_op_matrix(spec.shape[-1], w)).to(dev)
+    with _full_fp32_matmul(dev):
+        return (uph @ spec) @ upw.T
 
 
 @functools.lru_cache(maxsize=16)
@@ -261,9 +267,13 @@ def contextual_mask(
     if min(scales) < 1:
         raise ValueError("contextual_mask: box radii must be >= 1")
     _check_filter_sizes("contextual_mask", h, w, d, gauss_ksize, rmax)
-    if rh > h or rw > w:
-        raise ValueError(f"contextual_mask: spectral map {rh}x{rw} larger than the image")
     ck.require_cuda("contextual_mask", gray255, spectral)
+    if rh > h or rw > w:
+        # an image below the spectral resolution: the kernel's two-tap
+        # upsample cannot shrink the map, so it is resized first, as the
+        # twin resizes it, and enters the kernel at (H, W)
+        spectral = resize_spectral(spectral, h, w).contiguous()
+        rh, rw = h, w
     dev = gray255.device
     up = _upsample_tables(dev, rh, rw, h, w)
     scale_mask = 0

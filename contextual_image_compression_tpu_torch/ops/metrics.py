@@ -3,8 +3,9 @@
 Counterpart of `contextual_image_compression_tpu/ops/metrics.py`: PSNR with
 an explicit data range, SSIM with skimage.structural_similarity's defaults
 for float images (7x7 uniform window as direct window sums, K1 0.01, K2 0.03,
-sample covariance, the valid-window crop), and the GAN metrics, which map
-[-1, 1] to [0, 1] and average the per-RGB-channel SSIM.
+sample covariance, the valid-window crop), the GAN metrics, which map
+[-1, 1] to [0, 1] and average the per-RGB-channel SSIM, and the
+autoencoder's metrics on uint8 images (grayscale SSIM).
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+
+from contextual_image_compression_tpu_torch.ops.image_ops import rgb_to_gray
 
 
 def mse(a: torch.Tensor, b: torch.Tensor, axes=None) -> torch.Tensor:
@@ -83,4 +86,23 @@ def gan_metrics(original: torch.Tensor, compressed: torch.Tensor) -> Dict[str, t
         "psnr": psnr(o, c, data_range=1.0, axes=(-3, -2, -1)),
         "ssim": ssim_rgb_channel_mean(o, c, data_range=1.0),
         "mse": mse(o, c, axes=(-3, -2, -1)),
+    }
+
+
+def estimate_compression_ratio(original_size, latent_size):
+    """(compression_ratio, percentage_reduction) from byte sizes."""
+    compression_ratio = original_size / latent_size
+    percentage_reduction = (1.0 - latent_size / original_size) * 100.0
+    return compression_ratio, percentage_reduction
+
+
+def ae_metrics(original_u8: torch.Tensor, compressed_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """MSE on raw values, PSNR at data range 255 and SSIM of the BT.601 luma,
+    per image. original_u8, compressed_u8: (..., H, W, 3) uint8."""
+    o = original_u8.to(torch.float32)
+    c = compressed_u8.to(torch.float32)
+    return {
+        "mse": mse(o, c, axes=(-3, -2, -1)),
+        "psnr": psnr(o, c, data_range=255.0, axes=(-3, -2, -1)),
+        "ssim": ssim(rgb_to_gray(o), rgb_to_gray(c), data_range=255.0),
     }

@@ -15,8 +15,11 @@ downsampled mask and the target bpp into self-contained CICZ containers
 `decode_from_bitstream` turns containers back into uint8 images through the
 generators alone (`AdaptiveCodec.decode_latents`). A faithful round trip
 needs a codec trained with skip_mode='zero' (or 'mask'): with the
-reference's encoder skips the latents do not carry the whole image. Meshes
-come with a later slice.
+reference's encoder skips the latents do not carry the whole image.
+
+`model_dir=` serves a checkpoint directory of the JAX package's files
+(checkpoint/store.py), with the JAX pipeline's provenance. Meshes come with
+a later slice.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from contextual_image_compression_tpu_torch import convert
+from contextual_image_compression_tpu_torch.checkpoint import CheckpointStore
 from contextual_image_compression_tpu_torch.config import (
     ModelConfig,
     SaliencyConfig,
@@ -47,6 +52,19 @@ from contextual_image_compression_tpu_torch.ops.saliency import (
 )
 
 
+def load_codec_checkpoint(codec: AdaptiveCodec, model_dir: str) -> Dict[str, str]:
+    """Load the codec's components from a checkpoint directory by the
+    store's ladder, in float32, into `codec` (built and seeded); returns the
+    provenance of each component. A component the ladder leaves at "init"
+    keeps the codec's current values."""
+    templates = convert.codec_variables(codec, leaf=convert.placeholder)
+    loaded, provenance = CheckpointStore(model_dir).load_components(templates)
+    for comp, tree in loaded.items():
+        if provenance[comp] != "init":
+            getattr(codec, comp).load_state_dict(convert.component_state(comp, tree, codec.cfg))
+    return provenance
+
+
 def _serving_model_config(cfg: ModelConfig) -> ModelConfig:
     """bf16 inference with the folded int8 generator tail and weight-only
     int8 latent/fc projections (the JAX package's serving configuration)."""
@@ -59,15 +77,23 @@ def _serving_model_config(cfg: ModelConfig) -> ModelConfig:
 class CompressionPipeline:
     """Batched uint8 -> uint8 contextual-compression serving pipeline.
 
-    pipe = CompressionPipeline(state_dict=converted, device="cuda")
+    pipe = CompressionPipeline(model_dir="models_ckpt", device="cuda")
     decoded_u8, info = pipe(images_u8, target_bpp=1.0)
 
     `images_u8`: (B, H, W, 3) uint8 (numpy or tensor). Returns the decoded
     uint8 batch as numpy and a dict of tensors on the device with the keys of
-    the JAX pipeline's info. Without `state_dict` the codec gets the port's
-    own seeded init. Ragged batches pad up to the smallest batch size already
-    run that fits, else to the next power of two, as the JAX pipeline buckets
-    its compiled executables."""
+    the JAX pipeline's info. Ragged batches pad up to the smallest batch
+    size already run that fits, else to the next power of two, as the JAX
+    pipeline buckets its compiled executables.
+
+    Weights, as the JAX pipeline takes them: `state_dict` (a converted state
+    dict; provenance {"all": "provided"}), else `model_dir`, a checkpoint
+    directory of the JAX package's files loaded component by component
+    through the store's ladder final -> latest epoch_N -> init (provenance
+    {component: "final" / "epoch_N" / "init"}, the JAX pipeline's), else
+    the port's own seeded init (provenance {"all": "init"}). A component
+    that falls to "init" keeps the port's seeded init (`seed`), whose
+    values differ from the JAX package's PRNGKey(0) init."""
 
     def __init__(
         self,
@@ -76,18 +102,22 @@ class CompressionPipeline:
         saliency_config: Optional[SaliencyConfig] = None,
         device="cuda",
         seed: int = 0,
+        model_dir: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         self.mcfg = _serving_model_config(model_config or ModelConfig())
         self.scfg = saliency_config or SaliencyConfig()
         with torch.device(self.device):
             codec = AdaptiveCodec(self.mcfg)
-        if state_dict is None:
-            codec.reset_parameters(seed)
-            self.provenance = {"all": "init"}
-        else:
+        if state_dict is not None:
             codec.load_state_dict(state_dict)
             self.provenance = {"all": "provided"}
+        else:
+            codec.reset_parameters(seed)
+            if model_dir is not None:
+                self.provenance = load_codec_checkpoint(codec, model_dir)
+            else:
+                self.provenance = {"all": "init"}
         # Quantize the giant projections once from float32, then cast to
         # bf16 (w8 scale rows stay float32), then quantize the smaller w8
         # layers from their bf16 weights, as the JAX layer does at trace time.

@@ -23,6 +23,7 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -51,7 +52,9 @@ def main():
     card = card_name_and_power()
     print(card, flush=True)
     dev = torch.device("cuda")
-    cfg = TrainConfig(vgg_weights_path="random:0")
+    # the trainer's checkpoint store makes its directory; this run saves nothing
+    ckpt_dir = tempfile.TemporaryDirectory()
+    cfg = TrainConfig(vgg_weights_path="random:0", model_dir=ckpt_dir.name)
     imgs = synthetic_images(cfg.batch_size, cfg.model.img_size, seed=0)
     ds = CompressionDataset(imgs, prepare_masks(imgs, cfg.saliency, device=dev),
                             batch_size=cfg.batch_size, device_resident=True, device=dev)

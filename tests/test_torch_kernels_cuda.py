@@ -113,6 +113,18 @@ def test_k1_ragged_matches_twin(dev, shape):
     assert torch.equal(got, contextual_mask(gray, spec))  # no atomics: bitwise repeatable
 
 
+def test_k1_spectral_map_larger_than_the_image(dev):
+    """32^2 images with the default 64^2 spectral map (the tiny codec that
+    chip_smoke.py serves from its JAX-trained checkpoint): the map shrinks
+    by the antialiased resize before the kernel, as in the twin. Bar 1e-4."""
+    gray, _ = _k1_inputs(dev, 3, 32, 32)
+    spec = saliency.spectral_residual_small(gray, 64, 3.0).contiguous()
+    assert tuple(spec.shape) == (3, 64, 64)
+    got, route = _route_of(contextual_mask, lambda: contextual_mask(gray, spec))
+    assert route == "cluster"
+    assert (got - contextual_mask_plain(gray, spec)).abs().max().item() <= 1e-4
+
+
 def test_k1_cluster_shapes_in_any_order(dev):
     """A large image after a small one: the kernel's shared-memory limit is
     set once for the most a block may use, so the 256^2 call launches after
@@ -218,6 +230,22 @@ def test_bf16_attention_widths_match_twin(dev, kind, dk, dv):
     partial 64-key tile. Bar 2e-2 of max |out|."""
     got, want = _bf16_attention(dev, kind, 3, 100, dk, dv, 10 * dk + dv)
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _rel_err(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("kind", ["K2", "K6"])
+@pytest.mark.parametrize("dk,dv,n", [(3, 24, 16), (5, 100, 100), (32, 200, 64)])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_attention_value_widths_off_the_tile_match_twin(dev, kind, dk, dv, n, dtype):
+    """A value width that is not a multiple of 64 is zero-padded to one and
+    the output cut back (Dk 3, Dv 24 and N 16 are the tiny codec's, which
+    chip_smoke.py serves from the JAX-trained checkpoint). Bars 2e-2 of max
+    |out| (bf16) and 1e-5 (float32)."""
+    if dtype == "f32":
+        assert _f32_attention(dev, kind, 2, n, dk, dv, dk + dv) <= 1e-5
+        return
+    got, want = _bf16_attention(dev, kind, 2, n, dk, dv, dk + dv)
+    assert got.shape == want.shape == (2, n, dv) and got.is_contiguous()
     assert _rel_err(got, want) <= 2e-2
 
 

@@ -115,16 +115,18 @@ def _imports(path):
 
 
 def test_port_never_imports_jax():
-    """The port and chip_smoke.py import no jax, flax, optax or JAX-package module."""
+    """The port, chip_smoke.py and every scripts/torch_*.py import no jax,
+    flax, optax, msgpack (the card's machine has none of them) or
+    JAX-package module."""
     files = sorted((REPO / "contextual_image_compression_tpu_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py"] + [
-        REPO / "scripts" / f"torch_{name}.py"
-        for name in ("pipeline_profile", "train_profile", "mask_stages", "tree_times")]
+    scripts = sorted((REPO / "scripts").glob("torch_*.py"))
+    assert len(scripts) >= 6
+    files += [REPO / "chip_smoke.py"] + scripts
     assert len(files) > 25
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "optax",
+            assert root not in ("jax", "jaxlib", "flax", "optax", "msgpack",
                                 "contextual_image_compression_tpu"), (
                 f"{path.relative_to(REPO)} imports {name}"
             )

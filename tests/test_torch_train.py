@@ -286,7 +286,7 @@ def test_bn_stats_move_in_train_mode_only():
 # ---------------------------------------------------------------- loop
 
 
-def test_rate_control_probe_matches_jax():
+def test_rate_control_probe_matches_jax(tmp_path):
     """d mean(HQ ratio) / d bpp at 0.1, 1.0, 2.0 on the first sample, codec
     in eval mode, values and gradients."""
     v = perturb_variables(to_numpy_tree(JCodec(JTINY).init(jax.random.PRNGKey(2))),
@@ -299,7 +299,7 @@ def test_rate_control_probe_matches_jax():
                              jnp.full((1, 1), b), train=False)
         return jnp.mean(out.dynamic_threshold)
 
-    cfg = TrainConfig(model=TTINY, batch_size=4, use_perceptual=False)
+    cfg = TrainConfig(model=TTINY, batch_size=4, use_perceptual=False, model_dir=str(tmp_path))
     trainer = GANTrainer(cfg, device="cpu", log_fn=lambda s: None)
     trainer.init_state(resume=False)
     trainer.state.codec.load_state_dict(convert_codec_variables(v, TTINY))
@@ -310,22 +310,24 @@ def test_rate_control_probe_matches_jax():
         assert abs(ratio - float(r)) <= 1e-6 and abs(grad - float(g)) <= 1e-5 * max(1, abs(float(g)))
 
 
-def test_fit_runs_and_refuses_what_waits():
-    """fit alternates the D / no-D steps and fills the history; checkpoints
-    and artifacts raise instead of being skipped quietly."""
-    cfg = TrainConfig(model=TTINY, batch_size=4, use_perceptual=False, epochs=1)
+def test_fit_runs_and_refuses_what_waits(tmp_path):
+    """fit alternates the D / no-D steps, fills the history and writes the
+    final checkpoint; artifacts raise instead of being skipped quietly.
+    init_state() with nothing in model_dir starts fresh."""
+    cfg = TrainConfig(model=TTINY, batch_size=4, use_perceptual=False, epochs=1,
+                      model_dir=str(tmp_path))
     imgs = timages.synthetic_images(8, (32, 32), seed=1)
     masks = np.random.RandomState(1).rand(8, 32, 32, 1).astype(np.float32)
     ds = tpipeline.CompressionDataset(imgs, masks, batch_size=4, device="cpu")
     logs = []
     trainer = GANTrainer(cfg, device="cpu", log_fn=logs.append)
-    with pytest.raises(NotImplementedError):
-        trainer.init_state()
+    assert trainer.init_state().step == 0 and trainer.start_epoch == 0
     with pytest.raises(NotImplementedError):
         trainer.fit(ds)
     hist = trainer.fit(ds, steps_per_epoch=3, artifacts=False)
     assert trainer.state.step == 3
     assert all(len(hist[k]) == 1 and np.isfinite(hist[k][0]) for k in hist)
     assert logs[-1].startswith("Epoch 1:")
+    assert (tmp_path / "optimizers_final.msgpack").exists()
     with pytest.raises(NotImplementedError):
         trainer.rate_control_probe(ds.first_samples(), save_path="probe.png")
