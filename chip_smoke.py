@@ -21,7 +21,8 @@
    its tiled route is held at (2, 512, 512). K3 runs under no_grad, one
    kernel per call;
 4. checks the serving pipeline at a small size on the card against the same
-   pipeline on the CPU (where each wrapper runs its twin);
+   pipeline on the CPU (where each wrapper runs its twin), and the same with
+   the W8A8 latent / fc projections (dense_int8);
 5. runs CompressionPipeline(ModelConfig(), device="cuda") at full width with
    seeded random weights (attention gamma 0.5, random BN statistics) on
    B = 16 structured 256^2 images three times, checking shapes, finite
@@ -33,14 +34,20 @@
 7. checks two GAN training steps (with and without D) of a tiny codec on the
    card against the same steps on the CPU: losses, per-component gradients,
    parameters and BatchNorm statistics, with the perceptual loss's VGG19
-   ReLU and max-pool decisions on the card taken from the CPU step;
+   ReLU and max-pool decisions on the card taken from the CPU step; then
+   the same two steps in mixed precision (bf16 activations, float32
+   parameters) at bf16's bars (check_small_mixed_step_against_cpu);
 8. trains at full width (TrainConfig() defaults, random VGG19 for the
    perceptual loss): masks of 32 synthetic images through K1, a
    device-resident dataset, GANTrainer.fit for 4 steps after one warm-up
    step, and the rate-control probe, checking finite metrics, moved
    parameters and BatchNorm statistics, and the launch counts (K1 +1; per
    step K2 +1, K3 +2, K3b +2; per probe point K2 +1, K3 +2), then times
-   steps with and without D;
+   steps with and without D; after step 10 the same runs in mixed
+   precision (ModelConfig(dtype='bfloat16', param_dtype='float32'), VGG19
+   float32): K2 on "wgmma" under autograd, K3 / K3b in bf16, parameters, BN
+   statistics and Adam moments float32 and moved, the 'final' checkpoint
+   resumed bitwise, and its step times printed beside the float32 ones;
 9. holds K4 (the smooth mask) against its twin at B = 64, 256^2, on the
    saliency maps of both non-'combined' methods (the cluster route, one
    kernel per call, bitwise repeatable) and at (2, 512, 512) (the tiled
@@ -49,7 +56,10 @@
    synthetic images at 256^2 in device batches of 64 for
    method='spectral_residual' and 'fine_grained' (K4 +1 per batch, K1 0),
    plus one batch of binary masks, checking the masks against the port on
-   the CPU on the first images, and times one batch's stages;
+   the CPU on the first images, and times one batch's stages; then the
+   masks with the FFT spectral core (spectral_dft_matmul=False, cuFFT) of
+   16 images, 'combined' through K1 and 'spectral_residual' through K4,
+   smooth and binary, against the CPU port;
 11. holds K5 (the DCT transform and quantizer) against its twin at B = 128,
    256^2, quality 75, and times it (host-inclusive and on the device alone)
    beside a cuBLAS formulation;
@@ -84,9 +94,15 @@
    encode, decode and host-coder times;
 18. checks that the serving, training, mask and storable-codec paths at 256^2
    ran K1 and K4 on the cluster route only, and K2 / K6 on the route of
-   their dtype (serving, storable codec and entry points "wgmma", training
-   "tf32x3");
-19. prints a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
+   their dtype (serving, W8A8 serving, mixed training, storable codec and
+   entry points "wgmma", float32 training "tf32x3");
+19. prints its wall time, a `kernels` JSON line and, last, {"ok": true,
+   "device": {...}}.
+
+After step 5 a full-width W8A8 serving call (the pipeline's codec built
+with dense_int8 instead of dense_w8: activations quantized per row, int32
+products through torch._int_mm) runs three times at B = 16, each K1 +1, K2
++1, K3 +2, timed beside the dense_w8 pipeline on the same weights.
 
 Checkpoints (the JAX package's files, read and written without flax) and
 the autoencoder run in four more phases, after step 5, in step 8 and after
@@ -135,6 +151,7 @@ import time
 import numpy as np
 import torch
 
+T_START = time.time()
 H100_BF16_TFLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_FP32_TFLOPS = 67e12   # CUDA-core float32 peak
 H100_TF32_TFLOPS = 495e12  # dense TF32 tensor-core peak
@@ -169,13 +186,15 @@ def one_kernel_per_call(label, fn, wrapper, kernel, calls=3):
     cast. CUPTI may drop records under this script's load (one run saw two
     of three launches, another none), so the profiler shows what ran and
     the counter how often; a session that records nothing is repeated, at
-    most three times."""
+    most ten times (after the training phases K4's first one to three
+    sessions of a run record nothing, then one records its three
+    launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for sessions in range(1, 4):
+    for sessions in range(1, 11):
         before = wrapper.launches
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -494,10 +513,33 @@ def check_k3(dev, B):
                 identical_share=same)
 
 
-def check_small_pipeline_against_cpu(dev):
+def w8a8_pipeline(pipe, state_dict):
+    """The serving pipeline `pipe` with its codec rebuilt for W8A8
+    (`ModelConfig(dtype='bfloat16', dense_int8=True)`): the float32 weights
+    of `state_dict` in a codec built with dense_int8 and without dense_w8
+    (which wins over dense_int8 in both packages' KDense, so the serving
+    configuration's dense_w8 would hide it), cast to bf16 as serving casts
+    them. Everything else of the pipeline's call is its own."""
+    import dataclasses
+
+    from contextual_image_compression_tpu_torch.models.adaptive import AdaptiveCodec
+    from contextual_image_compression_tpu_torch.models.layers import cast_floats
+
+    mcfg = dataclasses.replace(pipe.mcfg, dense_w8=False, dense_int8=True)
+    with torch.device(pipe.device):
+        codec = AdaptiveCodec(mcfg)
+    codec.load_state_dict(state_dict)
+    cast_floats(codec, mcfg.compute_dtype())
+    out = copy.copy(pipe)
+    out.mcfg, out.codec, out._seen_batches = mcfg, codec.eval().requires_grad_(False), set()
+    return out
+
+
+def check_small_pipeline_against_cpu(dev, w8a8=False):
     """The same weights and images through the pipeline on the card (kernels)
     and on the CPU (twins): mask <= 1e-4, decoded PSNR >= 40 dB, symbols
-    within +-1 and >= 95% identical."""
+    within +-1 and >= 95% identical. w8a8: the pipeline with the W8A8
+    latent / fc projections (w8a8_pipeline) on both."""
     from contextual_image_compression_tpu_torch.config import ModelConfig
     from contextual_image_compression_tpu_torch.measure import randomize_stats, structured_images
     from contextual_image_compression_tpu_torch.models.adaptive import AdaptiveCodec
@@ -512,6 +554,8 @@ def check_small_pipeline_against_cpu(dev):
     outs = {}
     for name in ("cuda", "cpu"):
         pipe = CompressionPipeline(state_dict=sd, model_config=cfg, device=name)
+        if w8a8:
+            pipe = w8a8_pipeline(pipe, sd)
         dec, info = pipe(u8, target_bpp=1.0)
         outs[name] = (dec, {k: v.float().cpu().numpy() for k, v in info.items()})
     (dg, ig), (dc, ic) = outs["cuda"], outs["cpu"]
@@ -520,7 +564,8 @@ def check_small_pipeline_against_cpu(dev):
     psnr = 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
     sym_same = min(float(np.mean(ig[k] == ic[k])) for k in ("hq_symbols", "lq_symbols"))
     sym_max = max(float(np.abs(ig[k] - ic[k]).max()) for k in ("hq_symbols", "lq_symbols"))
-    log(f"small pipeline card vs CPU: mask {mask_err:.3e} (bar 1e-4), decoded PSNR {psnr:.2f} dB "
+    log(f"small {'W8A8 ' if w8a8 else ''}pipeline card vs CPU: mask {mask_err:.3e} (bar 1e-4), "
+        f"decoded PSNR {psnr:.2f} dB "
         f"(bar 40), symbols identical {sym_same:.4f} (bar 0.95), max |diff| {sym_max} (bar 1)")
     if not (mask_err <= 1e-4 and psnr >= 40.0 and sym_same >= 0.95 and sym_max <= 1.0):
         raise AssertionError("the pipeline on the card disagrees with the CPU pipeline")
@@ -574,6 +619,117 @@ def run_full_pipeline(dev, card):
     log(f"decoded mean {dec.mean():.2f}, std {dec.std():.2f}; |hq symbols| mean "
         f"{info['hq_symbols'].abs().mean().item():.3f}; mask mean {info['mask'].mean().item():.4f}")
     return counts, med
+
+
+def run_w8a8_serving(dev, card):
+    """A full-width W8A8 serving call: the pipeline at ModelConfig() with its
+    latent / fc projections in W8A8 (w8a8_pipeline; activations quantized
+    per row, int32 products through torch._int_mm) on B = 16 structured
+    images, three calls after a warm-up, each K1 +1, K2 +1, K3 +2 and no
+    other, with finite symbols; timed beside the dense_w8 pipeline on the
+    same weights, calls alternating. Returns the path's launch counts."""
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.config import ModelConfig
+    from contextual_image_compression_tpu_torch.measure import randomize_stats, structured_images
+    from contextual_image_compression_tpu_torch.models.adaptive import AdaptiveCodec
+    from contextual_image_compression_tpu_torch.serve import CompressionPipeline
+
+    with torch.device(dev):
+        ref = AdaptiveCodec(ModelConfig())
+    ref.reset_parameters(0)
+    randomize_stats(ref, 0)
+    sd = ref.state_dict()
+    del ref
+    w8 = CompressionPipeline(state_dict=sd, model_config=ModelConfig(), device=dev)
+    w8a8 = w8a8_pipeline(w8, sd)
+    del sd
+    B = 16
+    u8 = structured_images(np.random.RandomState(1), B, 256)
+    for pipe in (w8, w8a8):
+        pipe(u8, target_bpp=1.0)  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    times = {"w8": [], "w8a8": []}
+    counts = expect()  # the W8A8 calls' launches
+    for name in ("w8a8", "w8", "w8", "w8a8", "w8a8", "w8"):
+        pipe = w8a8 if name == "w8a8" else w8
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        dec, info = pipe(u8, target_bpp=1.0)
+        times[name].append(time.perf_counter() - t)
+        after = ops.launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        if delta != expect(K1=1, K2=1, K3=2):
+            raise AssertionError(f"{name} call: kernel launches {delta}")
+        if name == "w8a8":
+            counts = {k: counts[k] + delta[k] for k in counts}
+            for key, shape in (("hq_symbols", (B, 1024)), ("lq_symbols", (B, 512))):
+                if tuple(info[key].shape) != shape or not bool(torch.isfinite(info[key]).all()):
+                    raise AssertionError(f"W8A8 {key}: shape or non-finite values")
+            if dec.shape != (B, 256, 256, 3) or dec.dtype != np.uint8:
+                raise AssertionError(f"W8A8 decoded {dec.shape} {dec.dtype}")
+            w8a8_sym = info["hq_symbols"].abs().mean().item()
+    check_cluster_route("W8A8 serving")
+    check_attention_route("W8A8 serving", "wgmma")
+    m8a8, m8 = float(np.median(times["w8a8"])), float(np.median(times["w8"]))
+    log(f"full-width W8A8 serving (dense_int8, bf16) B={B}: median {m8a8 * 1e3:.2f} ms/call "
+        f"({B / m8a8:.1f} img/s) beside dense_w8 {m8 * 1e3:.2f} ms/call ({B / m8:.1f} img/s) on "
+        f"{card}, 3 calls each, alternating; |hq symbols| mean {w8a8_sym:.3f}; launches of the "
+        f"W8A8 calls {counts}")
+    return counts
+
+
+def run_fft_core_masks(dev, card):
+    """The masks with the FFT spectral core (SaliencyConfig(
+    spectral_dft_matmul=False), torch.fft: cuFFT on the card) of 16
+    structured images at 256^2: 'combined' smooth through K1,
+    'spectral_residual' smooth through K4, and the binary 'combined' mask;
+    the first 4 against the port on the CPU: smooth masks within 1e-4,
+    thresholds equal, binary masks equal on >= 99.9% of pixels. Returns the
+    path's launch counts."""
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.config import SaliencyConfig
+    from contextual_image_compression_tpu_torch.measure import structured_images
+    from contextual_image_compression_tpu_torch.ops import image_ops, masks, saliency
+
+    u8 = structured_images(np.random.RandomState(3), 16, 256)
+    n_cpu = 4
+    cases = {"combined": SaliencyConfig(spectral_dft_matmul=False),
+             "spectral_residual": SaliencyConfig(method="spectral_residual",
+                                                 spectral_dft_matmul=False),
+             "combined binary": SaliencyConfig(spectral_dft_matmul=False, mask_smooth=False)}
+    x = torch.from_numpy(u8).to(dev)
+    ops.reset_launch_counts()
+    got = {name: masks.compute_contextual_mask(x, cfg) for name, cfg in cases.items()}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if counts != expect(K1=1, K4=1):
+        raise AssertionError(f"FFT-core mask launches {counts}, want K1 1, K4 1")
+    check_cluster_route("FFT-core masks")
+    res = {}
+    for name, cfg in cases.items():
+        cpu = masks.compute_contextual_mask(torch.from_numpy(u8[:n_cpu]), cfg).numpy()
+        card_out = got[name][:n_cpu].cpu().numpy()
+        if not np.all(np.isfinite(card_out)):
+            raise AssertionError(f"FFT-core {name} mask: non-finite values")
+        res[name] = (float(np.abs(card_out - cpu).max()) if cfg.mask_smooth
+                     else float(np.mean(card_out == cpu)))
+    gray = image_ops.rgb_to_gray(x[:n_cpu].float())
+    cfg = cases["combined binary"]
+    t_card = masks.adaptive_threshold(saliency.compute_saliency_map(gray, "combined", cfg), cfg)
+    gray_cpu = image_ops.rgb_to_gray(torch.from_numpy(u8[:n_cpu]).float())
+    t_cpu = masks.adaptive_threshold(
+        saliency.compute_saliency_map(gray_cpu, "combined", cfg), cfg)
+    same_t = float(np.mean(t_card.cpu().numpy() == t_cpu.numpy()))
+    log(f"FFT-core masks (spectral_dft_matmul=False, cuFFT) of 16 images at 256^2 on {card}; "
+        f"card vs CPU port on {n_cpu}: combined (K1) {res['combined']:.3e}, spectral_residual "
+        f"(K4) {res['spectral_residual']:.3e} (bar 1e-4); binary combined: thresholds equal "
+        f"{same_t:.3f} (bar 1.0), pixels equal {res['combined binary']:.6f} (bar 0.999); "
+        f"launches {counts}")
+    if not (res["combined"] <= 1e-4 and res["spectral_residual"] <= 1e-4 and same_t == 1.0
+            and res["combined binary"] >= 0.999):
+        raise AssertionError("the FFT-core masks on the card disagree with the CPU port")
+    return counts
 
 
 def check_k3b(dev, B):
@@ -819,6 +975,107 @@ def check_small_train_step_against_cpu(dev):
         raise AssertionError("the training step on the card disagrees with the CPU step")
 
 
+def check_small_mixed_step_against_cpu(dev):
+    """Two mixed-precision steps (with D, then without) of the tiny codec
+    (TINY_TRAIN with dtype bfloat16, param_dtype float32) on the CPU and on
+    the card, each card step from the CPU's state before it, VGG19's
+    decisions pinned to the CPU's, bn_mode 'train'. bf16 rounds differently
+    on the two (cuDNN's and the CPU's bf16 convolutions accumulate in other
+    orders) and the bars are bf16's: metrics within 1% or 2e-4; each
+    component's gradient within 0.1 relative L2; the parameter updates'
+    signs equal on >= 98% and the updates within 0.1 lr on >= 97% and
+    within 2.01 lr everywhere (one Adam step each from one start, opposite
+    signs part by 2 lr); the encoders' batch statistics within 2% (means,
+    of the channel's RMS) and 5% (variances), the generators' within 10%
+    and 25% (tests/test_torch_mixed_precision.py's bars against JAX, where
+    quantizer symbols flip); parameters, BN statistics and Adam moments
+    float32 on the card; on the card each step launches K2 once on
+    "wgmma", K3 twice and K3b twice. (Measured on an NVIDIA H100 80GB HBM3
+    at 700 W: metrics within 1.2e-7, gradients 1.3e-2, signs 99.75%,
+    within 0.1 lr 99.45%, max 1.992 lr.)"""
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.config import (
+        ModelConfig, QuantizerConfig, TrainConfig)
+    from contextual_image_compression_tpu_torch.measure import randomize_stats
+    from contextual_image_compression_tpu_torch.models.layers import KBatchNorm
+    from contextual_image_compression_tpu_torch.models.vgg import load_vgg19_features
+    from contextual_image_compression_tpu_torch.train.gan_trainer import Batch, GANStepBuilder
+
+    mcfg = ModelConfig(**TINY_TRAIN, **MIXED, quantizer=QuantizerConfig(grad_mode="reference"))
+    cfg = TrainConfig(model=mcfg, batch_size=4, vgg_weights_path="random:0")
+    lr = cfg.learning_rate
+    rng = np.random.RandomState(7)
+    arrays = (rng.rand(4, 3, 32, 32).astype(np.float32) * 2 - 1,
+              rng.rand(4, 1, 32, 32).astype(np.float32),
+              np.array([[0.1], [1.0], [2.0], [1.0]], np.float32))
+    cpu_vgg = load_vgg19_features(cfg.vgg_weights_path, device="cpu")
+    sides = []
+    for d in (torch.device("cpu"), dev):
+        vgg = load_vgg19_features(cfg.vgg_weights_path, device=d)
+        vgg.load_state_dict(cpu_vgg.state_dict())
+        builder = GANStepBuilder(cfg, vgg=vgg, bn_mode="train", device=d)
+        sides.append((builder, builder.init_state(0),
+                      Batch(*(torch.from_numpy(a).to(d) for a in arrays))))
+    randomize_stats(sides[0][1].codec, 3)
+
+    def step(side, do_d):
+        builder, state, batch = side
+        start = {k: p.detach().double().cpu() for k, p in state.codec.named_parameters()}
+        out = builder.codec_forward(state, batch)
+        m = {"d_loss": builder.d_phase(state, batch, out)} if do_d else {}
+        m.update(builder.g_backward(state, batch, out))
+        grads = _component_grads(state.codec)
+        stats = {n: [t.double().cpu() for t in mod.pending]
+                 for n, mod in state.codec.named_modules() if isinstance(mod, KBatchNorm)}
+        builder.g_update(state)
+        upd = {k: p.detach().double().cpu() - start[k] for k, p in state.codec.named_parameters()}
+        return {k: v.item() for k, v in m.items()}, grads, stats, upd
+
+    loss_err, grad_rel, sign, within, worst, stat_err = {}, 0.0, 1.0, 1.0, 0.0, 0.0
+    for do_d in (True, False):
+        _train_restore(sides[1][1], _train_snapshot(sides[0][1]))
+        before = ops.launch_counts()
+        with _PinnedVggDecisions() as pinned:
+            (mc, gc, sc, uc), (mg, gg, sg, ug) = step(sides[0], do_d), step(sides[1], do_d)
+            pinned.drained()
+        after = ops.launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        if delta != expect(K2=1, K3=2, K3b=2):
+            raise AssertionError(f"tiny mixed step on the card launched {delta}")
+        for k in mc:
+            err = abs(mg[k] - mc[k])
+            loss_err[k] = err if err <= 2e-4 else err / max(abs(mc[k]), 1e-30)
+        if any(e > 1e-2 and e > 2e-4 for e in loss_err.values()):
+            raise AssertionError(f"tiny mixed step metrics card vs CPU: {loss_err}")
+        rels = {n: float((gg[n] - gc[n]).norm() / gc[n].norm().clamp(min=1e-30)) for n in gc}
+        grad_rel = max([grad_rel] + list(rels.values()))
+        u_c = torch.cat([uc[k].reshape(-1) for k in uc])
+        u_g = torch.cat([ug[k].reshape(-1) for k in uc])
+        sign = min(sign, float((torch.sign(u_c) == torch.sign(u_g)).double().mean()))
+        within = min(within, float(((u_g - u_c).abs() <= 0.1 * lr).double().mean()))
+        worst = max(worst, float((u_g - u_c).abs().max()))
+        for n, (mean_c, var_c) in sc.items():
+            mean_g, var_g = sg[n]
+            rms = (var_c + mean_c ** 2).sqrt() + 1e-6
+            bars = (2e-2, 5e-2) if "encoder" in n else (1e-1, 2.5e-1)
+            e_m = float(((mean_g - mean_c).abs() / rms).max())
+            e_v = float(((var_g - var_c).abs() / (var_c + 1e-6)).max())
+            stat_err = max(stat_err, e_m / bars[0], e_v / bars[1])
+        log(f"  mixed step {'with' if do_d else 'without'} D, gradients relative L2: "
+            + ", ".join(f"{n} {r:.1e}" for n, r in rels.items()))
+    dtypes = _float_dtypes(sides[1][1])
+    worst_loss = max(loss_err, key=loss_err.get)
+    log(f"small mixed train step card vs CPU (32^2, bf16 activations, float32 parameters, with "
+        f"and without D, bn train, perceptual on): worst metric {worst_loss} "
+        f"{loss_err[worst_loss]:.2e} (bar 1e-2 relative or 2e-4), gradients {grad_rel:.2e} "
+        f"relative L2 (bar 0.1), update signs equal {sign:.4f} (bar 0.98), updates within "
+        f"0.1 lr {within:.4f} (bar 0.97), max {worst / lr:.3f} lr (bar 2.01), BN batch "
+        f"statistics at {stat_err:.2e} of their bars; card state {sorted(map(str, dtypes))}")
+    if not (grad_rel <= 0.1 and sign >= 0.98 and within >= 0.97 and worst <= 2.01 * lr
+            and stat_err <= 1.0 and dtypes == {torch.float32}):
+        raise AssertionError("the mixed training step on the card disagrees with the CPU step")
+
+
 def run_full_training(dev, card, model_dir):
     """The training main path at full width, its fit writing the 'final'
     checkpoint into model_dir; then the save timed on its own and the
@@ -889,19 +1146,7 @@ def run_full_training(dev, card, model_dir):
     check_full_resume(trainer, ds, card)
 
     # step times outside the counted main path, alternating D / no D
-    t_d, t_nd = [], []
-    it = ds.epoch()
-    for i in range(6):
-        batch = next(it, None)
-        if batch is None:
-            it = ds.epoch()
-            batch = next(it)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.builder.train_step(state, batch, i % 2 == 0)
-        torch.cuda.synchronize()
-        (t_d if i % 2 == 0 else t_nd).append(time.perf_counter() - t0)
-    md, mnd = float(np.median(t_d)), float(np.median(t_nd))
+    md, mnd = _step_ms(trainer, ds)
     bsz = cfg.batch_size
     log(f"full-width GAN training on {card} (TrainConfig() defaults, float32, TF32 off, "
         f"random VGG19 perceptual): {n_params / 1e6:.1f}M trainable parameters; masks of "
@@ -911,6 +1156,125 @@ def run_full_training(dev, card, model_dir):
         f"schedule; peak memory {peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated); "
         f"launches {counts}")
     log(f"history {json.dumps(hist)}; probe {probe}")
+    return counts, (md, mnd)
+
+
+MIXED = dict(dtype="bfloat16", param_dtype="float32")
+
+
+def _float_dtypes(state):
+    """The dtypes of a train state's parameters, floating buffers and Adam
+    moments, in one set."""
+    tensors = [t for m in (state.codec, state.disc)
+               for t in list(m.parameters()) + list(m.buffers())
+               if t is not None and t.is_floating_point()]
+    tensors += [v for o in (state.g_opt, state.ls_opt, state.rd_opt, state.d_opt)
+                for st in o.adam.state.values() for k, v in st.items() if k != "step"]
+    return {t.dtype for t in tensors}
+
+
+def _step_ms(trainer, ds, steps=6):
+    """Median ms of steps with and without D, alternating, on the
+    CUDA-synchronized host clock."""
+    t_d, t_nd = [], []
+    it = ds.epoch()
+    for i in range(steps):
+        batch = next(it, None)
+        if batch is None:
+            it = ds.epoch()
+            batch = next(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.builder.train_step(trainer.state, batch, i % 2 == 0)
+        torch.cuda.synchronize()
+        (t_d if i % 2 == 0 else t_nd).append(time.perf_counter() - t0)
+    return float(np.median(t_d)), float(np.median(t_nd))
+
+
+def run_mixed_training(dev, card, model_dir, f32_times):
+    """Mixed-precision training at full width: TrainConfig() with
+    ModelConfig(dtype='bfloat16', param_dtype='float32') and random VGG19
+    (which stays float32, as in JAX's recipe): masks of 32 images through
+    K1, one warm-up step, fit for 4 steps (writing 'final' into model_dir),
+    the rate-control probe, and a fresh trainer's resume of that checkpoint,
+    bitwise. Fails unless every metric is finite, parameters, BatchNorm
+    statistics and Adam moments are float32 and moved, and the launches are
+    K1 +1, per step K2 +1 (route "wgmma"), K3 +2 and K3b +2, per probe
+    point K2 +1 and K3 +2. Then times 3 steps each with and without D and
+    prints them beside the float32 phase's. Returns the path's launch
+    counts."""
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.config import ModelConfig, TrainConfig
+    from contextual_image_compression_tpu_torch.data.images import synthetic_images
+    from contextual_image_compression_tpu_torch.data.pipeline import (
+        CompressionDataset, prepare_masks)
+    from contextual_image_compression_tpu_torch.train.loop import GANTrainer
+
+    cfg = TrainConfig(model=ModelConfig(**MIXED), vgg_weights_path="random:0",
+                      model_dir=model_dir)
+    imgs = synthetic_images(32, cfg.model.img_size, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    masks = prepare_masks(imgs, cfg.saliency, device=dev)
+    ds = CompressionDataset(imgs, masks, batch_size=cfg.batch_size, seed=cfg.seed,
+                            device_resident=True, device=dev)
+    trainer = GANTrainer(cfg, device=dev, log_fn=log)
+    state = trainer.init_state(resume=False)
+    if _float_dtypes(state) != {torch.float32}:
+        raise AssertionError(f"mixed train state dtypes {_float_dtypes(state)}, want float32")
+    before = [p.detach().clone() for m in (state.codec, state.disc) for p in m.parameters()]
+    stats_before = state.codec.hq_generator.bn0.running_mean.clone()
+    t0 = time.perf_counter()
+    trainer.builder.train_step(state, next(ds.epoch()), True)  # warm-up: cuDNN autotuning
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hist = trainer.fit(ds, epochs=1, steps_per_epoch=4, artifacts=False)  # saves 'final'
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    probe = trainer.rate_control_probe(ds.first_samples())
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = expect(K1=1, K2=5 + 3, K3=2 * 5 + 2 * 3, K3b=2 * 5)
+    if counts != want:
+        raise AssertionError(f"mixed training launches {counts}, want {want}")
+    check_cluster_route("mixed training")
+    check_attention_route("mixed training", "wgmma")
+    bad = [k for k, v in hist.items() if not all(math.isfinite(x) for x in v)]
+    bad += [f"probe {b}" for b, r, g in probe if not (math.isfinite(r) and math.isfinite(g))]
+    if bad:
+        raise AssertionError(f"non-finite mixed training metrics: {bad}")
+    dtypes = _float_dtypes(state)
+    after = [p for m in (state.codec, state.disc) for p in m.parameters()]
+    still = sum(torch.equal(a, b) for a, b in zip(before, after))
+    if dtypes != {torch.float32} or still > 0.1 * len(after):
+        raise AssertionError(f"mixed train state: dtypes {dtypes}, {still} of {len(after)} "
+                             "parameter tensors did not move")
+    if torch.equal(stats_before, state.codec.hq_generator.bn0.running_mean):
+        raise AssertionError("BatchNorm running statistics did not move in mixed training")
+    t0 = time.perf_counter()
+    restored = GANTrainer(cfg, device=dev, log_fn=lambda msg: None).init_state(resume=True)
+    torch.cuda.synchronize()
+    t_resume = time.perf_counter() - t0
+    differ = _states_equal(state, restored)
+    if differ:
+        raise AssertionError(f"the resumed mixed train state differs: {differ[:10]}")
+    del restored
+    md, mnd = _step_ms(trainer, ds)
+    bsz = cfg.batch_size
+    f_d, f_nd = f32_times
+    log(f"mixed-precision GAN training on {card} (TrainConfig() with ModelConfig(dtype="
+        f"'bfloat16', param_dtype='float32'), random VGG19 in float32): warm-up step "
+        f"{t_warm:.2f} s; fit 4 steps {t_fit:.3f} s; parameters, BN statistics and Adam moments "
+        f"{sorted(str(d) for d in dtypes)}; 'final' resumed bitwise in {t_resume:.2f} s")
+    log(f"mixed step with D {md * 1e3:.2f} ms, without D {mnd * 1e3:.2f} ms (median of 3 each, "
+        f"CUDA-synchronized host clock); {2 * bsz / (md + mnd):.1f} img/s on the alternating "
+        f"schedule; peak memory {peak / 2 ** 30:.2f} GiB; float32 in this run: with D "
+        f"{f_d * 1e3:.2f} ms, without D {f_nd * 1e3:.2f} ms, {2 * bsz / (f_d + f_nd):.1f} img/s; "
+        f"launches {counts}")
+    log(f"mixed history {json.dumps(hist)}; probe {probe}")
     return counts
 
 
@@ -1963,16 +2327,22 @@ def main():
     B = 16
     records = [check_k1(dev, rng, B), check_k2(dev, B), check_k3(dev, B)]
     check_small_pipeline_against_cpu(dev)
+    check_small_pipeline_against_cpu(dev, w8a8=True)
     serving, med = run_full_pipeline(dev, card)
     jax_trained = run_jax_trained_serving(dev, card)
     from_checkpoint = run_checkpoint_serving(dev, card)
+    w8a8_serving = run_w8a8_serving(dev, card)
     records.append(check_k3b(dev, B))
     check_small_train_step_against_cpu(dev)
+    check_small_mixed_step_against_cpu(dev)
     with tempfile.TemporaryDirectory() as model_dir:
-        training = run_full_training(dev, card, model_dir)
+        training, f32_times = run_full_training(dev, card, model_dir)
     check_small_checkpoint_modes(dev)
     records.append(check_k4(dev, 64))
     mask_path = run_mask_path(dev, card)
+    fft_masks = run_fft_core_masks(dev, card)
+    with tempfile.TemporaryDirectory() as model_dir:
+        mixed_training = run_mixed_training(dev, card, model_dir, f32_times)
     records.append(check_k5(dev, 128))
     dct_path = run_dct_path(dev, card)
     records.append(check_k6(dev, B))
@@ -1985,13 +2355,15 @@ def main():
     codec_path = run_codec_path(dev, card)
     run_autoencoder(dev, card)
     paths = {"serving": serving, "jax_trained_serving": jax_trained,
-             "checkpoint_serving": from_checkpoint, "training": training, "masks": mask_path,
-             "dct": dct_path, "entry_points": entry_points, "storable_codec": codec_path}
-    serving_paths = ("serving", "jax_trained_serving", "checkpoint_serving", "training",
-                     "storable_codec")
-    runs_it = {"K1": serving_paths, "K2": serving_paths, "K3": serving_paths,
-               "K3b": ("training",),
-               "K4": ("masks",), "K5": ("dct",), "K6": ("entry_points",),
+             "checkpoint_serving": from_checkpoint, "w8a8_serving": w8a8_serving,
+             "training": training, "mixed_training": mixed_training, "masks": mask_path,
+             "fft_core_masks": fft_masks, "dct": dct_path, "entry_points": entry_points,
+             "storable_codec": codec_path}
+    serving_paths = ("serving", "jax_trained_serving", "checkpoint_serving", "w8a8_serving",
+                     "training", "mixed_training", "storable_codec")
+    runs_it = {"K1": serving_paths + ("fft_core_masks",), "K2": serving_paths,
+               "K3": serving_paths, "K3b": ("training", "mixed_training"),
+               "K4": ("masks", "fft_core_masks"), "K5": ("dct",), "K6": ("entry_points",),
                "K7a": ("entry_points",), "K7b": ("entry_points",), "K8": ("entry_points",)}
     keys_in_order = ("K1", "K2", "K3", "K3b", "K4", "K5", "K6", "K7a", "K7b", "K8")
     if len(records) != len(keys_in_order):
@@ -2006,6 +2378,8 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = {"kernels": [{**{k: rec[k] for k in keys}, **rec} for rec in records]}
+    log(f"chip_smoke wall time {time.time() - T_START:.1f} s (from the script's start, the "
+        f"kernels' build included)")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

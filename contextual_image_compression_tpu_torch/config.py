@@ -37,8 +37,8 @@ class SaliencyConfig:
     combined_fine_weight: float = 0.4
     spectral_resolution: int = 64
     spectral_blur_sigma: float = 3.0
-    # The 64-point DFT pair as explicit matrix products. The port computes
-    # only this form; False (the FFT core) raises.
+    # The 64-point DFT pair as explicit matrix products; False takes the FFT
+    # core (torch.fft, cuFFT on the card).
     spectral_dft_matmul: bool = True
     # Feed the fused mask kernel the 64^2 spectral map; it upsamples inside.
     mask_spec_small: bool = True

@@ -1,8 +1,10 @@
 """The adaptive (saliency-guided, rate-controlled) dual-branch codec.
 
 Counterpart of `contextual_image_compression_tpu/models/adaptive.py`, for
-inference (`apply(train=False)`) and float32 training (`apply(train=True,
-detach_for_training=True)`):
+inference (`apply(train=False)`) and training (`apply(train=True,
+detach_for_training=True)`) in float32 or mixed precision (ModelConfig
+dtype 'bfloat16' with param_dtype 'float32': bfloat16 activations, the
+parameters float32 and cast at use):
 
     hq_latent, hq_skips = hq_encoder(img)        # with self-attention (K2)
     lq_latent, lq_skips = lq_encoder(img)
@@ -80,8 +82,6 @@ def _with_detached_params(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
 class AdaptiveCodec(nn.Module):
     def __init__(self, cfg: ModelConfig = ModelConfig()):
         super().__init__()
-        if cfg.dense_int8:
-            raise NotImplementedError("dense_int8 (W8A8) is not ported; dense_w8 is")
         if not (cfg.attention_use_pallas and cfg.quantizer.use_pallas):
             raise NotImplementedError(
                 "attention_use_pallas / quantizer.use_pallas = False: the port has no "
@@ -91,7 +91,7 @@ class AdaptiveCodec(nn.Module):
         h, w = cfg.img_size
         enc = dict(img_size=cfg.img_size, in_channels=cfg.channels,
                    channels=cfg.encoder_channels, leaky_slope=cfg.leaky_slope,
-                   dense_w8=cfg.dense_w8)
+                   dense_w8=cfg.dense_w8, dense_int8=cfg.dense_int8)
         self.hq_encoder = Encoder(cfg.hq_latent_dim, add_attention=cfg.hq_attention, **enc)
         self.lq_encoder = Encoder(cfg.base_latent_dim, add_attention=False, **enc)
         if cfg.generator_base_hw * 16 != h or h != w:
@@ -100,7 +100,8 @@ class AdaptiveCodec(nn.Module):
                    skip_channels=tuple(cfg.encoder_channels[:3]),
                    base_hw=cfg.generator_base_hw, base_ch=cfg.generator_base_ch,
                    leaky_slope=cfg.leaky_slope, packed_tail=cfg.generator_packed_tail,
-                   packed_tail_int8=cfg.packed_tail_int8, dense_w8=cfg.dense_w8)
+                   packed_tail_int8=cfg.packed_tail_int8, dense_w8=cfg.dense_w8,
+                   dense_int8=cfg.dense_int8)
         self.hq_generator = Generator(cfg.hq_latent_dim, **gen)
         self.lq_generator = Generator(cfg.base_latent_dim, **gen)
         self.latent_saliency_hq = LatentSaliency(cfg.hq_latent_dim)
@@ -208,10 +209,10 @@ class AdaptiveCodec(nn.Module):
         LS-loss score from the detached latent."""
         cfg = self.cfg
         ct = cfg.compute_dtype()
-        if train and (ct != torch.float32 or cfg.dense_w8):
+        if train and cfg.dense_w8:
             raise NotImplementedError(
-                "the port trains in float32 without the w8 serving lowering; "
-                "mixed precision comes with a later slice"
+                "dense_w8 is a serving lowering (int8 weights installed by prepare_w8); "
+                "train with dense_w8=False"
             )
         x = img.to(ct).permute(0, 3, 1, 2)
         m = mask.to(ct).permute(0, 3, 1, 2)

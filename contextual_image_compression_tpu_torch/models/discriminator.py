@@ -7,7 +7,9 @@ with filters starting at base_filters and doubling up to max_filters, then
     flatten -> Dense(dense_units) -> LeakyReLU -> Dense(1) -> sigmoid.
 The flatten is in NCHW order; `convert.py` permutes the JAX (NHWC-order)
 `dense` rows to match. The GAN step runs BatchNorm on its running statistics
-(`disc_bn_mode='frozen'`) unless asked for batch statistics.
+(`disc_bn_mode='frozen'`) unless asked for batch statistics. `dtype` is the
+compute dtype (bfloat16 under mixed precision, as the JAX codec builds D
+with the model's dtype); the parameters and statistics stay float32.
 """
 
 from __future__ import annotations
@@ -50,8 +52,10 @@ class Discriminator(nn.Module):
         max_stages: int = 4,
         dense_units: int = 128,
         leaky_slope: float = 0.2,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.dtype = dtype
         filters, hw = disc_geometry(img_size, base_filters, max_filters, max_stages)
         self.leaky_slope = leaky_slope
         self.num_stages = len(filters)
@@ -72,8 +76,10 @@ class Discriminator(nn.Module):
         self.out.reset_parameters(gen)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """x (B, 3, H, W) in [-1, 1] -> (B, 1) probabilities."""
+        """x (B, 3, H, W) in [-1, 1] -> (B, 1) probabilities in the compute
+        dtype, which x is cast to first."""
         s = self.leaky_slope
+        x = x.to(self.dtype)
         for i in range(self.num_stages):
             x = leaky_relu(getattr(self, f"conv{i}")(x), s)
             if i > 0:

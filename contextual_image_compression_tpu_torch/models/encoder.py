@@ -6,6 +6,7 @@ Counterpart of `contextual_image_compression_tpu/models/encoder.py`:
     conv k4 s2 -> BN -> LeakyReLU            -> skip3 (taken before attention)
     [SelfAttention, HQ only]
     conv k4 s2 -> BN -> LeakyReLU -> flatten -> Dense(latent_dim)
+(the latent Dense W8A8 at inference under dense_int8, as in the JAX encoder)
 The flatten is in NCHW order; `convert.py` permutes the JAX (NHWC-order)
 latent_dense rows to match, so no permute runs here.
 """
@@ -36,6 +37,7 @@ class Encoder(nn.Module):
         channels: Tuple[int, ...] = (64, 128, 256, 512),
         leaky_slope: float = 0.2,
         dense_w8: bool = False,
+        dense_int8: bool = False,
     ):
         super().__init__()
         c1, c2, c3, c4 = channels
@@ -49,7 +51,7 @@ class Encoder(nn.Module):
         self.conv4 = KConv(c3, c4, 4, 2)
         self.bn4 = KBatchNorm(c4)
         flat = c4 * (img_size[0] // 16) * (img_size[1] // 16)
-        self.latent_dense = KDense(flat, latent_dim, w8=dense_w8)
+        self.latent_dense = KDense(flat, latent_dim, w8=dense_w8, int8=dense_int8)
 
     def reset_parameters(self, gen: torch.Generator):
         for m in (self.conv1, self.conv2, self.conv3, self.conv4, self.latent_dense):
@@ -68,5 +70,5 @@ class Encoder(nn.Module):
         if self.attention is not None:
             x3 = self.attention(x3)
         x4 = leaky_relu(self.bn4(self.conv4(x3), train), s)
-        latent = self.latent_dense(x4.reshape(x4.shape[0], -1))
+        latent = self.latent_dense(x4.reshape(x4.shape[0], -1), train)
         return latent, skips

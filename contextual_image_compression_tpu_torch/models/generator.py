@@ -1,7 +1,7 @@
 """Skip-connection transposed-conv generator, in NCHW.
 
 Counterpart of `contextual_image_compression_tpu/models/generator.py`:
-    Dense(hw*hw*C0) -> reshape -> BN -> LeakyReLU
+    Dense(hw*hw*C0) -> reshape -> BN -> LeakyReLU   (W8A8 at inference under dense_int8)
     ConvT k4 s2 -> BN -> LReLU -> concat skip3 ; likewise skip2, skip1
     ConvT k4 s2 -> BN -> LReLU -> Conv k4 s1 -> tanh       (native tail)
 or, at inference with packed_tail, the folded tail of models/packed_tail.py
@@ -41,6 +41,7 @@ class Generator(nn.Module):
         packed_tail: bool = False,
         packed_tail_int8: bool = False,
         dense_w8: bool = False,
+        dense_int8: bool = False,
     ):
         super().__init__()
         if len(channels) != 4:
@@ -48,7 +49,8 @@ class Generator(nn.Module):
         self.base_hw, self.base_ch = base_hw, base_ch
         self.leaky_slope = leaky_slope
         self.packed_tail, self.packed_tail_int8 = packed_tail, packed_tail_int8
-        self.fc = KDense(latent_dim, base_hw * base_hw * base_ch, w8=dense_w8)
+        self.fc = KDense(latent_dim, base_hw * base_hw * base_ch, w8=dense_w8,
+                         int8=dense_int8)
         self.bn0 = KBatchNorm(base_ch)
         # skips concat after deconv1..3: skip3, skip2, skip1
         concat = (skip_channels[2], skip_channels[1], skip_channels[0], 0)
@@ -70,7 +72,8 @@ class Generator(nn.Module):
         [-1, 1]. train: BatchNorm on batch statistics (see KBatchNorm)."""
         skip1, skip2, skip3 = skips
         s = self.leaky_slope
-        x = self.fc(latent).reshape(latent.shape[0], self.base_ch, self.base_hw, self.base_hw)
+        x = self.fc(latent, train)
+        x = x.reshape(latent.shape[0], self.base_ch, self.base_hw, self.base_hw)
         x = leaky_relu(self.bn0(x, train), s)
         for i, skip in enumerate((skip3, skip2, skip1)):
             x = getattr(self, f"bn{i + 1}")(getattr(self, f"deconv{i + 1}")(x), train)

@@ -5,9 +5,12 @@ run in NCHW and hold weights in PyTorch layouts (conv OIHW, transposed conv
 (Cin, Cout, kh, kw), dense (out, in)); `convert.py` carries JAX variables
 over. Each layer computes in its compute dtype and rounds where the flax
 layer rounds: convolution and dense products round before the bias is added,
-BatchNorm rounds after each of its five steps, and scalar constants take the
-compute dtype first (JAX's weakly typed Python scalars), so bfloat16 serving
-follows the JAX graph op by op.
+BatchNorm computes in the promoted dtype of its input, statistics and
+parameters and rounds once, and scalar constants take the compute dtype
+first (JAX's weakly typed Python scalars), so bfloat16 serving follows the
+JAX graph op by op. Parameters may stay float32 under a bfloat16 input (mixed
+precision): each layer casts them to the compute dtype at use, and the
+cast's backward carries the gradient to the float32 parameter.
 
 flax's SAME padding is asymmetric for even kernels: k4/s1 pads (1, 2), k4/s2
 pads (1, 1) and k3/s2 pads (0, 1) on each spatial axis.
@@ -21,6 +24,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from contextual_image_compression_tpu_torch.ops.image_ops import true_div
 
 
 @functools.lru_cache(maxsize=256)
@@ -101,11 +106,16 @@ class KDense(nn.Module):
     per-output int8 row `weight_q` and its float32 scale `w8_scale` (out, 1).
     `prepare_w8` fills them: from the float32 weight for the giant
     projections (`quantize_dense_w8`), from the compute-dtype weight for the
-    rest, which is what the JAX layer computes at trace time."""
+    rest, which is what the JAX layer computes at trace time.
 
-    def __init__(self, cin: int, features: int, w8: bool = False):
+    int8=True is the W8A8 form (`dense_int8`), at inference only: a forward
+    with train=True takes the float path, as the JAX codec builds the layer
+    with `int8=dense_int8 and not train`. w8 wins over int8, as in the JAX
+    layer."""
+
+    def __init__(self, cin: int, features: int, w8: bool = False, int8: bool = False):
         super().__init__()
-        self.w8 = w8
+        self.w8, self.int8 = w8, int8
         self.weight = nn.Parameter(torch.zeros(features, cin))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("weight_q", None)
@@ -121,7 +131,7 @@ class KDense(nn.Module):
         self.w8_scale = scale.to(torch.float32).reshape(-1, 1)
         self.weight = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         cd = x.dtype
         if self.w8:
             if self.weight_q is None:
@@ -130,8 +140,49 @@ class KDense(nn.Module):
         else:
             if self.weight is None:
                 raise TypeError("KDense(w8=False) holds an int8 weight: build it with w8=True")
+            if self.int8 and not train:
+                return dense_w8a8(x, self.weight, self.bias)
             w = self.weight.to(cd)
         return F.linear(x, w) + self.bias.to(cd)
+
+
+def _symmetric_int8(x32: torch.Tensor, dim: int):
+    """(rint(x / s), s) with s = max|x| / 127 along `dim`, floored at 1e-12
+    in the division only, all in float32 (the JAX layer's quantizer; IEEE
+    divisions on the card too)."""
+    s = true_div(torch.amax(torch.abs(x32), dim=dim, keepdim=True), 127.0)
+    return torch.round(x32 / torch.clamp(s, min=1e-12)).to(torch.int8), s
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) int8 @ b (K, N) int8 -> (M, N) int32, exact (int32
+    accumulation). On the card this is cuBLAS through `torch._int_mm`, which
+    takes M > 16 and K, N multiples of 8: zero rows and columns pad the
+    operands up to that (exact) and are cut from the result. On the CPU an
+    int32 product."""
+    if a.device.type != "cuda":
+        return torch.mm(a.to(torch.int32), b.to(torch.int32))
+    m, k = a.shape
+    n = b.shape[1]
+    mp, kp, np_ = max(-(-m // 8) * 8, 24), -(-k // 8) * 8, -(-n // 8) * 8
+    if (mp, kp) != (m, k):
+        a = F.pad(a, (0, kp - k, 0, mp - m))
+    if (kp, np_) != (k, n):
+        b = F.pad(b, (0, np_ - n, 0, kp - k))
+    return torch._int_mm(a.contiguous(), b)[:m, :n]
+
+
+def dense_w8a8(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The JAX layer's W8A8 dense (`KDense(int8=True)`): the weight (out, in)
+    per output and x (..., in) per row quantized to int8 symmetrically in
+    float32, the int32 product, then acc * sx * sw + b in float32, rounded to
+    x's dtype."""
+    qw, sw = _symmetric_int8(weight.float(), dim=1)  # (out, in), (out, 1)
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    qx, sx = _symmetric_int8(x2, dim=1)              # (M, in), (M, 1)
+    acc = int8_matmul(qx, qw.t())
+    y = acc.float() * sx * sw.t() + bias.float()
+    return y.reshape(*x.shape[:-1], -1).to(x.dtype)
 
 
 def w8_quantize(weight: torch.Tensor):
@@ -167,15 +218,20 @@ def prepare_w8(model: nn.Module) -> None:
 class KBatchNorm(nn.Module):
     """BatchNorm over (N, C, H, W) with flax's numerics (eps 1e-3, momentum
     0.99), step by step: y = x - mean; mul = rsqrt(var + eps) * scale;
-    y = y * mul + bias.
+    y = y * mul + bias, each step in the promoted dtype of its operands, and
+    the result rounded once to x's dtype, as flax's `_normalize` does. So
+    bfloat16 serving, whose statistics, scale and bias are cast to bfloat16,
+    rounds after every step, and mixed precision (bfloat16 x, float32
+    statistics and parameters) computes in float32 and rounds at the end.
 
     train=False uses the running statistics. train=True uses the batch mean
-    and the biased batch variance max(E[x^2] - E[x]^2, 0) in float32 over
-    N, H and W (flax's fast variance; `F.batch_norm` would update the running
-    variance with the unbiased one). The running update
-    running = 0.99 * running + 0.01 * batch is not applied in the forward:
-    the batch statistics wait in `pending` until `commit_batch_stats()`, so
-    the caller decides which forward's statistics count."""
+    and the biased batch variance max(E[x^2] - E[x]^2, 0), computed in float32
+    over N, H and W whatever x's dtype (flax's fast variance; `F.batch_norm`
+    would update the running variance with the unbiased one). The running
+    update running = 0.99 * running + 0.01 * batch is not applied in the
+    forward: the batch statistics wait in `pending` until
+    `commit_batch_stats()`, so the caller decides which forward's statistics
+    count."""
 
     momentum = 0.99
 
@@ -189,22 +245,17 @@ class KBatchNorm(nn.Module):
         self.pending = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        def v(t):
-            return t.to(x.dtype)[:, None, None]
-
         if train:
-            if x.dtype != torch.float32:
-                raise NotImplementedError("train-mode BatchNorm runs in float32 only")
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            x32 = x.float()
+            mean = x32.mean(dim=(0, 2, 3))
+            var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
             self.pending = (mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var
-        y = x - v(mean)
-        mul = torch.rsqrt(v(var) + const(self.eps, x.dtype, x.device))
-        mul = mul * v(self.weight)
-        y = y * mul
-        return y + v(self.bias)
+        y = x - mean[:, None, None]
+        mul = torch.rsqrt(var + const(self.eps, var.dtype, var.device)) * self.weight
+        y = y * mul[:, None, None]
+        return (y + self.bias[:, None, None]).to(x.dtype)
 
     @torch.no_grad()
     def commit_batch_stats(self) -> None:

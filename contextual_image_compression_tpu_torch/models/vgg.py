@@ -44,10 +44,13 @@ def conv_names():
 
 def preprocess_caffe(img: torch.Tensor) -> torch.Tensor:
     """(B, 3, H, W) RGB in [-1, 1] -> caffe-style VGG input: [0, 255], BGR,
-    ImageNet BGR means subtracted (the channel axis is dim 1)."""
+    ImageNet BGR means subtracted (the channel axis is dim 1). As in the JAX
+    function, the scaling runs in img's dtype (a bfloat16 image rounds after
+    the add and after the multiply) and the float32 means promote the
+    result to float32."""
     x = (img + 1.0) * 127.5
     x = x.flip(1)
-    mean = torch.tensor(BGR_MEAN, dtype=x.dtype, device=x.device)
+    mean = torch.tensor(BGR_MEAN, dtype=torch.float32, device=x.device)
     return x - mean[:, None, None]
 
 

@@ -116,8 +116,6 @@ def create_saliency_mask(
 
 
 def _check_config(cfg: SaliencyConfig) -> None:
-    if not cfg.spectral_dft_matmul:
-        raise NotImplementedError("the FFT spectral core (spectral_dft_matmul=False) is not ported")
     if cfg.mask_engine_dtype != "float32":
         raise NotImplementedError(f"mask_engine_dtype={cfg.mask_engine_dtype!r} is not ported")
     if not cfg.mask_use_pallas:
@@ -145,7 +143,7 @@ def compute_contextual_mask(
         gray255 = gray255[None]
     gray255 = gray255.contiguous()
     spec = saliency_ops.spectral_residual_small(
-        gray255, cfg.spectral_resolution, cfg.spectral_blur_sigma
+        gray255, cfg.spectral_resolution, cfg.spectral_blur_sigma, cfg.spectral_dft_matmul
     ).contiguous()
     out = contextual_mask(
         gray255, spec,

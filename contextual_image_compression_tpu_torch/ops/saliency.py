@@ -9,7 +9,10 @@ normalize. Every linear map is an explicit operator matrix built the way the
 JAX package builds it (jax.image.resize's weights, the f64 mod-n DFT, the
 reflect-101 box and blur), and the products run in full float32: with
 reduced-precision passes the log-amplitude cancellation moves the final mask
-by up to 3.5e-2.
+by up to 3.5e-2. `SaliencyConfig(spectral_dft_matmul=False)` takes the FFT
+core instead (`torch.fft`; XLA's CPU FFT, torch's CPU FFT and cuFFT round
+differently, so it agrees with the JAX FFT core to float32 noise, not bit
+for bit).
 
 This is plain PyTorch on purpose: it is a handful of (B*64, 64) x (64, 64)
 products per image.
@@ -139,12 +142,30 @@ def _spectral_core_dft(small: torch.Tensor) -> torch.Tensor:
     return (gr * gr + gi * gi) * (1.0 / float(n) ** 4)
 
 
+def _spectral_core_fft(small: torch.Tensor) -> torch.Tensor:
+    """The same core through `torch.fft` (cuFFT on the card), as the JAX
+    package's `_spectral_core_fft` computes it with `jnp.fft`: the phase
+    factor folded as in the DFT core, the result |ifft2(R)|^2."""
+    n = small.shape[-1]
+    bm = torch.from_numpy(box_op_matrix(n, 3)).to(small.device)
+    f = torch.fft.fft2(small)
+    fr, fi = f.real, f.imag
+    amplitude = torch.sqrt(fr * fr + fi * fi)
+    log_amp = torch.log(amplitude + 1e-9)
+    residual = log_amp - (bm @ log_amp) @ bm.T
+    scale = torch.exp(residual) / torch.clamp(amplitude, min=1e-30)
+    return torch.abs(torch.fft.ifft2(torch.complex(fr * scale, fi * scale))) ** 2
+
+
 def spectral_residual_small(
-    image: torch.Tensor, resolution: int = 64, blur_sigma: float = 3.0
+    image: torch.Tensor, resolution: int = 64, blur_sigma: float = 3.0,
+    dft_matmul: bool = True,
 ) -> torch.Tensor:
     """The spectral-residual map at `resolution`^2, min-max normalized and not
     upsampled. image: (..., H, W, 3) in [-1, 1] or (..., H, W) gray255.
-    Returns (..., resolution, resolution) float32."""
+    dft_matmul: the DFT as float32 matrix products (`SaliencyConfig`'s
+    default), else the FFT core. Returns (..., resolution, resolution)
+    float32."""
     gray = _as_gray(image)
     h, w = gray.shape[-2], gray.shape[-1]
     lead = gray.shape[:-2]
@@ -154,7 +175,7 @@ def spectral_residual_small(
         wdn_h = torch.from_numpy(resize_op_matrix(h, resolution)).to(dev)
         wdn_w = torch.from_numpy(resize_op_matrix(w, resolution)).to(dev)
         small = (wdn_h @ g3) @ wdn_w.T
-        sal = _spectral_core_dft(small)
+        sal = (_spectral_core_dft if dft_matmul else _spectral_core_fft)(small)
         ksize = int(2 * math.ceil(3.0 * blur_sigma) + 1)
         blur = torch.from_numpy(blur_op_matrix(resolution, ksize, blur_sigma)).to(dev)
         sal = (blur @ sal) @ blur.T
@@ -163,7 +184,8 @@ def spectral_residual_small(
 
 
 def spectral_residual_saliency(
-    image: torch.Tensor, resolution: int = 64, blur_sigma: float = 3.0
+    image: torch.Tensor, resolution: int = 64, blur_sigma: float = 3.0,
+    dft_matmul: bool = True,
 ) -> torch.Tensor:
     """The spectral-residual map at the image's size: the `resolution`^2 map
     upsampled by the two linear-resize operator matrices. image: (..., H, W, 3)
@@ -171,7 +193,8 @@ def spectral_residual_saliency(
     gray = _as_gray(image)
     h, w = gray.shape[-2], gray.shape[-1]
     lead = gray.shape[:-2]
-    sal = spectral_residual_small(gray, resolution, blur_sigma).reshape(-1, resolution, resolution)
+    sal = spectral_residual_small(gray, resolution, blur_sigma, dft_matmul)
+    sal = sal.reshape(-1, resolution, resolution)
     dev = sal.device
     with _full_fp32_matmul(dev):
         up_h = torch.from_numpy(resize_op_matrix(resolution, h)).to(dev)
@@ -199,14 +222,13 @@ def compute_saliency_map(image: torch.Tensor, method: str = "combined", config=N
     0.6 spectral + 0.4 fine). image: (..., H, W, 3) in [-1, 1] or (..., H, W)
     gray255. Returns (..., H, W) float32 in [0, 1]."""
     cfg = config or SaliencyConfig()
-    if not cfg.spectral_dft_matmul and method != "fine_grained":
-        raise NotImplementedError("the FFT spectral core (spectral_dft_matmul=False) is not ported")
+    spectral = (cfg.spectral_resolution, cfg.spectral_blur_sigma, cfg.spectral_dft_matmul)
     if method == "spectral_residual":
-        return spectral_residual_saliency(image, cfg.spectral_resolution, cfg.spectral_blur_sigma)
+        return spectral_residual_saliency(image, *spectral)
     if method == "fine_grained":
         return fine_grained_saliency(image, cfg.fine_grained_scales)
     if method == "combined":
-        spec = spectral_residual_saliency(image, cfg.spectral_resolution, cfg.spectral_blur_sigma)
+        spec = spectral_residual_saliency(image, *spectral)
         fine = fine_grained_saliency(image, cfg.fine_grained_scales)
         return iops.normalize_max(
             cfg.combined_spectral_weight * spec + cfg.combined_fine_weight * fine)

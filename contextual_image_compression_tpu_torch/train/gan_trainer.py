@@ -103,7 +103,8 @@ class GANStepBuilder:
             codec = AdaptiveCodec(mcfg)
             disc = Discriminator(mcfg.img_size, mcfg.channels, mcfg.disc_base_filters,
                                  mcfg.disc_max_filters, mcfg.disc_max_stages,
-                                 mcfg.disc_dense_units, mcfg.leaky_slope)
+                                 mcfg.disc_dense_units, mcfg.leaky_slope,
+                                 dtype=mcfg.compute_dtype())
         codec.reset_parameters(seed)
         disc.reset_parameters(torch.Generator(device=self.device).manual_seed(seed + 1))
 

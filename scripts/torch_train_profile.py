@@ -1,10 +1,13 @@
 """Where the time of the PyTorch port's full-width GAN training step goes, on one GPU.
 
     python3 scripts/torch_train_profile.py [--steps 6] [--out-dir profile_out]
+                                           [--precision float32|mixed]
 
 Builds GANTrainer(TrainConfig(vgg_weights_path="random:0"), device="cuda")
 (TrainConfig() defaults: 256^2, D = 512, B = 16, float32 with TF32 off,
-random VGG19 perceptual loss), masks 16 synthetic images through K1, then:
+random VGG19 perceptual loss; --precision mixed: ModelConfig(dtype=
+"bfloat16", param_dtype="float32"), VGG19 still float32), masks 16
+synthetic images through K1, then:
 
   * times the phases of the step with CUDA events (codec forward, D phase,
     G/LS/RD losses with the perceptual and discriminator forwards plus the
@@ -14,7 +17,8 @@ random VGG19 perceptual loss), masks 16 synthetic images through K1, then:
   * traces 4 steps (2 with D, 2 without) with torch.profiler and prints the
     CUDA kernels by total device time and the device-busy share of the
     traced wall time, beside the card's name and power limit. The Chrome
-    trace and a JSON summary go to --out-dir.
+    trace and a JSON summary go to --out-dir (train_trace_<precision>.json,
+    train_profile_<precision>.json).
 
 It needs a CUDA device and exits 1 without one.
 """
@@ -36,11 +40,12 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--out-dir", default="profile_out")
+    ap.add_argument("--precision", choices=["float32", "mixed"], default="float32")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    from contextual_image_compression_tpu_torch.config import TrainConfig
+    from contextual_image_compression_tpu_torch.config import ModelConfig, TrainConfig
     from contextual_image_compression_tpu_torch.data.images import synthetic_images
     from contextual_image_compression_tpu_torch.data.pipeline import (
         CompressionDataset, prepare_masks)
@@ -50,11 +55,13 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_name_and_power()
-    print(card, flush=True)
+    print(f"{card}; precision {args.precision}", flush=True)
     dev = torch.device("cuda")
     # the trainer's checkpoint store makes its directory; this run saves nothing
     ckpt_dir = tempfile.TemporaryDirectory()
-    cfg = TrainConfig(vgg_weights_path="random:0", model_dir=ckpt_dir.name)
+    mcfg = ModelConfig(dtype="bfloat16" if args.precision == "mixed" else "float32",
+                       param_dtype="float32")
+    cfg = TrainConfig(model=mcfg, vgg_weights_path="random:0", model_dir=ckpt_dir.name)
     imgs = synthetic_images(cfg.batch_size, cfg.model.img_size, seed=0)
     ds = CompressionDataset(imgs, prepare_masks(imgs, cfg.saliency, device=dev),
                             batch_size=cfg.batch_size, device_resident=True, device=dev)
@@ -113,7 +120,7 @@ def main():
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     os.makedirs(args.out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(args.out_dir, "train_trace.json"))
+    prof.export_chrome_trace(os.path.join(args.out_dir, f"train_trace_{args.precision}.json"))
     rows = []
     for ev in prof.key_averages():
         # device-side kernels, copies and sets only: user ranges such as
@@ -133,7 +140,7 @@ def main():
     for self_dev, count, key in rows[:40]:
         print(f"  {self_dev / 1e3 / 4:9.4f} ms/step  {100 * self_dev / busy_us:5.1f}%  "
               f"x{count / 4:<6.1f} {key[:110]}", flush=True)
-    with open(os.path.join(args.out_dir, "train_profile.json"), "w") as f:
+    with open(os.path.join(args.out_dir, f"train_profile_{args.precision}.json"), "w") as f:
         json.dump({"card": card, "batch": cfg.batch_size, "phase_ms": times,
                    "step_ms": step_ms, "perceptual_ms": perc_ms, "traced_wall_ms": wall_ms,
                    "device_busy_ms": busy_us / 1e3,

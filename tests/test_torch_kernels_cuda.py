@@ -7,7 +7,9 @@ K2 and K6 in bf16 at every key width (DK 4..64) and value width, N from 1 to
 1024 at B = 1 and 3, on unaligned inputs and with every row's max in the last
 key tile, K2 and K6 in float32 (three TF32 passes, route "tf32x3") at DK 5
 and 33, DV 64 and 256, N 1, 100 and 1024, on unaligned inputs and with every
-row's max in the last key tile, K3b under autograd, K4 on non-square and
+row's max in the last key tile, K3b under autograd, K2 in bf16 under autograd (mixed-precision training)
+on the "wgmma" route, the W8A8 int8 product (`torch._int_mm`) against the
+exact CPU product, K4 on non-square and
 all-zero maps, K5 at the smallest and a ragged width, at the extreme quality
 tables, at B = 128 (the persistent walk wrapping many times) and on unaligned
 planes, K6 and K7 at ragged N
@@ -185,6 +187,73 @@ def test_k2_backward_runs_through_plain_formula(dev):
     grads = torch.autograd.grad(attention_block_plain(q, k, v, v, g).sum(), (q, k, v, g))
     for got, want in zip((q.grad, k.grad, v.grad, g.grad), grads):
         assert torch.allclose(got, want, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,n,dk,dv", [(16, 1024, 32, 256), (4, 16, 3, 24)],
+                         ids=["full-width", "tiny-mixed"])
+def test_k2_bf16_under_autograd_takes_the_wgmma_route(dev, b, n, dk, dv):
+    """K2 in mixed-precision training: bf16 q, k, v and residual that need
+    gradients and gamma cast from a float32 parameter, as SelfAttention
+    gives them. The forward launches the kernel once on the "wgmma" route
+    (>= 99% of outputs bit-identical to the twin, the rest within one bf16
+    ulp of the output's scale); the backward is autograd over the twin, so
+    every gradient equals the twin's own autograd bit for bit, and gamma's
+    reaches the float32 parameter in float32."""
+    gen = torch.Generator(device=dev).manual_seed(b * n + dk)
+
+    def mk(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen) * scale).to(torch.bfloat16)
+
+    base = [mk(b, n, dk, scale=0.5), mk(b, n, dk, scale=0.5), mk(b, n, dv), mk(b, n, dv)]
+    up = mk(b, n, dv)
+    grads = []
+    for fn in ("kernel", "twin"):
+        ins = [t.clone().requires_grad_(True) for t in base]
+        gamma_p = torch.nn.Parameter(torch.full((1,), 0.5, device=dev))
+        gamma = gamma_p.to(torch.bfloat16)[0]
+        if fn == "kernel":
+            out, route = _route_of(attention_block, lambda: attention_block(*ins, gamma))
+            assert route == "wgmma" and out.dtype == torch.bfloat16
+            kernel_out = out
+        else:
+            out = attention_block_plain(*ins, gamma.float())
+            assert out.dtype == torch.bfloat16
+            same = (kernel_out == out).float().mean().item()
+            err = (kernel_out.float() - out.float()).abs().max().item()
+            assert same >= 0.99 and err <= 2 ** -8 * out.float().abs().max().item(), (same, err)
+        out.backward(up)
+        assert gamma_p.grad.dtype == torch.float32
+        grads.append([t.grad for t in ins] + [gamma_p.grad])
+    for got, want in zip(*grads):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 131072, 1024), (16, 1024, 131072), (3, 100, 20),
+                                   (40, 64, 8)])
+def test_int8_matmul_and_w8a8_dense_match_the_cpu(dev, m, k, n):
+    """`torch._int_mm` (cuBLAS) through `layers.int8_matmul`, rows padded to
+    24 and K, N to multiples of 8 with zeros, against the exact int32
+    product on the CPU; at the full-width latent dense and fc shapes (B =
+    16) with saturated +-127 rows among random ones. The W8A8 dense built on
+    it (`layers.dense_w8a8`) equals the CPU's bit for bit: its float32 steps
+    are IEEE divisions, products and roundings on both."""
+    from contextual_image_compression_tpu_torch.models.layers import dense_w8a8, int8_matmul
+
+    gen = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    a[0] = 127
+    b = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    b[:, 0] = 127
+    got = int8_matmul(a.to(dev), b.to(dev))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), int8_matmul(a, b))
+    x = torch.randn(m, k, generator=gen).to(torch.bfloat16)
+    x[1 % m] = 0
+    w = torch.randn(n, k, generator=gen) * 0.02
+    bias = torch.randn(n, generator=gen) * 0.1
+    y = dense_w8a8(x.to(dev), w.to(dev), bias.to(dev))
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y.cpu(), dense_w8a8(x, w, bias))
 
 
 def _bf16_attention(dev, kind, b, n, dk, dv, seed, misalign=False):

@@ -207,9 +207,20 @@ def test_enhance_saliency_map_matches_jax():
     dict(mask_use_pallas=False, method="fine_grained"),
 ], ids=["fft-core", "fft-core-spectral", "bf16-engine", "bf16-engine-fine", "no-pallas-fine"])
 def test_unported_mask_options_raise(change):
-    """The FFT spectral core and the bf16 mask engine are not ported, and the
-    port has no plain path on the card: these configs raise."""
+    """The bf16 mask engine is not ported, and the port has no plain path on
+    the card: these configs raise. The FFT spectral core
+    (spectral_dft_matmul=False) is ported: its cases compute the mask, within
+    1e-4 of the JAX package's (tests/test_torch_w8a8_fft.py holds the FFT
+    core's maps, thresholds and binary masks)."""
     cfg = dataclasses.replace(SaliencyConfig(), **change)
+    if not cfg.spectral_dft_matmul:
+        u8 = _rich_u8(2, 32, seed=9)
+        got = tmasks.compute_contextual_mask(torch.from_numpy(u8), cfg).numpy()
+        want = jmasks.compute_contextual_mask(
+            jnp.asarray(u8), dataclasses.replace(JSaliencyConfig(), **change))
+        assert got.shape == (2, 32, 32) and got.dtype == np.float32
+        np.testing.assert_allclose(got, np.asarray(want), atol=1e-4)
+        return
     with pytest.raises(NotImplementedError):
         tmasks.compute_contextual_mask(torch.zeros((1, 32, 32, 3), dtype=torch.uint8), cfg)
 

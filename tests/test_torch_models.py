@@ -269,14 +269,24 @@ def test_convert_keeps_every_parameter(small_codec_variables):
 
 
 def test_codec_rejects_training_mode():
-    """Training runs in float32 on the native layers: train mode refuses the
-    bf16 serving dtype and the w8 serving lowering (mixed precision comes
-    with a later slice)."""
+    """Train mode refuses the w8 serving lowering (its int8 weights are
+    installed for inference). The bf16 compute dtype trains: mixed precision
+    runs the train-mode forward in bf16 on the float32 parameters, and the
+    backward lands float32 gradients on them
+    (tests/test_torch_mixed_precision.py holds the step against JAX)."""
     img, mask, bpp = _codec_inputs()
-    for cfg in (ModelConfig(**SMALL_KW, dtype="bfloat16"), ModelConfig(**SMALL_KW, dense_w8=True)):
-        with pytest.raises(NotImplementedError):
-            AdaptiveCodec(cfg).apply(torch.from_numpy(img), torch.from_numpy(mask),
-                                     torch.from_numpy(bpp), train=True)
+    with pytest.raises(NotImplementedError):
+        AdaptiveCodec(ModelConfig(**SMALL_KW, dense_w8=True)).apply(
+            torch.from_numpy(img), torch.from_numpy(mask), torch.from_numpy(bpp), train=True)
+    codec = AdaptiveCodec(ModelConfig(**SMALL_KW, dtype="bfloat16", param_dtype="float32"))
+    codec.reset_parameters(0)
+    out = codec.apply(torch.from_numpy(img), torch.from_numpy(mask), torch.from_numpy(bpp),
+                      train=True, detach_for_training=True)
+    assert out.blended.dtype == out.hq_latent.dtype == torch.bfloat16
+    out.blended.float().square().mean().backward()
+    grads = [p.grad for p in codec.hq_encoder.parameters()]
+    assert all(g is not None and g.dtype == torch.float32 for g in grads)
+    assert all(p.dtype == torch.float32 for p in codec.parameters())
     cfg = ModelConfig(**SMALL_KW)
     assert dataclasses.replace(cfg, skip_mode="zero").resolved_quantizer().grad_mode == "ste"
 
