@@ -129,6 +129,33 @@ step 17:
    second, 2 epochs of fit at B = 16, a save / load round trip bitwise, and
    no kernel launch.
 
+The evaluation slice adds four phases:
+
+(a) after the builds, prints which of cv2, PIL, matplotlib, jpeglib.h,
+   png.h, libjpeg.so and libpng.so the machine has, beside CARD_LIBRARIES
+   (what the card's machine had when this was written, which fixes the
+   routes of (c) and (d) in the source), and checks that the native image
+   loader builds exactly where that record says it can (it does not there:
+   no libjpeg / libpng headers);
+(b) at the end, holds K1's bf16 route (compute_dtype=bfloat16, the TPU
+   kernel's bf16 compute) against its bf16 twin at B = 16, 256^2, bit for
+   bit, and within 5e-2 of the float32 kernel, one kernel per call, its
+   tiled route at (2, 512, 512), and times it beside the float32 route;
+(c) runs the evaluation entry point at full width: the seeded codec written
+   in JAX's layout to a temporary model_dir, CodecEvaluator with
+   SaliencyConfig(mask_engine_dtype='bfloat16') through load_models,
+   prepare_masks (K1 bf16 +1), test_compression (3 bpps) and
+   test_rate_control (10 bpps) over the 16 JPEGs of
+   runs/ae_ref/compressed_outputs, with each bpp's PSNR, SSIM, analytic and
+   measured bpp and each call's wall time (K2 +1 on "tf32x3" and K3 +2 per
+   codec forward); then the JAX-trained tiny GAN through the same evaluator,
+   card against the CPU port within the bars of tests/test_torch_eval.py;
+(d) evaluate_autoencoder on runs/ae_ref over the same JPEGs, card against
+   the CPU port, no kernel launch.
+
+K1's bf16 launches are counted apart (`launch_counts()`: 'K1' float32,
+'K1bf16' bf16) and K1bf16 has its own line in the kernels JSON.
+
 K7a / K7b and K8 are also timed against their float32 library calls with
 TF32 off: the SAGAN block composed of F.linear and softmax(q k^T) v in three
 calls (and SelfAttention.forward, F.linear + K2), and
@@ -154,6 +181,8 @@ import torch
 T_START = time.time()
 H100_BF16_TFLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_FP32_TFLOPS = 67e12   # CUDA-core float32 peak
+# CUDA-core bf16 peak outside the tensor cores (packed bf16x2, H100 SXM white paper)
+H100_BF16_CUDA_CORE_TFLOPS = 134e12
 H100_TF32_TFLOPS = 495e12  # dense TF32 tensor-core peak
 H100_HBM_BYTES_S = 3.35e12
 
@@ -162,20 +191,39 @@ def log(msg):
     print(msg, flush=True)
 
 
-def expect(**nonzero):
-    """A full launch-count dict: the given kernels at their counts, every
-    other kernel at 0."""
+def launch_counts():
+    """The port's launch counts (ops.launch_counts()) with K1's two routes
+    apart: 'K1' its float32 launches, 'K1bf16' its bf16 ones (the
+    wrapper's routes 'cluster_bf16' and 'tiled_bf16')."""
     from contextual_image_compression_tpu_torch import ops
 
-    unknown = set(nonzero) - set(ops.KERNEL_WRAPPERS)
+    counts = ops.launch_counts()
+    routes = ops.route_counts()["K1"]
+    counts["K1bf16"] = routes["cluster_bf16"] + routes["tiled_bf16"]
+    counts["K1"] -= counts["K1bf16"]
+    return counts
+
+
+def expect(**nonzero):
+    """A full launch-count dict (as launch_counts() gives it): the given
+    kernels at their counts, every other kernel at 0."""
+    from contextual_image_compression_tpu_torch import ops
+
+    keys = (*ops.KERNEL_WRAPPERS, "K1bf16")
+    unknown = set(nonzero) - set(keys)
     if unknown:
         raise KeyError(f"unknown kernels {unknown}")
-    return {k: nonzero.get(k, 0) for k in ops.KERNEL_WRAPPERS}
+    return {k: nonzero.get(k, 0) for k in keys}
 
 
 def bound_ms(nbytes, ops, peak_ops):
+    """The bound in ms and what sets it. ops and peak_ops may be equal-length
+    tuples: work of several types on the same units, whose times add."""
     t_bytes = nbytes / H100_HBM_BYTES_S
-    t_ops = ops / peak_ops
+    if isinstance(ops, tuple):
+        t_ops = sum(o / pk for o, pk in zip(ops, peak_ops, strict=True))
+    else:
+        t_ops = ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -243,7 +291,7 @@ def check_attention_route(label, route):
 
     routes = {key: counts for key, counts in ops.route_counts().items() if key in ("K2", "K6")}
     for key, counts in routes.items():
-        if counts[route] != ops.launch_counts()[key]:
+        if counts[route] != launch_counts()[key]:
             raise AssertionError(f"{label}: {key} routes {counts}, want {route} only")
     log(f"{label}: attention routes {routes}")
     return routes
@@ -255,7 +303,8 @@ def check_cluster_route(label):
 
     routes = {key: counts for key, counts in ops.route_counts().items() if key in ("K1", "K4")}
     for key, counts in routes.items():
-        if counts["tiled"] or counts["cluster"] != ops.launch_counts()[key]:
+        cluster = sum(n for route, n in counts.items() if route.startswith("cluster"))
+        if cluster != sum(counts.values()) or cluster != ops.KERNEL_WRAPPERS[key].launches:
             raise AssertionError(f"{label}: {key} routes {counts}, want the cluster route only")
     log(f"{label}: mask kernel routes {routes}")
     return routes
@@ -592,11 +641,11 @@ def run_full_pipeline(dev, card):
     ops.reset_launch_counts()
     times = []
     for i in range(3):
-        before = ops.launch_counts()
+        before = launch_counts()
         t = time.perf_counter()
         dec, info = pipe(u8, target_bpp=1.0)  # ends in a device->host copy
         times.append(time.perf_counter() - t)
-        after = ops.launch_counts()
+        after = launch_counts()
         delta = {k: after[k] - before[k] for k in after}
         if delta != expect(K1=1, K2=1, K3=2):
             raise AssertionError(f"call {i}: kernel launches {delta}, want K1 1, K2 1, K3 2, "
@@ -610,7 +659,7 @@ def run_full_pipeline(dev, card):
                 raise AssertionError(f"{key}: shape {tuple(val.shape)} or non-finite values")
         if info["hq_symbols"].dtype != torch.float32:
             raise AssertionError("symbols must be float32")
-    counts = ops.launch_counts()
+    counts = launch_counts()
     check_cluster_route("serving")
     check_attention_route("serving", "wgmma")
     med = float(np.median(times))
@@ -653,11 +702,11 @@ def run_w8a8_serving(dev, card):
     counts = expect()  # the W8A8 calls' launches
     for name in ("w8a8", "w8", "w8", "w8a8", "w8a8", "w8"):
         pipe = w8a8 if name == "w8a8" else w8
-        before = ops.launch_counts()
+        before = launch_counts()
         t = time.perf_counter()
         dec, info = pipe(u8, target_bpp=1.0)
         times[name].append(time.perf_counter() - t)
-        after = ops.launch_counts()
+        after = launch_counts()
         delta = {k: after[k] - before[k] for k in after}
         if delta != expect(K1=1, K2=1, K3=2):
             raise AssertionError(f"{name} call: kernel launches {delta}")
@@ -702,7 +751,7 @@ def run_fft_core_masks(dev, card):
     ops.reset_launch_counts()
     got = {name: masks.compute_contextual_mask(x, cfg) for name, cfg in cases.items()}
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts = launch_counts()
     if counts != expect(K1=1, K4=1):
         raise AssertionError(f"FFT-core mask launches {counts}, want K1 1, K4 1")
     check_cluster_route("FFT-core masks")
@@ -1034,11 +1083,11 @@ def check_small_mixed_step_against_cpu(dev):
     loss_err, grad_rel, sign, within, worst, stat_err = {}, 0.0, 1.0, 1.0, 0.0, 0.0
     for do_d in (True, False):
         _train_restore(sides[1][1], _train_snapshot(sides[0][1]))
-        before = ops.launch_counts()
+        before = launch_counts()
         with _PinnedVggDecisions() as pinned:
             (mc, gc, sc, uc), (mg, gg, sg, ug) = step(sides[0], do_d), step(sides[1], do_d)
             pinned.drained()
-        after = ops.launch_counts()
+        after = launch_counts()
         delta = {k: after[k] - before[k] for k in after}
         if delta != expect(K2=1, K3=2, K3b=2):
             raise AssertionError(f"tiny mixed step on the card launched {delta}")
@@ -1122,7 +1171,7 @@ def run_full_training(dev, card, model_dir):
     t_fit = time.perf_counter() - t0
     probe = trainer.rate_control_probe(ds.first_samples())
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     want = expect(K1=1, K2=5 + 3, K3=2 * 5 + 2 * 3, K3b=2 * 5)
     if counts != want:
@@ -1235,7 +1284,7 @@ def run_mixed_training(dev, card, model_dir, f32_times):
     t_fit = time.perf_counter() - t0
     probe = trainer.rate_control_probe(ds.first_samples())
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     want = expect(K1=1, K2=5 + 3, K3=2 * 5 + 2 * 3, K3b=2 * 5)
     if counts != want:
@@ -1419,7 +1468,7 @@ def run_jax_trained_serving(dev, card):
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     dec, info = pipe(u8, target_bpp=bpp)
-    counts = ops.launch_counts()
+    counts = launch_counts()
     if counts != expect(K1=1, K2=1, K3=2):
         raise AssertionError(f"JAX-trained serving launches {counts}, want K1 1, K2 1, K3 2")
     check_cluster_route("JAX-trained serving")
@@ -1494,7 +1543,7 @@ def run_checkpoint_serving(dev, card):
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         dec, info = pipe(u8, target_bpp=1.0)
-        counts = ops.launch_counts()
+        counts = launch_counts()
         if counts != expect(K1=1, K2=1, K3=2):
             raise AssertionError(f"checkpoint serving launches {counts}, want K1 1, K2 1, K3 2")
         check_cluster_route("checkpoint serving")
@@ -1560,7 +1609,7 @@ def run_autoencoder(dev, card):
         back.load(tmp)
     same = all(torch.equal(a, b) for a, b in zip(fresh.model.state_dict().values(),
                                                   back.model.state_dict().values()))
-    counts = ops.launch_counts()
+    counts = launch_counts()
     log(f"autoencoder from runs/ae_ref on {card}: 64 images 128^2, card vs CPU port max |diff| "
         f"{err:.3e} (bar 1e-5); ae_metrics mean psnr {m['psnr']:.3f} dB, ssim {m['ssim']:.4f}, "
         f"mse {m['mse']:.3f}; reconstruct {med * 1e3:.2f} ms, {64 / med:.1f} img/s (host clock, "
@@ -1665,7 +1714,7 @@ def run_mask_path(dev, card):
     binary = masks.create_saliency_mask(sal, smooth=False)
     thresholds = masks.adaptive_threshold(sal)
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts = launch_counts()
     want = expect(K4=2 * (n // batch))
     if counts != want:
         raise AssertionError(f"mask path launches {counts}, want {want}")
@@ -1828,7 +1877,7 @@ def run_dct_path(dev, card):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     med = float(np.median(times))
-    counts = ops.launch_counts()
+    counts = launch_counts()
     want = expect(K5=6 + 2 + 5)
     if counts != want:
         raise AssertionError(f"DCT path launches {counts}, want {want}")
@@ -2171,7 +2220,7 @@ def run_entry_points(dev, B, codec):
         "packed_tail_forward(use_pallas=True)": _tail_forward(codec.hq_generator, tail_in, True),
     }
     torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    counts = launch_counts()
     want = expect(K6=1, K7a=1, K7b=1, K8=1)
     if counts != want:
         raise AssertionError(f"entry-point launches {counts}, want {want}")
@@ -2248,7 +2297,7 @@ def run_codec_path(dev, card):
     t0 = time.perf_counter()
     decoded = pipe.decode_from_bitstream(streams)  # ends in a device->host copy
     t_dec = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = launch_counts()
     want = expect(K1=1, K2=1, K3=2)
     if counts != want:
         raise AssertionError(f"storable codec launches {counts}, want {want}")
@@ -2274,6 +2323,318 @@ def run_codec_path(dev, card):
     if [bs.unpack_container(s)["img_hw"] for s in streams[:1]] != [(256, 256)]:
         raise AssertionError("container header")
     return counts
+
+
+# What the card's machine has, as evaluation phase (a) printed it on the first chip run
+# of the evaluation slice ("NVIDIA H100 80GB HBM3, 700.00 W"): cv2 and PIL
+# import, matplotlib does not, and libjpeg's and libpng's headers and shared
+# libraries are missing, so native/image_loader.cpp does not build there.
+# Evaluation phases (c) and (d) take their routes from this record, not from a try at
+# run time: images decoded with cv2 (load_folder_gan(use_native=False)), no
+# figures (save_artifacts=False; metrics.txt and the CSV are written by
+# hand), JPEGs written with cv2.
+CARD_LIBRARIES = {"cv2": True, "PIL": True, "matplotlib": False, "jpeglib.h": False,
+                  "png.h": False, "libjpeg.so": False, "libpng.so": False}
+CARD_DECODER = "cv2" if CARD_LIBRARIES["cv2"] else ("pil" if CARD_LIBRARIES["PIL"] else None)
+CARD_NATIVE_LOADER = all(CARD_LIBRARIES[k] for k in ("jpeglib.h", "png.h", "libjpeg.so",
+                                                      "libpng.so"))
+CARD_FIGURES = CARD_DECODER is not None and CARD_LIBRARIES["matplotlib"]
+EVAL_IMAGES = pathlib.Path(__file__).resolve().parent / "runs" / "ae_ref" / "compressed_outputs"
+# card vs CPU port per image, the bars of tests/test_torch_eval.py (port vs JAX)
+EVAL_BARS = {"psnr": 1e-4, "ssim": 1e-5, "mse": 1e-6, "compression_ratio": 1e-4,
+             "actual_bpp": 1e-6, "measured_bpp": 0.0, "hq_ratio": 1e-5}
+
+
+def probe_libraries():
+    """Evaluation phase (a): which image and plot libraries the machine has, beside
+    CARD_LIBRARIES; then the native image loader's build, which must succeed
+    exactly where the record says the headers and libraries are."""
+    import ctypes
+    import ctypes.util
+    import importlib.util
+
+    from contextual_image_compression_tpu_torch import native
+
+    def header(name):
+        return any(os.path.exists(os.path.join(d, name))
+                   for d in ("/usr/include", "/usr/local/include", "/usr/include/x86_64-linux-gnu"))
+
+    found = {"cv2": importlib.util.find_spec("cv2") is not None,
+             "PIL": importlib.util.find_spec("PIL") is not None,
+             "matplotlib": importlib.util.find_spec("matplotlib") is not None,
+             "jpeglib.h": header("jpeglib.h"), "png.h": header("png.h"),
+             "libjpeg.so": ctypes.util.find_library("jpeg") is not None,
+             "libpng.so": (ctypes.util.find_library("png16") or ctypes.util.find_library("png"))
+             is not None}
+    log(f"libraries: {json.dumps(found)}; recorded for the card's machine: "
+        f"{json.dumps(CARD_LIBRARIES)}{'' if found == CARD_LIBRARIES else ' (THEY DIFFER)'}")
+    t0 = time.time()
+    # built anew into an empty directory, so that no earlier build decides
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            why = str(native.build_loader(pathlib.Path(tmp)))
+            ctypes.CDLL(why)
+            built = True
+        except (RuntimeError, OSError) as e:
+            built, why = False, str(e).splitlines()[-3:]
+    log(f"native image loader: {'built' if built else 'does not build'} in "
+        f"{time.time() - t0:.1f} s ({why}); recorded: "
+        f"{'builds' if CARD_NATIVE_LOADER else 'does not build'}")
+    if built != CARD_NATIVE_LOADER:
+        raise AssertionError("the native image loader's build disagrees with CARD_LIBRARIES")
+
+
+def check_k1_bf16(dev, rng, B):
+    """Evaluation phase (b): K1's bf16 route against its bf16 twin on the card at B = 16,
+    256^2 (bit for bit), against the float32 kernel (JAX's 5e-2 bar), one
+    kernel per call, its tiled route at (2, 512, 512), and its times beside
+    the float32 route's."""
+    from contextual_image_compression_tpu_torch.measure import (
+        device_ms, event_ms, structured_images)
+    from contextual_image_compression_tpu_torch.ops import image_ops, saliency
+    from contextual_image_compression_tpu_torch.ops.fused_mask import (
+        contextual_mask, contextual_mask_plain)
+
+    bf = torch.bfloat16
+    u8 = torch.from_numpy(structured_images(rng, B, 256)).to(dev)
+    gray = image_ops.rgb_to_gray(u8.float()).contiguous()
+    spec = saliency.spectral_residual_small(gray, 64, 3.0).contiguous()
+    got, route = _route_of(contextual_mask, lambda: contextual_mask(gray, spec, compute_dtype=bf))
+    again = contextual_mask(gray, spec, compute_dtype=bf)
+    want = contextual_mask_plain(gray, spec, compute_dtype=bf)
+    f32 = contextual_mask(gray, spec)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    same = float((got == want).float().mean())
+    err32 = (got - f32).abs().max().item()
+    log(f"K1 bf16 route {tuple(gray.shape)}, {route}: max |kernel - bf16 twin| = {err:.3e}, "
+        f"bit-identical share {same:.6f} (bar: bit-identical); max |bf16 - float32 kernel| = "
+        f"{err32:.3e} (bar 5e-2); two calls bitwise equal: {torch.equal(got, again)}")
+    if not (err == 0.0 and route == "cluster_bf16" and torch.equal(got, again)
+            and err32 <= 5e-2):
+        raise AssertionError(f"K1 bf16: {route} route, error {err}, vs float32 {err32}")
+    per_call = one_kernel_per_call("K1 bf16", lambda: contextual_mask(gray, spec, compute_dtype=bf),
+                                   contextual_mask, "mask_cluster_kernel")
+    u8t = torch.from_numpy(structured_images(rng, 2, 512)).to(dev)
+    gray_t = image_ops.rgb_to_gray(u8t.float()).contiguous()
+    spec_t = saliency.spectral_residual_small(gray_t, 64, 3.0).contiguous()
+    got_t, route_t = _route_of(contextual_mask,
+                               lambda: contextual_mask(gray_t, spec_t, compute_dtype=bf))
+    err_t = (got_t - contextual_mask_plain(gray_t, spec_t, compute_dtype=bf)).abs().max().item()
+    tiled_ms = event_ms(lambda: contextual_mask(gray_t, spec_t, compute_dtype=bf))
+    log(f"K1 bf16 tiled route {tuple(gray_t.shape)}: {route_t}, max |kernel - twin| = "
+        f"{err_t:.3e} (bar: bit-identical), {tiled_ms:.4f} ms")
+    if not (err_t == 0.0 and route_t == "tiled_bf16"):
+        raise AssertionError(f"K1 bf16 tiled route: {route_t}, error {err_t}")
+    ms = event_ms(lambda: contextual_mask(gray, spec, compute_dtype=bf))
+    dev_ms = device_ms(lambda: contextual_mask(gray, spec, compute_dtype=bf))
+    ms32 = event_ms(lambda: contextual_mask(gray, spec))
+    dev_ms32 = device_ms(lambda: contextual_mask(gray, spec))
+    plain = event_ms(lambda: contextual_mask_plain(gray, spec, compute_dtype=bf), reps=5, warmup=1)
+    # the float32 row's count of the operations the function needs, split by
+    # type: the box sums, the bilateral taps and the Gaussian are bf16 work
+    # (the card's CUDA-core bf16 peak, 134 TFLOP/s), the entry scale, the
+    # normalizations, the upsample and blend and the bilateral's division
+    # float32 (67 TFLOP/s). This kernel issues scalar bf16 instructions,
+    # which reach half the bf16 peak at most; the bound is the card's.
+    pixels = gray.numel()
+    rmax, ntaps, ksize = 6, 49, 31
+    bf16_per_px = 8 * rmax + 7 * ntaps + 2 * 2 * ksize
+    f32_per_px = 3 + 10 + 1 + 2
+    nbytes = gray.numel() * 4 + spec.numel() * 4 + got.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, (bf16_per_px * pixels, f32_per_px * pixels),
+                          (H100_BF16_CUDA_CORE_TFLOPS, H100_FP32_TFLOPS))
+    scalar_ms = (bf16_per_px + f32_per_px) * pixels / H100_FP32_TFLOPS * 1e3
+    log(f"K1 bf16 times: kernel {ms:.4f} ms (device alone {dev_ms:.4f}); float32 route "
+        f"{ms32:.4f} ms (device alone {dev_ms32:.4f}); bf16 twin {plain:.4f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}: {bf16_per_px} bf16 operations a pixel at 134 TFLOP/s, "
+        f"{f32_per_px} float32 at 67; {scalar_ms:.4f} ms with scalar bf16 instructions), "
+        f"library none")
+    return dict(name="K1 contextual_mask, bf16 route", route="cuda",
+                source="contextual_image_compression_tpu_torch/csrc/fused_mask.cu",
+                replaces="contextual_image_compression_tpu/ops/fused_mask.py:252",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, device_ms=dev_ms, float32_ms=ms32, float32_device_ms=dev_ms32,
+                identical_share=same, max_abs_err_vs_float32=err32, mask_route=route,
+                launches_per_call=per_call, tiled_route_ms=tiled_ms,
+                tiled_route_max_abs_err=err_t,
+                bound_peak="bf16 work at the CUDA-core bf16 peak (134 TFLOP/s), float32 at 67",
+                scalar_bf16_bound_ms=scalar_ms)
+
+
+def _eval_rows(results, bpps):
+    return {bpp: {k: np.array(v) for k, v in results["by_bpp"][bpp].items()} for bpp in bpps}
+
+
+def run_evaluation(dev, card):
+    """Evaluation phase (c): the evaluation entry point at full width. The seeded
+    full-width codec written in JAX's layout to a temporary model_dir;
+    CodecEvaluator(EvalConfig(saliency=SaliencyConfig(mask_engine_dtype=
+    'bfloat16'))) through load_models, prepare_masks (K1's bf16 route),
+    test_compression (3 bpps) and test_rate_control (10 bpps, 4 images) over
+    the 16 JPEGs of runs/ae_ref/compressed_outputs (decoded as CARD_LIBRARIES
+    says), each call timed; the launch counts (K1 bf16 +1, per codec forward
+    K2 +1 on "tf32x3" and K3 +2). Then the JAX-trained tiny GAN through the
+    same evaluator at 1.0 bpp, card against the CPU port within EVAL_BARS.
+    Returns the launch counts of the full-width run."""
+    from contextual_image_compression_tpu_torch import convert, ops
+    from contextual_image_compression_tpu_torch.checkpoint import CheckpointStore
+    from contextual_image_compression_tpu_torch.config import (
+        EvalConfig, ModelConfig, SaliencyConfig)
+    from contextual_image_compression_tpu_torch.data import images as image_io
+    from contextual_image_compression_tpu_torch.data.pipeline import prepare_masks
+    from contextual_image_compression_tpu_torch.eval import plots
+    from contextual_image_compression_tpu_torch.eval.harness import CodecEvaluator
+    from contextual_image_compression_tpu_torch.utils.tree import param_bytes
+
+    bf16_masks = SaliencyConfig(mask_engine_dtype="bfloat16")
+    codec = _full_width_codec(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir, results_dir = os.path.join(tmp, "model"), os.path.join(tmp, "results")
+        need = param_bytes(codec.state_dict())
+        if shutil.disk_usage(tmp).free < 2 * need:
+            raise AssertionError(f"the codec checkpoint needs {need / 1e9:.2f} GB")
+        CheckpointStore(model_dir).save_components(convert.codec_variables(codec), "final")
+        del codec
+        cfg = EvalConfig(saliency=bf16_masks, results_dir=results_dir)
+        if CARD_DECODER is None:
+            from contextual_image_compression_tpu_torch.data.images import rich_synthetic_images
+
+            images = rich_synthetic_images(16, (256, 256), seed=33)
+            names, source = [f"synthetic_{i}.png" for i in range(16)], "rich synthetic images"
+        else:
+            images, names, _ = image_io.load_folder_gan(str(EVAL_IMAGES), cfg.model.img_size,
+                                                        use_native=CARD_NATIVE_LOADER)
+            route = image_io.load_folder_gan.last_route
+            if route != ("native" if CARD_NATIVE_LOADER else CARD_DECODER) or len(images) != 16:
+                raise AssertionError(f"read {len(images)} images by the {route} route")
+            source = f"the 16 JPEGs of runs/ae_ref/compressed_outputs by the {route} route"
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        times = {}
+        t0 = time.perf_counter()
+        ev = CodecEvaluator(cfg, device=dev)
+        weights, provenance = ev.load_models(model_dir)
+        torch.cuda.synchronize()
+        times["load_models"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        masks = prepare_masks(images, cfg.saliency, device=dev)
+        times["prepare_masks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results = ev.test_compression(weights, images, masks, names, save_artifacts=CARD_FIGURES)
+        times["test_compression"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rc = ev.test_rate_control(weights, images, masks, names, save_artifacts=CARD_FIGURES)
+        times["test_rate_control"] = time.perf_counter() - t0
+        counts = launch_counts()
+        if CARD_FIGURES:
+            plots.plot_rate_distortion_curve(results["avg_metrics"], results_dir)
+        else:  # the files that need no figure library
+            for bpp, avg in results["avg_metrics"].items():
+                bpp_dir = os.path.join(results_dir, f"bpp_{bpp}")
+                os.makedirs(bpp_dir, exist_ok=True)
+                ev._write_metrics_txt(os.path.join(bpp_dir, "metrics.txt"), bpp, avg,
+                                      results["by_bpp"][bpp], names)
+            plots.write_rate_distortion_csv(results["avg_metrics"], results_dir)
+        files = sorted(os.path.relpath(os.path.join(d, f), results_dir)
+                       for d, _, fs in os.walk(results_dir) for f in fs)
+    forwards = len(cfg.bpp_values) + cfg.rate_control_bpps
+    if sorted(provenance.values()) != ["final"] * 7:
+        raise AssertionError(f"provenance {provenance}")
+    if counts != expect(K1bf16=1, K2=forwards, K3=2 * forwards):
+        raise AssertionError(f"evaluation launches {counts}, want K1bf16 1, K2 {forwards}, "
+                             f"K3 {2 * forwards}")
+    check_cluster_route("evaluation")
+    check_attention_route("evaluation", "tf32x3")
+    avg = results["avg_metrics"]
+    for bpp, m in avg.items():
+        log(f"evaluation at {bpp} bpp: PSNR {m['psnr']:.4f} dB, SSIM {m['ssim']:.5f}, "
+            f"actual bpp {m['actual_bpp']:.5f}, measured bpp {m['measured_bpp']:.5f}, HQ ratio "
+            f"{m['hq_ratio'] * 100:.3f}%")
+    log(f"full-width evaluation on {card} (seeded weights, so the quality numbers say nothing "
+        f"of a trained codec), 16 images from {source}, bf16 masks: load_models "
+        f"{times['load_models']:.3f} s, prepare_masks {times['prepare_masks']:.3f} s, "
+        f"test_compression {times['test_compression']:.3f} s, test_rate_control "
+        f"{times['test_rate_control']:.3f} s (host clock); figures "
+        f"{'written' if CARD_FIGURES else 'not written (no matplotlib)'}; files {files}; "
+        f"launches {counts}")
+    bpps = sorted(avg)
+    ok = (all(math.isfinite(v) for m in avg.values() for v in m.values())
+          and all(0.25 - 1e-6 <= m["actual_bpp"] <= 0.5 + 1e-6 for m in avg.values())
+          and all(m["measured_bpp"] > 0 for m in avg.values())
+          and avg[bpps[-1]]["hq_ratio"] > avg[bpps[0]]["hq_ratio"]
+          and len(rc["target_bpp"]) == cfg.rate_control_bpps * 4
+          and masks.shape == (16, 256, 256, 1) and 0.0 <= masks.min() and masks.max() <= 1.0
+          and "rate_distortion_data.csv" in files
+          and all(f"bpp_{b}/metrics.txt" in files for b in bpps))
+    if not ok:
+        raise AssertionError(f"evaluation results {avg}, files {files}")
+
+    # the JAX-trained tiny GAN through the same evaluator, card vs CPU port
+    fixture = pathlib.Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_tiny_gan"
+    tiny = EvalConfig(model=ModelConfig(**JAX_TINY), saliency=bf16_masks, bpp_values=(1.0,),
+                      batch_size=4)
+    from contextual_image_compression_tpu_torch.data.images import synthetic_images
+
+    imgs = synthetic_images(6, (32, 32), seed=2)
+    tiny_names = [f"img_{i}.png" for i in range(6)]
+    tiny_masks = prepare_masks(imgs, tiny.saliency, device=dev)
+    rows = {}
+    for side in (dev, "cpu"):
+        tev = CodecEvaluator(tiny, device=side)
+        w, prov = tev.load_models(str(fixture))
+        if sorted(prov.values()) != ["final"] * 7:
+            raise AssertionError(f"tiny GAN provenance {prov}")
+        rows[str(side)] = _eval_rows(tev.test_compression(w, imgs, tiny_masks, tiny_names,
+                                                          save_artifacts=False), (1.0,))[1.0]
+    diffs = {k: float(np.abs(rows[str(dev)][k] - rows["cpu"][k]).max()) for k in EVAL_BARS}
+    log(f"JAX-trained tiny GAN through CodecEvaluator at 1.0 bpp, 6 images, bf16 masks: card vs "
+        f"CPU port max |diff| {diffs} (bars {EVAL_BARS}); card PSNR "
+        f"{float(rows[str(dev)]['psnr'].mean()):.4f} dB")
+    if not all(diffs[k] <= bar for k, bar in EVAL_BARS.items()):
+        raise AssertionError(f"tiny GAN evaluation, card vs CPU: {diffs}")
+    return counts
+
+
+def run_autoencoder_evaluation(dev, card):
+    """Evaluation phase (d): evaluate_autoencoder on runs/ae_ref's autoencoder over the
+    16 JPEGs of runs/ae_ref/compressed_outputs (read and written as
+    CARD_LIBRARIES says), card against the CPU port: MSE / PSNR / SSIM, the
+    size reduction and the files written; no kernel launch."""
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.data import images as image_io
+    from contextual_image_compression_tpu_torch.eval.ae_eval import evaluate_autoencoder
+    from contextual_image_compression_tpu_torch.train.ae_trainer import AETrainer
+
+    if CARD_DECODER is None:
+        log("autoencoder evaluation: not run (CARD_LIBRARIES: no JPEG reader or writer)")
+        return
+    ae_dir = str(pathlib.Path(__file__).resolve().parent / "runs" / "ae_ref" / "model")
+    images, paths = image_io.load_folder_unit(str(EVAL_IMAGES), (128, 128))
+    ops.reset_launch_counts()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for side in (dev, "cpu"):
+            trainer = AETrainer(device=side, log_fn=lambda msg: None)
+            trainer.load(ae_dir)
+            t0 = time.perf_counter()
+            out[str(side)] = evaluate_autoencoder(trainer, images, paths,
+                                                  os.path.join(tmp, str(side)))
+            out[str(side)]["seconds"] = time.perf_counter() - t0
+            out[str(side)]["files"] = sorted(os.listdir(os.path.join(tmp, str(side))))
+    counts = launch_counts()
+    got, want = out[str(dev)], out["cpu"]
+    log(f"autoencoder evaluation on {card}: {len(images)} JPEGs of runs/ae_ref at 128^2 by "
+        f"{CARD_DECODER}: mse {got['mse']:.4f}, psnr {got['psnr']:.4f} dB, ssim "
+        f"{got['ssim']:.5f}, size reduction {got['size_reduction']:.3f}% ({got['seconds']:.3f} s, "
+        f"host clock); CPU port mse {want['mse']:.4f}, psnr {want['psnr']:.4f}, ssim "
+        f"{want['ssim']:.5f}, size reduction {want['size_reduction']:.3f}%; launches {counts}")
+    if not (abs(got["psnr"] - want["psnr"]) <= 1e-3 and abs(got["ssim"] - want["ssim"]) <= 1e-3
+            and abs(got["mse"] - want["mse"]) <= 1e-3 * want["mse"]
+            and abs(got["size_reduction"] - want["size_reduction"]) <= 0.5
+            and got["files"] == want["files"] and len(got["files"]) == len(images) == 16
+            and counts == expect()):
+        raise AssertionError(f"autoencoder evaluation: card {got}, CPU {want}")
 
 
 def main():
@@ -2322,6 +2683,7 @@ def main():
     t0 = time.time()
     coder_path = native.build()
     log(f"range coder built in {time.time() - t0:.1f} s: {coder_path}")
+    probe_libraries()
 
     rng = np.random.RandomState(0)
     B = 16
@@ -2354,18 +2716,22 @@ def main():
     check_small_codec_against_cpu(dev)
     codec_path = run_codec_path(dev, card)
     run_autoencoder(dev, card)
+    records.append(check_k1_bf16(dev, rng, B))
+    evaluation = run_evaluation(dev, card)
+    run_autoencoder_evaluation(dev, card)
     paths = {"serving": serving, "jax_trained_serving": jax_trained,
              "checkpoint_serving": from_checkpoint, "w8a8_serving": w8a8_serving,
              "training": training, "mixed_training": mixed_training, "masks": mask_path,
              "fft_core_masks": fft_masks, "dct": dct_path, "entry_points": entry_points,
-             "storable_codec": codec_path}
+             "storable_codec": codec_path, "evaluation": evaluation}
     serving_paths = ("serving", "jax_trained_serving", "checkpoint_serving", "w8a8_serving",
                      "training", "mixed_training", "storable_codec")
-    runs_it = {"K1": serving_paths + ("fft_core_masks",), "K2": serving_paths,
-               "K3": serving_paths, "K3b": ("training", "mixed_training"),
+    runs_it = {"K1": serving_paths + ("fft_core_masks",), "K2": serving_paths + ("evaluation",),
+               "K3": serving_paths + ("evaluation",), "K3b": ("training", "mixed_training"),
                "K4": ("masks", "fft_core_masks"), "K5": ("dct",), "K6": ("entry_points",),
-               "K7a": ("entry_points",), "K7b": ("entry_points",), "K8": ("entry_points",)}
-    keys_in_order = ("K1", "K2", "K3", "K3b", "K4", "K5", "K6", "K7a", "K7b", "K8")
+               "K7a": ("entry_points",), "K7b": ("entry_points",), "K8": ("entry_points",),
+               "K1bf16": ("evaluation",)}
+    keys_in_order = ("K1", "K2", "K3", "K3b", "K4", "K5", "K6", "K7a", "K7b", "K8", "K1bf16")
     if len(records) != len(keys_in_order):
         raise AssertionError("one record per kernel")
     for rec, key in zip(records, keys_in_order):

@@ -18,8 +18,13 @@ These paths run here with hand-written Hopper kernels:
     self-contained containers, decoded from bytes by the generators alone;
   * checkpoints in the JAX package's files (checkpoint/, convert.py):
     serving from a checkpoint directory, training save and resume;
-  * the baseline autoencoder (models/autoencoder.py, train/ae_trainer.py),
-    which runs on cuDNN and no kernel of the port;
+  * evaluation (eval/): the codec's bpp and rate-control sweeps with real
+    bitstreams, metrics.txt, the rate-distortion CSV and plots
+    (eval/harness.py, eval/plots.py), over images read by data/images.py
+    (cv2 or PIL, or the native loader of native/) and masks through K1,
+    in float32 or on its bf16 route (SaliencyConfig.mask_engine_dtype);
+  * the baseline autoencoder (models/autoencoder.py, train/ae_trainer.py,
+    eval/ae_eval.py), which runs on cuDNN and no kernel of the port;
   * the remaining kernel entry points, which no default path runs: K6 the
     attention core and K7a / K7b the fused SAGAN block (ops/attention.py),
     K8 the fused generator tail (packed_tail_forward(use_pallas=True),
@@ -32,6 +37,7 @@ each kernel's plain PyTorch twin runs instead.
 from contextual_image_compression_tpu_torch.config import (
     AutoencoderConfig,
     DCTCodecConfig,
+    EvalConfig,
     LossConfig,
     ModelConfig,
     QuantizerConfig,
@@ -39,5 +45,5 @@ from contextual_image_compression_tpu_torch.config import (
     TrainConfig,
 )
 
-__all__ = ["AutoencoderConfig", "DCTCodecConfig", "LossConfig", "ModelConfig", "QuantizerConfig",
+__all__ = ["AutoencoderConfig", "DCTCodecConfig", "EvalConfig", "LossConfig", "ModelConfig", "QuantizerConfig",
            "SaliencyConfig", "TrainConfig"]

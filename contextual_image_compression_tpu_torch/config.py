@@ -2,10 +2,11 @@
 
 Field names and defaults are those of `contextual_image_compression_tpu.config`
 (`SaliencyConfig`, `QuantizerConfig`, `ModelConfig`, `LossConfig`,
-`TrainConfig`, `DCTCodecConfig`, `AutoencoderConfig`), so a
-default-constructed config describes the same codec, mask engine, DCT
-baseline, GAN training run and autoencoder in both packages. The
-evaluation config comes with the slice that ports the evaluation harness.
+`TrainConfig`, `EvalConfig`, `DCTCodecConfig`, `AutoencoderConfig`), and
+`analytic_bpp` is its function, so a default-constructed config describes
+the same codec, mask engine, DCT baseline, GAN training run, evaluation
+and autoencoder in both packages. `MeshConfig` comes with the
+multi-device slice.
 """
 
 from __future__ import annotations
@@ -51,7 +52,9 @@ class SaliencyConfig:
     # Kept so configs round-trip; the port always runs kernels K1 / K4 on the
     # card and raises when this is False.
     mask_use_pallas: bool = True
-    mask_engine_dtype: str = "float32"  # 'bfloat16' raises: not ported
+    # 'bfloat16' runs K1's bf16 route ('combined' with mask_smooth only; the
+    # other paths never read it)
+    mask_engine_dtype: str = "float32"
     mask_threshold_min: float = 0.05
     mask_threshold_max: float = 0.5
     mask_percentile: float = 0.7
@@ -116,7 +119,7 @@ class ModelConfig:
     quant_bypass: bool = False
     quantizer: QuantizerConfig = QuantizerConfig()
     dtype: str = "float32"  # compute dtype; 'bfloat16' for serving
-    param_dtype: str = "float32"
+    param_dtype: str = "float32"  # anything else raises in AdaptiveCodec: not ported
 
     @property
     def img_shape(self) -> Tuple[int, int, int]:
@@ -215,12 +218,39 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """Evaluation harness (eval/harness.py): the bpp sweep, the rate-control
+    sweep, where weights, test images and results live."""
+
+    model: ModelConfig = ModelConfig()
+    saliency: SaliencyConfig = SaliencyConfig()
+    bpp_values: Tuple[float, ...] = BPP_RANGE
+    rate_control_bpps: int = 10  # linspace(0.1, 2.0, 10)
+    rate_control_bpp_range: Tuple[float, float] = (0.1, 2.0)
+    rate_control_max_images: int = 4
+    results_dir: str = "test_results"
+    model_dir: str = "models_ckpt"
+    test_dir: str = "test_dataset"
+    batch_size: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
 class DCTCodecConfig:
     """JPEG-style 8x8 DCT baseline codec (ops/dct.py)."""
 
     quality: int = 75
     block: int = 8
     use_pallas: bool = True  # False raises: the port always runs K5 on the card
+
+
+def analytic_bpp(hq_ratio, base_latent_dim: int = BASE_LATENT_DIM,
+                 img_size: Tuple[int, int] = IMG_SIZE):
+    """The reference's analytic bits per pixel: 32 bits per float latent,
+    bpp = (hq_ratio * 2D * 32 + (1 - hq_ratio) * D * 32) / (H * W), in
+    [0.25, 0.50] for D = 512 at 256x256. hq_ratio: a float or numpy array."""
+    hq_bits = hq_ratio * (base_latent_dim * 2) * 32.0
+    lq_bits = (1.0 - hq_ratio) * base_latent_dim * 32.0
+    return (hq_bits + lq_bits) / float(img_size[0] * img_size[1])
 
 
 def torch_dtype(name: str) -> torch.dtype:

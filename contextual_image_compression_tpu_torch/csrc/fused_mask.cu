@@ -45,8 +45,25 @@
 //   (B, H, W) scratch buffers in device memory, each per-image maximum a
 //   block reduction folded in with one atomicMax on the float's bits (the
 //   values are non-negative, so integer order is float order).
+//
+// K1's bf16 route (template argument BF16 of the K1 kernels; entry points
+// cic_contextual_mask_cluster_bf16 and cic_contextual_mask_bf16) computes the
+// TPU kernel's compute_dtype=bfloat16 form (_make_contextual_kernel(dt=bf16)):
+// g = bf16(gray / 255); the fine-grained box sums, the bilateral taps and the
+// Gaussian taps in bf16, each window summed in chunks of CHUNK taps in the
+// TPU kernel's order (ops/fused_mask.py::_contextual_mask_plain_bf16); the
+// max-normalizations, the spectral upsample, the 0.6 / 0.4 blend and the
+// bilateral's division in float32. Every bf16 operation rounds once, as the
+// twin's do, and no multiply and add contract into an FMA (which would round
+// once where the twin rounds twice): the float32 steps use __fadd_rn /
+// __fmul_rn, and the bf16 steps native add.rn / sub.rn / mul.rn.bf16
+// (__hadd_rn, __hsub_rn, __hmul_rn), which nvcc never contracts. Values stay
+// float32 in shared and device memory (bf16 values are exact there, so the
+// strips' layout and the plan are the float32 route's); the kernels convert
+// each load to bf16 and each result back. The float32 route is unchanged.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -63,6 +80,54 @@ constexpr int TX = 32;   // tile width = block width
 constexpr int TY = 32;   // tile height
 constexpr int BY = 8;    // block height: each thread covers TY / BY rows
 constexpr int MAXR = 8;  // largest box or bilateral radius taken
+constexpr int CHUNK = 8;  // taps of a bf16 partial sum (ops/fused_mask.py::CHUNK)
+
+// The bf16 route's arithmetic: native bf16 instructions on values converted
+// from float32 registers and shared memory, where they are exact.
+using bf16_t = __nv_bfloat16;
+
+__device__ __forceinline__ bf16_t to_bf16(float x) { return __float2bfloat16_rn(x); }
+// x rounded to bf16 (nearest even), held as a float32 value
+__device__ __forceinline__ float bf(float x) { return __bfloat162float(to_bf16(x)); }
+
+// Term i of n of a bf16 chunked sum (ops/fused_mask.py::_chunked_sum): it
+// opens or joins its chunk's partial sum, which joins the total (0 at the
+// start) at the chunk's last term.
+__device__ __forceinline__ void chunk_add(bf16_t term, int i, int n, bf16_t& part, bf16_t& total) {
+  part = i % CHUNK == 0 ? term : __hadd_rn(part, term);
+  if (i % CHUNK == CHUNK - 1 || i == n - 1) total = __hadd_rn(total, part);
+}
+
+// One bilateral tap (the t-th) for one output in bf16: wgt = sw + swc *
+// diff^2, then its terms into the open chunks of num (wgt * sh) and den
+// (wgt); the chunks join the totals at CHUNK taps, and `bilateral_flush`
+// adds a chunk left open after the last tap.
+__device__ __forceinline__ void bilateral_tap(bf16_t sw, bf16_t swc, bf16_t sh, bf16_t center,
+                                              int t, bf16_t& pn, bf16_t& pd, bf16_t& num,
+                                              bf16_t& den) {
+  const bf16_t diff = __hsub_rn(sh, center);
+  const bf16_t wgt = __hadd_rn(sw, __hmul_rn(swc, __hmul_rn(diff, diff)));
+  const bf16_t term = __hmul_rn(wgt, sh);
+  pn = t % CHUNK == 0 ? term : __hadd_rn(pn, term);
+  pd = t % CHUNK == 0 ? wgt : __hadd_rn(pd, wgt);
+  if (t % CHUNK == CHUNK - 1) {
+    num = __hadd_rn(num, pn);
+    den = __hadd_rn(den, pd);
+  }
+}
+
+__device__ __forceinline__ void bilateral_flush(int t, bf16_t pn, bf16_t pd, bf16_t& num,
+                                                bf16_t& den) {
+  if (t % CHUNK != 0) {
+    num = __hadd_rn(num, pn);
+    den = __hadd_rn(den, pd);
+  }
+}
+
+// num / max(den, 1e-20) in float32, rounded to bf16 (the TPU kernel's division)
+__device__ __forceinline__ float bilateral_ratio(bf16_t num, bf16_t den) {
+  return bf(__bfloat162float(num) / fmaxf(__bfloat162float(den), 1e-20f));
+}
 
 __device__ __forceinline__ int reflect101(int i, int n) {
   i = i < 0 ? -i : i;
@@ -92,6 +157,7 @@ __device__ void block_max_to(float v, float* dst) {
 }
 
 // Stage 1: fine-grained center-surround saliency, unnormalized; max -> maxes[0].
+template <bool BF16>
 __global__ void __launch_bounds__(TX * BY)
 fine_kernel(const float* __restrict__ gray, int H, int W, int scale_mask, int rmax,
             float* __restrict__ fine, float* __restrict__ maxes) {
@@ -102,7 +168,8 @@ fine_kernel(const float* __restrict__ gray, int H, int W, int scale_mask, int rm
   for (int i = threadIdx.y * TX + threadIdx.x; i < th * tw; i += TX * BY) {
     const int ty = i / tw, tx = i % tw;
     const int y = reflect101(y0 - rmax + ty, H), x = reflect101(x0 - rmax + tx, W);
-    tile[ty][tx] = g[(size_t)y * W + x] * (1.0f / 255.0f);
+    const float v = g[(size_t)y * W + x] * (1.0f / 255.0f);
+    tile[ty][tx] = BF16 ? bf(v) : v;
   }
   __syncthreads();
   float local_max = 0.f;
@@ -121,15 +188,30 @@ fine_kernel(const float* __restrict__ gray, int H, int W, int scale_mask, int rm
     for (int r = 1; r <= rmax; ++r) {
 #pragma unroll
       for (int dx = -MAXR; dx <= MAXR; ++dx)
-        if (dx >= -rmax && dx <= rmax)
-          col[dx + MAXR] += tile[Y - r][X + dx] + tile[Y + r][X + dx];
+        if (dx >= -rmax && dx <= rmax) {
+          if (BF16)
+            col[dx + MAXR] = __bfloat162float(__hadd_rn(
+                __hadd_rn(to_bf16(col[dx + MAXR]), to_bf16(tile[Y - r][X + dx])),
+                to_bf16(tile[Y + r][X + dx])));
+          else
+            col[dx + MAXR] += tile[Y - r][X + dx] + tile[Y + r][X + dx];
+        }
       if (scale_mask & (1 << r)) {
-        float s = 0.f;
-#pragma unroll
-        for (int dx = -MAXR; dx <= MAXR; ++dx)
-          if (dx >= -r && dx <= r) s += col[dx + MAXR];
         const int kk = 2 * r + 1;
-        acc += fabsf(gc - s * (1.0f / (float)(kk * kk)));
+        float s = 0.f;
+        if (BF16) {
+          bf16_t sb = to_bf16(0.f), part = sb;
+#pragma unroll
+          for (int dx = -MAXR; dx <= MAXR; ++dx)
+            if (dx >= -r && dx <= r) chunk_add(to_bf16(col[dx + MAXR]), dx + r, kk, part, sb);
+          acc = __bfloat162float(__hadd_rn(to_bf16(acc), __habs(__hsub_rn(
+              to_bf16(gc), __hmul_rn(sb, to_bf16(1.0f / (float)(kk * kk)))))));
+        } else {
+#pragma unroll
+          for (int dx = -MAXR; dx <= MAXR; ++dx)
+            if (dx >= -r && dx <= r) s += col[dx + MAXR];
+          acc += fabsf(gc - s * (1.0f / (float)(kk * kk)));
+        }
       }
     }
     if (y < H && x < W) {
@@ -143,6 +225,9 @@ fine_kernel(const float* __restrict__ gray, int H, int W, int scale_mask, int rm
 // Stage 2: comb = sw * upsample(spec) + fw * fine / max(fine); max -> maxes[1].
 // The upsample is jax.image.resize's linear operator in its two-tap form:
 // rows first (uph @ spec), then columns, as the TPU kernel's two matmuls.
+// The bf16 route rounds each product and sum apart (ops/fused_mask.py::
+// upsample_two_tap): its mask rounds comb to bf16, so comb must be the twin's.
+template <bool BF16>
 __global__ void __launch_bounds__(TX * BY)
 combine_kernel(const float* __restrict__ fine, const float* __restrict__ spec, int H, int W,
                int RH, int RW, const int* __restrict__ idx_h, const float* __restrict__ w_h,
@@ -159,11 +244,19 @@ combine_kernel(const float* __restrict__ fine, const float* __restrict__ spec, i
       const int j0 = idx_w[x], j1 = min(j0 + 1, RW - 1);
       const float a0 = w_h[2 * y], a1 = w_h[2 * y + 1];
       const float c0 = w_w[2 * x], c1 = w_w[2 * x + 1];
-      const float t0 = a0 * s[i0 * RW + j0] + a1 * s[i1 * RW + j0];
-      const float t1 = a0 * s[i0 * RW + j1] + a1 * s[i1 * RW + j1];
-      const float up = t0 * c0 + t1 * c1;
       const size_t o = ((size_t)b * H + y) * W + x;
-      const float v = sw * up + fw * norm_max(fine[o], fmax_b);
+      float v;
+      if (BF16) {
+        const float t0 = __fadd_rn(__fmul_rn(a0, s[i0 * RW + j0]), __fmul_rn(a1, s[i1 * RW + j0]));
+        const float t1 = __fadd_rn(__fmul_rn(a0, s[i0 * RW + j1]), __fmul_rn(a1, s[i1 * RW + j1]));
+        const float up = __fadd_rn(__fmul_rn(t0, c0), __fmul_rn(t1, c1));
+        v = __fadd_rn(__fmul_rn(sw, up), __fmul_rn(fw, norm_max(fine[o], fmax_b)));
+      } else {
+        const float t0 = a0 * s[i0 * RW + j0] + a1 * s[i1 * RW + j0];
+        const float t1 = a0 * s[i0 * RW + j1] + a1 * s[i1 * RW + j1];
+        const float up = t0 * c0 + t1 * c1;
+        v = sw * up + fw * norm_max(fine[o], fmax_b);
+      }
       comb[o] = v;
       local_max = fmaxf(local_max, v);
     }
@@ -173,7 +266,9 @@ combine_kernel(const float* __restrict__ fine, const float* __restrict__ spec, i
 
 // Stage 3: disk bilateral with the Taylor range weight, of comb / max(comb)
 // when normalize_input is set (K1), of the input as it is otherwise (K4).
-// taps holds (sw, swc) per disk tap in (dy, dx) row-major order.
+// taps holds (sw, swc) per disk tap in (dy, dx) row-major order (rounded
+// to bf16 by the caller on the bf16 route, which K1 alone takes).
+template <bool BF16>
 __global__ void __launch_bounds__(TX * BY)
 bilateral_kernel(const float* __restrict__ comb, int H, int W, int radius,
                  const float* __restrict__ taps, int ntaps, const float* __restrict__ maxes,
@@ -189,7 +284,8 @@ bilateral_kernel(const float* __restrict__ comb, int H, int W, int radius,
     const int ty = i / tw, tx = i % tw;
     const int y = reflect101(y0 - radius + ty, H), x = reflect101(x0 - radius + tx, W);
     const float v = c[(size_t)y * W + x];
-    tile[ty][tx] = normalize_input ? norm_max(v, maxes[b * 4 + 1]) : v;
+    const float u = normalize_input ? norm_max(v, maxes[b * 4 + 1]) : v;
+    tile[ty][tx] = BF16 ? bf(u) : u;
   }
   __syncthreads();
   const int x = x0 + threadIdx.x, X = threadIdx.x + radius;
@@ -199,23 +295,32 @@ bilateral_kernel(const float* __restrict__ comb, int H, int W, int radius,
     const int y = y0 + yl, Y = yl + radius;
     const float center = tile[Y][X];
     float num = 0.f, den = 0.f;
+    bf16_t bn = to_bf16(0.f), bd = bn, pn = bn, pd = bn;  // the bf16 route's sums
     int t = 0;
     for (int dy = -radius; dy <= radius; ++dy) {
       for (int dx = -radius; dx <= radius; ++dx) {
         if (dy * dy + dx * dx > r2max) continue;
         const float sh = tile[Y + dy][X + dx];
-        const float diff = sh - center;
-        const float wgt = tw_s[2 * t] + tw_s[2 * t + 1] * (diff * diff);
-        num += wgt * sh;
-        den += wgt;
+        if (BF16) {
+          bilateral_tap(to_bf16(tw_s[2 * t]), to_bf16(tw_s[2 * t + 1]), to_bf16(sh),
+                        to_bf16(center), t, pn, pd, bn, bd);
+        } else {
+          const float diff = sh - center;
+          const float wgt = tw_s[2 * t] + tw_s[2 * t + 1] * (diff * diff);
+          num += wgt * sh;
+          den += wgt;
+        }
         ++t;
       }
     }
-    if (y < H && x < W) out[((size_t)b * H + y) * W + x] = num / fmaxf(den, 1e-20f);
+    if (BF16) bilateral_flush(t, pn, pd, bn, bd);
+    const float yv = BF16 ? bilateral_ratio(bn, bd) : num / fmaxf(den, 1e-20f);
+    if (y < H && x < W) out[((size_t)b * H + y) * W + x] = yv;
   }
 }
 
 // Stage 4: Gaussian along rows (vertical taps), reflect-101.
+template <bool BF16>
 __global__ void __launch_bounds__(TX * BY)
 gauss_rows_kernel(const float* __restrict__ in, int H, int W, const float* __restrict__ gk,
                   int ksize, float* __restrict__ out) {
@@ -229,12 +334,20 @@ gauss_rows_kernel(const float* __restrict__ in, int H, int W, const float* __res
     const int y = blockIdx.y * TY + threadIdx.y + k * BY;
     if (y >= H || x >= W) continue;
     float acc = 0.f;
-    for (int t = 0; t < ksize; ++t) acc += g_s[t] * src[(size_t)reflect101(y + t - pad, H) * W + x];
-    out[((size_t)b * H + y) * W + x] = acc;
+    bf16_t bacc = to_bf16(0.f), part = bacc;
+    for (int t = 0; t < ksize; ++t) {
+      const float v = src[(size_t)reflect101(y + t - pad, H) * W + x];
+      if (BF16)
+        chunk_add(__hmul_rn(to_bf16(g_s[t]), to_bf16(v)), t, ksize, part, bacc);
+      else
+        acc += g_s[t] * v;
+    }
+    out[((size_t)b * H + y) * W + x] = BF16 ? __bfloat162float(bacc) : acc;
   }
 }
 
 // Stage 5: Gaussian along columns (horizontal taps); max -> maxes[2].
+template <bool BF16>
 __global__ void __launch_bounds__(TX * BY)
 gauss_cols_kernel(const float* __restrict__ in, int H, int W, const float* __restrict__ gk,
                   int ksize, float* __restrict__ out, float* __restrict__ maxes) {
@@ -249,7 +362,15 @@ gauss_cols_kernel(const float* __restrict__ in, int H, int W, const float* __res
     if (y < H && x < W) {
       const float* row = in + ((size_t)b * H + y) * W;
       float acc = 0.f;
-      for (int t = 0; t < ksize; ++t) acc += g_s[t] * row[reflect101(x + t - pad, W)];
+      bf16_t bacc = to_bf16(0.f), part = bacc;
+      for (int t = 0; t < ksize; ++t) {
+        const float v = row[reflect101(x + t - pad, W)];
+        if (BF16)
+          chunk_add(__hmul_rn(to_bf16(g_s[t]), to_bf16(v)), t, ksize, part, bacc);
+        else
+          acc += g_s[t] * v;
+      }
+      if (BF16) acc = __bfloat162float(bacc);
       out[((size_t)b * H + y) * W + x] = acc;
       local_max = fmaxf(local_max, acc);
     }
@@ -293,7 +414,9 @@ struct ClusterArgs {
   int scale_mask, rmax;
   float sw, fw;
   int radius, ksize;
-  float taps[2 * CL_MAX_TAPS];  // (sw, swc) per disk tap, (dy, dx) row-major
+  // (sw, swc) per disk tap, (dy, dx) row-major, and the Gaussian; on the
+  // bf16 route they hold bf16 values, so to_bf16 of them is exact
+  float taps[2 * CL_MAX_TAPS];
   float gk[64];
 };
 
@@ -367,8 +490,10 @@ __device__ __forceinline__ void stage_rows(float* dst, int S, int nrows, int x_l
 // read from device memory. RMAX_T / RAD_T / KS_T: the largest box radius,
 // the bilateral radius and the Gaussian size as compile-time constants (the
 // loops over taps and radii then unroll, and the weights are constant-bank
-// operands), or 0 to read them from the arguments.
-template <bool CONTEXTUAL, int RMAX_T, int RAD_T, int KS_T>
+// operands), or 0 to read them from the arguments. BF16: K1's bf16 route
+// (the header), with the taps and Gaussian weights rounded to bf16 by the
+// caller.
+template <bool CONTEXTUAL, int RMAX_T, int RAD_T, int KS_T, bool BF16>
 __global__ void __launch_bounds__(CL_THREADS, 1)
 mask_cluster_kernel(const __grid_constant__ ClusterArgs p) {
   extern __shared__ float smem[];
@@ -404,7 +529,8 @@ mask_cluster_kernel(const __grid_constant__ ClusterArgs p) {
     stage_rows(
         b0 + C0, S, n + 2 * rmax, -rmax, W + rmax, xt, yt, WT, YT,
         [&](int j) { return img + (size_t)reflect101(r0 - rmax + j, H) * W; },
-        [&](int x) { return reflect101(x, W); }, [](float v) { return v * (1.0f / 255.0f); });
+        [&](int x) { return reflect101(x, W); },
+        [](float v) { return BF16 ? bf(v * (1.0f / 255.0f)) : v * (1.0f / 255.0f); });
     __syncthreads();
     float local_max = 0.f;
     {
@@ -417,14 +543,32 @@ mask_cluster_kernel(const __grid_constant__ ClusterArgs p) {
         const float* col = b0 + (size_t)(y + rmax) * S + C0 + min(x, W + rmax - 1);
         const float g = col[0];
         float v = g, fine = 0.f;
+        if (BF16) {
+          const bf16_t gb = to_bf16(g), zero = to_bf16(0.f);
+          bf16_t vb = gb, fb = zero;
 #pragma unroll
-        for (int r = 1; r <= rmax; ++r) {
-          v += col[-r * S] + col[r * S];
-          if (p.scale_mask & (1 << r)) {
-            float s = 0.f;
+          for (int r = 1; r <= rmax; ++r) {
+            vb = __hadd_rn(__hadd_rn(vb, to_bf16(col[-r * S])), to_bf16(col[r * S]));
+            if (p.scale_mask & (1 << r)) {
+              const bf16_t inv_k2 = to_bf16(1.0f / (float)((2 * r + 1) * (2 * r + 1)));
+              bf16_t sb = zero, part = zero;
 #pragma unroll
-            for (int dx = -r; dx <= r; ++dx) s += __shfl_sync(0xffffffffu, v, lane + dx);
-            fine += fabsf(g - s * (1.0f / (float)((2 * r + 1) * (2 * r + 1))));
+              for (int dx = -r; dx <= r; ++dx)
+                chunk_add(__shfl_sync(0xffffffffu, vb, lane + dx), dx + r, 2 * r + 1, part, sb);
+              fb = __hadd_rn(fb, __habs(__hsub_rn(gb, __hmul_rn(sb, inv_k2))));
+            }
+          }
+          fine = __bfloat162float(fb);
+        } else {
+#pragma unroll
+          for (int r = 1; r <= rmax; ++r) {
+            v += col[-r * S] + col[r * S];
+            if (p.scale_mask & (1 << r)) {
+              float s = 0.f;
+#pragma unroll
+              for (int dx = -r; dx <= r; ++dx) s += __shfl_sync(0xffffffffu, v, lane + dx);
+              fine += fabsf(g - s * (1.0f / (float)((2 * r + 1) * (2 * r + 1))));
+            }
           }
         }
         if (lane >= rmax && lane < 32 - rmax && x < W) {
@@ -454,10 +598,18 @@ mask_cluster_kernel(const __grid_constant__ ClusterArgs p) {
         const float* s0 = b0 + (i0 - sr0) * RW;
         const float* s1 = b0 + (min(i0 + 1, p.RH - 1) - sr0) * RW;
         const float a0 = __ldg(p.w_h + 2 * Y), a1 = __ldg(p.w_h + 2 * Y + 1);
-        const float t0 = a0 * s0[j0] + a1 * s1[j0];
-        const float t1 = a0 * s0[j1] + a1 * s1[j1];
         float* f = b1 + (size_t)y * S + C0 + x;
-        const float v = p.sw * (t0 * c0 + t1 * c1) + p.fw * norm_max(*f, m1);
+        float v;
+        if (BF16) {  // rounded apart, as the twin (see combine_kernel)
+          const float t0 = __fadd_rn(__fmul_rn(a0, s0[j0]), __fmul_rn(a1, s1[j0]));
+          const float t1 = __fadd_rn(__fmul_rn(a0, s0[j1]), __fmul_rn(a1, s1[j1]));
+          const float up = __fadd_rn(__fmul_rn(t0, c0), __fmul_rn(t1, c1));
+          v = __fadd_rn(__fmul_rn(p.sw, up), __fmul_rn(p.fw, norm_max(*f, m1)));
+        } else {
+          const float t0 = a0 * s0[j0] + a1 * s1[j0];
+          const float t1 = a0 * s0[j1] + a1 * s1[j1];
+          v = p.sw * (t0 * c0 + t1 * c1) + p.fw * norm_max(*f, m1);
+        }
         *f = v;
         local_max = fmaxf(local_max, v);
       }
@@ -478,7 +630,8 @@ mask_cluster_kernel(const __grid_constant__ ClusterArgs p) {
           const int o = yy / R;
           return (o == rank ? b1 : cluster.map_shared_rank(b1, o)) + (size_t)(yy - o * R) * S + C0;
         },
-        [&](int x) { return reflect101(x, W); }, [&](float v) { return norm_max(v, m2); });
+        [&](int x) { return reflect101(x, W); },
+        [&](float v) { return BF16 ? bf(norm_max(v, m2)) : norm_max(v, m2); });
   } else {
     const float* img = p.in + (size_t)b * H * W;
     stage_rows(
@@ -497,6 +650,10 @@ mask_cluster_kernel(const __grid_constant__ ClusterArgs p) {
       const float* c = crow + x;
       const float center0 = c[0], center1 = c[S];
       float num0 = 0.f, den0 = 0.f, num1 = 0.f, den1 = 0.f;
+      const bf16_t zero = to_bf16(0.f), cb0 = to_bf16(center0), cb1 = to_bf16(center1);
+      // the bf16 route's totals and open chunks
+      bf16_t bn0 = zero, bd0 = zero, bn1 = zero, bd1 = zero;
+      bf16_t pn0 = zero, pd0 = zero, pn1 = zero, pd1 = zero;
       int t0 = 0, t1 = 0;
 #pragma unroll
       for (int dy = -rad; dy <= rad + 1; ++dy) {
@@ -506,24 +663,42 @@ mask_cluster_kernel(const __grid_constant__ ClusterArgs p) {
           const bool in1 = dy > -rad && (dy - 1) * (dy - 1) + dx * dx <= r2max;
           if (!in0 && !in1) continue;
           const float sh = c[dy * S + dx];
+          const bf16_t shb = to_bf16(sh);
           if (in0) {
-            const float diff = sh - center0;
-            const float wgt = p.taps[2 * t0] + p.taps[2 * t0 + 1] * (diff * diff);
-            num0 += wgt * sh;
-            den0 += wgt;
+            if (BF16) {
+              bilateral_tap(to_bf16(p.taps[2 * t0]), to_bf16(p.taps[2 * t0 + 1]), shb, cb0, t0,
+                            pn0, pd0, bn0, bd0);
+            } else {
+              const float diff = sh - center0;
+              const float wgt = p.taps[2 * t0] + p.taps[2 * t0 + 1] * (diff * diff);
+              num0 += wgt * sh;
+              den0 += wgt;
+            }
             ++t0;
           }
           if (in1) {
-            const float diff = sh - center1;
-            const float wgt = p.taps[2 * t1] + p.taps[2 * t1 + 1] * (diff * diff);
-            num1 += wgt * sh;
-            den1 += wgt;
+            if (BF16) {
+              bilateral_tap(to_bf16(p.taps[2 * t1]), to_bf16(p.taps[2 * t1 + 1]), shb, cb1, t1,
+                            pn1, pd1, bn1, bd1);
+            } else {
+              const float diff = sh - center1;
+              const float wgt = p.taps[2 * t1] + p.taps[2 * t1 + 1] * (diff * diff);
+              num1 += wgt * sh;
+              den1 += wgt;
+            }
             ++t1;
           }
         }
       }
-      b2[(size_t)y0 * S + C0 + x] = num0 / fmaxf(den0, 1e-20f);
-      if (y0 + 1 < n) b2[(size_t)(y0 + 1) * S + C0 + x] = num1 / fmaxf(den1, 1e-20f);
+      if (BF16) {
+        bilateral_flush(t0, pn0, pd0, bn0, bd0);
+        bilateral_flush(t1, pn1, pd1, bn1, bd1);
+        b2[(size_t)y0 * S + C0 + x] = bilateral_ratio(bn0, bd0);
+        if (y0 + 1 < n) b2[(size_t)(y0 + 1) * S + C0 + x] = bilateral_ratio(bn1, bd1);
+      } else {
+        b2[(size_t)y0 * S + C0 + x] = num0 / fmaxf(den0, 1e-20f);
+        if (y0 + 1 < n) b2[(size_t)(y0 + 1) * S + C0 + x] = num1 / fmaxf(den1, 1e-20f);
+      }
     }
   }
   // every block's bilateral output is complete, and every read of buffer 1
@@ -551,12 +726,26 @@ mask_cluster_kernel(const __grid_constant__ ClusterArgs p) {
     for (int x = xt; x < W; x += WT) {
       const float* top = b0 + (size_t)y0 * S + C0 + x;
       float acc[BLOCK_OUT] = {};
+      bf16_t bacc[BLOCK_OUT], part[BLOCK_OUT];  // the bf16 route's totals and open chunks
+#pragma unroll
+      for (int o = 0; o < BLOCK_OUT; ++o) bacc[o] = part[o] = to_bf16(0.f);
 #pragma unroll
       for (int t = 0; t < ks + BLOCK_OUT - 1; ++t) {
         const float v = top[t * S];
+        const bf16_t vb = to_bf16(v);
 #pragma unroll
         for (int o = 0; o < BLOCK_OUT; ++o)
-          if (t - o >= 0 && t - o < ks) acc[o] += p.gk[t - o] * v;
+          if (t - o >= 0 && t - o < ks) {
+            if (BF16)
+              chunk_add(__hmul_rn(to_bf16(p.gk[t - o]), vb), t - o, ks,
+                        part[o], bacc[o]);
+            else
+              acc[o] += p.gk[t - o] * v;
+          }
+      }
+      if (BF16) {
+#pragma unroll
+        for (int o = 0; o < BLOCK_OUT; ++o) acc[o] = __bfloat162float(bacc[o]);
       }
 #pragma unroll
       for (int o = 0; o < BLOCK_OUT; ++o)
@@ -571,9 +760,16 @@ mask_cluster_kernel(const __grid_constant__ ClusterArgs p) {
       const int x = k < gpad ? k - gpad : W + k - gpad;
       const float* top = b0 + (size_t)y * S + C0 + reflect101(x, W);
       float acc = 0.f;
+      bf16_t bacc = to_bf16(0.f), part = bacc;
 #pragma unroll
-      for (int t = 0; t < ks; ++t) acc += p.gk[t] * top[t * S];
-      b1[(size_t)y * S + C0 + x] = acc;
+      for (int t = 0; t < ks; ++t) {
+        if (BF16)
+          chunk_add(__hmul_rn(to_bf16(p.gk[t]), to_bf16(top[t * S])), t, ks,
+                    part, bacc);
+        else
+          acc += p.gk[t] * top[t * S];
+      }
+      b1[(size_t)y * S + C0 + x] = BF16 ? __bfloat162float(bacc) : acc;
     }
   }
   __syncthreads();
@@ -588,12 +784,26 @@ mask_cluster_kernel(const __grid_constant__ ClusterArgs p) {
     const int y = i % n, x0 = (i / n) * BLOCK_OUT;
     const float* row = b1 + (size_t)y * S + C0 - gpad + x0;
     float acc[BLOCK_OUT] = {};
+    bf16_t bacc[BLOCK_OUT], part[BLOCK_OUT];
+#pragma unroll
+    for (int o = 0; o < BLOCK_OUT; ++o) bacc[o] = part[o] = to_bf16(0.f);
 #pragma unroll
     for (int t = 0; t < ks + BLOCK_OUT - 1; ++t) {
       const float v = row[t];
+      const bf16_t vb = to_bf16(v);
 #pragma unroll
       for (int o = 0; o < BLOCK_OUT; ++o)
-        if (t - o >= 0 && t - o < ks) acc[o] += p.gk[t - o] * v;
+        if (t - o >= 0 && t - o < ks) {
+          if (BF16)
+            chunk_add(__hmul_rn(to_bf16(p.gk[t - o]), vb), t - o, ks, part[o],
+                      bacc[o]);
+          else
+            acc[o] += p.gk[t - o] * v;
+        }
+    }
+    if (BF16) {
+#pragma unroll
+      for (int o = 0; o < BLOCK_OUT; ++o) acc[o] = __bfloat162float(bacc[o]);
     }
 #pragma unroll
     for (int o = 0; o < BLOCK_OUT; ++o) {
@@ -659,10 +869,10 @@ cudaError_t cluster_ready(const void* fn, int cluster, size_t smem, int* max_clu
   return cudaSuccess;
 }
 
-template <bool CONTEXTUAL, int RMAX_T, int RAD_T, int KS_T>
+template <bool CONTEXTUAL, int RMAX_T, int RAD_T, int KS_T, bool BF16 = false>
 cudaError_t launch_cluster(const ClusterArgs& a, int B, int cluster, size_t smem,
                            cudaStream_t st, int* max_clusters) {
-  void (*kernel)(ClusterArgs) = mask_cluster_kernel<CONTEXTUAL, RMAX_T, RAD_T, KS_T>;
+  void (*kernel)(ClusterArgs) = mask_cluster_kernel<CONTEXTUAL, RMAX_T, RAD_T, KS_T, BF16>;
   cudaError_t err = cluster_ready((const void*)kernel, cluster, smem, max_clusters);
   if (err != cudaSuccess || B == 0) return err;
   cudaLaunchConfig_t cfg = {};
@@ -685,9 +895,10 @@ cudaError_t launch_cluster(const ClusterArgs& a, int B, int cluster, size_t smem
 // Checks the plan handed in against this file's layout, copies the filter
 // tables (host arrays) into the arguments and launches the instantiation for
 // the filter sizes. B == 0 only checks the cluster (and reports *max_clusters).
+// bf16: K1's bf16 route (contextual only).
 cudaError_t run_cluster(bool contextual, ClusterArgs& a, int B, const float* taps, int ntaps,
                         const float* gk, int cluster, size_t smem, cudaStream_t st,
-                        int* max_clusters) {
+                        int* max_clusters, bool bf16 = false) {
   const int gpad = a.ksize / 2;
   const int halo = std::max(std::max(a.rmax, a.radius), gpad);
   const bool ok = a.rmax <= MAXR && a.radius <= MAXR && a.ksize <= 63 && a.ksize >= 1 &&
@@ -701,6 +912,12 @@ cudaError_t run_cluster(bool contextual, ClusterArgs& a, int B, const float* tap
   for (int i = 0; i < 2 * ntaps; ++i) a.taps[i] = taps[i];
   for (int i = 0; i < a.ksize; ++i) a.gk[i] = gk[i];
   const bool dflt = a.radius == 4 && a.ksize == 31;
+  if (bf16) {
+    if (!contextual) return cudaErrorInvalidValue;
+    return dflt && a.rmax == 6
+               ? launch_cluster<true, 6, 4, 31, true>(a, B, cluster, smem, st, max_clusters)
+               : launch_cluster<true, 0, 0, 0, true>(a, B, cluster, smem, st, max_clusters);
+  }
   if (contextual)
     return dflt && a.rmax == 6
                ? launch_cluster<true, 6, 4, 31>(a, B, cluster, smem, st, max_clusters)
@@ -709,9 +926,9 @@ cudaError_t run_cluster(bool contextual, ClusterArgs& a, int B, const float* tap
               : launch_cluster<false, 0, 0, 0>(a, B, cluster, smem, st, max_clusters);
 }
 
-}  // namespace
-
-extern "C" int cic_contextual_mask(
+// K1, tiled route (six launches), in float32 or (BF16) on the bf16 route.
+template <bool BF16>
+int contextual_mask_tiled(
     const float* gray, const float* spec, int B, int H, int W, int RH, int RW,
     const int* idx_h, const float* w_h, const int* idx_w, const float* w_w,
     int scale_mask, int rmax, float spectral_weight, float fine_weight,
@@ -723,15 +940,42 @@ extern "C" int cic_contextual_mask(
   if (err != cudaSuccess) return (int)err;
   const dim3 block(TX, BY);
   const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
-  fine_kernel<<<grid, block, 0, st>>>(gray, H, W, scale_mask, rmax, scratch1, maxes);
-  combine_kernel<<<grid, block, 0, st>>>(scratch1, spec, H, W, RH, RW, idx_h, w_h, idx_w, w_w,
-                                         spectral_weight, fine_weight, scratch2, maxes);
-  bilateral_kernel<<<grid, block, 0, st>>>(scratch2, H, W, radius, taps, ntaps, maxes,
-                                           /*normalize_input=*/1, scratch1);
-  gauss_rows_kernel<<<grid, block, 0, st>>>(scratch1, H, W, gk, ksize, scratch2);
-  gauss_cols_kernel<<<grid, block, 0, st>>>(scratch2, H, W, gk, ksize, out, maxes);
+  fine_kernel<BF16><<<grid, block, 0, st>>>(gray, H, W, scale_mask, rmax, scratch1, maxes);
+  combine_kernel<BF16><<<grid, block, 0, st>>>(scratch1, spec, H, W, RH, RW, idx_h, w_h, idx_w,
+                                               w_w, spectral_weight, fine_weight, scratch2, maxes);
+  bilateral_kernel<BF16><<<grid, block, 0, st>>>(scratch2, H, W, radius, taps, ntaps, maxes,
+                                                 /*normalize_input=*/1, scratch1);
+  gauss_rows_kernel<BF16><<<grid, block, 0, st>>>(scratch1, H, W, gk, ksize, scratch2);
+  gauss_cols_kernel<BF16><<<grid, block, 0, st>>>(scratch2, H, W, gk, ksize, out, maxes);
   normalize_kernel<<<grid, block, 0, st>>>(out, H, W, maxes);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int cic_contextual_mask(
+    const float* gray, const float* spec, int B, int H, int W, int RH, int RW,
+    const int* idx_h, const float* w_h, const int* idx_w, const float* w_w,
+    int scale_mask, int rmax, float spectral_weight, float fine_weight,
+    int radius, const float* taps, int ntaps, const float* gk, int ksize,
+    float* scratch1, float* scratch2, float* maxes, float* out, void* stream) {
+  return contextual_mask_tiled<false>(gray, spec, B, H, W, RH, RW, idx_h, w_h, idx_w, w_w,
+                                      scale_mask, rmax, spectral_weight, fine_weight, radius,
+                                      taps, ntaps, gk, ksize, scratch1, scratch2, maxes, out,
+                                      stream);
+}
+
+// K1's bf16 route, tiled (taps and gk rounded to bf16 by the caller).
+extern "C" int cic_contextual_mask_bf16(
+    const float* gray, const float* spec, int B, int H, int W, int RH, int RW,
+    const int* idx_h, const float* w_h, const int* idx_w, const float* w_w,
+    int scale_mask, int rmax, float spectral_weight, float fine_weight,
+    int radius, const float* taps, int ntaps, const float* gk, int ksize,
+    float* scratch1, float* scratch2, float* maxes, float* out, void* stream) {
+  return contextual_mask_tiled<true>(gray, spec, B, H, W, RH, RW, idx_h, w_h, idx_w, w_w,
+                                     scale_mask, rmax, spectral_weight, fine_weight, radius,
+                                     taps, ntaps, gk, ksize, scratch1, scratch2, maxes, out,
+                                     stream);
 }
 
 // K4: bilateral of the map as it is -> out, Gaussian rows -> scratch,
@@ -745,10 +989,10 @@ extern "C" int cic_smooth_mask(
   if (err != cudaSuccess) return (int)err;
   const dim3 block(TX, BY);
   const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
-  bilateral_kernel<<<grid, block, 0, st>>>(saliency, H, W, radius, taps, ntaps, maxes,
-                                           /*normalize_input=*/0, out);
-  gauss_rows_kernel<<<grid, block, 0, st>>>(out, H, W, gk, ksize, scratch);
-  gauss_cols_kernel<<<grid, block, 0, st>>>(scratch, H, W, gk, ksize, out, maxes);
+  bilateral_kernel<false><<<grid, block, 0, st>>>(saliency, H, W, radius, taps, ntaps, maxes,
+                                                  /*normalize_input=*/0, out);
+  gauss_rows_kernel<false><<<grid, block, 0, st>>>(out, H, W, gk, ksize, scratch);
+  gauss_cols_kernel<false><<<grid, block, 0, st>>>(scratch, H, W, gk, ksize, out, maxes);
   normalize_kernel<<<grid, block, 0, st>>>(out, H, W, maxes);
   return (int)cudaGetLastError();
 }
@@ -756,8 +1000,10 @@ extern "C" int cic_smooth_mask(
 // K1, cluster route: one launch of B clusters of `cluster` blocks (rows per
 // block, shared memory bytes and layout from ops/fused_mask.py::_mask_plan).
 // taps (2 x ntaps floats) and gk (ksize floats) are host arrays.
-extern "C" int cic_contextual_mask_cluster(
-    const float* gray, const float* spec, int B, int H, int W, int RH, int RW,
+namespace {
+
+int contextual_mask_cluster(
+    bool bf16, const float* gray, const float* spec, int B, int H, int W, int RH, int RW,
     const int* idx_h, const float* w_h, const int* idx_w, const float* w_w,
     int scale_mask, int rmax, float spectral_weight, float fine_weight,
     int radius, const float* taps, int ntaps, const float* gk, int ksize,
@@ -770,7 +1016,34 @@ extern "C" int cic_contextual_mask_cluster(
   a.radius = radius; a.ksize = ksize;
   if (B < 1 || rmax < 1 || RH > H || RW > W) return (int)cudaErrorInvalidValue;
   return (int)run_cluster(true, a, B, taps, ntaps, gk, cluster, (size_t)smem_bytes,
-                          static_cast<cudaStream_t>(stream), nullptr);
+                          static_cast<cudaStream_t>(stream), nullptr, bf16);
+}
+
+}  // namespace
+
+extern "C" int cic_contextual_mask_cluster(
+    const float* gray, const float* spec, int B, int H, int W, int RH, int RW,
+    const int* idx_h, const float* w_h, const int* idx_w, const float* w_w,
+    int scale_mask, int rmax, float spectral_weight, float fine_weight,
+    int radius, const float* taps, int ntaps, const float* gk, int ksize,
+    int cluster, int rows, int stride, int halo, int smem_bytes, float* out, void* stream) {
+  return contextual_mask_cluster(false, gray, spec, B, H, W, RH, RW, idx_h, w_h, idx_w, w_w,
+                                 scale_mask, rmax, spectral_weight, fine_weight, radius, taps,
+                                 ntaps, gk, ksize, cluster, rows, stride, halo, smem_bytes, out,
+                                 stream);
+}
+
+// K1's bf16 route, cluster route (taps and gk rounded to bf16 by the caller).
+extern "C" int cic_contextual_mask_cluster_bf16(
+    const float* gray, const float* spec, int B, int H, int W, int RH, int RW,
+    const int* idx_h, const float* w_h, const int* idx_w, const float* w_w,
+    int scale_mask, int rmax, float spectral_weight, float fine_weight,
+    int radius, const float* taps, int ntaps, const float* gk, int ksize,
+    int cluster, int rows, int stride, int halo, int smem_bytes, float* out, void* stream) {
+  return contextual_mask_cluster(true, gray, spec, B, H, W, RH, RW, idx_h, w_h, idx_w, w_w,
+                                 scale_mask, rmax, spectral_weight, fine_weight, radius, taps,
+                                 ntaps, gk, ksize, cluster, rows, stride, halo, smem_bytes, out,
+                                 stream);
 }
 
 // K4, cluster route (as above, entered at the bilateral).

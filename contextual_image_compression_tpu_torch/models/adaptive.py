@@ -87,6 +87,11 @@ class AdaptiveCodec(nn.Module):
                 "attention_use_pallas / quantizer.use_pallas = False: the port has no "
                 "separate plain path on the card; it always launches K2 and K3 there"
             )
+        if cfg.param_dtype != "float32":
+            raise NotImplementedError(
+                f"param_dtype={cfg.param_dtype!r}: the port builds its parameters in float32 "
+                "only (bf16 activations on float32 parameters: dtype='bfloat16')"
+            )
         self.cfg = cfg
         h, w = cfg.img_size
         enc = dict(img_size=cfg.img_size, in_channels=cfg.channels,

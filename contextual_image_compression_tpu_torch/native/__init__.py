@@ -1,12 +1,16 @@
-"""The adaptive range coder of the port's bitstreams, bound with ctypes.
+"""The port's host libraries, bound with ctypes: the adaptive range coder of
+its bitstreams and the multithreaded image loader.
 
-`entropy_coder.cpp` is the port's own copy of the JAX package's coder, so
-streams are byte-identical between the two packages for equal symbols. At
-first use it is compiled with `g++` into
-`contextual_image_compression_tpu_torch/build/entropy-<hash of the source>/`,
-like the CUDA kernels (ops/cuda_kernels.py): an edited source builds anew and
-an unchanged one is reused. A failed build raises; nothing falls back to
-another coder.
+`entropy_coder.cpp` and `image_loader.cpp` are the port's own copies of the
+JAX package's sources, so streams are byte-identical between the two
+packages for equal symbols, and loaded batches bitwise equal. At first use
+each is compiled with `g++` into
+`contextual_image_compression_tpu_torch/build/<entropy|loader>-<hash of the
+source>/`, like the CUDA kernels (ops/cuda_kernels.py): an edited source
+builds anew and an unchanged one is reused. The loader links libjpeg and
+libpng. A failed build raises; nothing falls back to another coder (the
+image loader's caller, data/images.py, decodes file by file instead, as the
+JAX package does).
 """
 
 from __future__ import annotations
@@ -23,38 +27,55 @@ from pathlib import Path
 import numpy as np
 
 SRC = Path(__file__).resolve().parent / "entropy_coder.cpp"
+LOADER_SRC = Path(__file__).resolve().parent / "image_loader.cpp"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
 LIB_NAME = "libcic_entropy.so"
+LOADER_LIB_NAME = "libcic_loader.so"
 GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
+LOADER_LINK = ["-ljpeg", "-lpng"]
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I16P = ctypes.POINTER(ctypes.c_int16)
 
 
-def build() -> Path:
-    """Compile the coder (if not built yet) and return the library's path."""
-    digest = hashlib.sha256(SRC.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_ROOT / f"entropy-{digest}"
-    lib_path = out_dir / LIB_NAME
+def _build(src: Path, prefix: str, lib_name: str, link=(), what: str = "range coder",
+           build_root: Path = BUILD_ROOT) -> Path:
+    flags = [*GXX_FLAGS, *link]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    out_dir = build_root / f"{prefix}-{digest}"
+    lib_path = out_dir / lib_name
     if lib_path.exists():
         return lib_path
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: the range coder builds only where a C++ compiler is")
-    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_ROOT))
-    cmd = [gxx, *GXX_FLAGS, "-o", str(tmp / LIB_NAME), str(SRC)]
+        raise RuntimeError(f"g++ not found: the {what} builds only where a C++ compiler is")
+    build_root.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="tmp-", dir=build_root))
+    cmd = [gxx, *GXX_FLAGS, "-o", str(tmp / lib_name), str(src), *link]
     res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                          timeout=300)
     if res.returncode != 0:
         shutil.rmtree(tmp, ignore_errors=True)
-        raise RuntimeError(f"range coder build failed: {' '.join(cmd)}\n{res.stdout[-4000:]}")
+        raise RuntimeError(f"{what} build failed: {' '.join(cmd)}\n{res.stdout[-4000:]}")
     try:
         tmp.rename(out_dir)
     except OSError:
         # another process finished the same build first; use its copy
         shutil.rmtree(tmp, ignore_errors=True)
     return lib_path
+
+
+def build() -> Path:
+    """Compile the coder (if not built yet) and return the library's path."""
+    return _build(SRC, "entropy", LIB_NAME)
+
+
+def build_loader(build_root: Path = BUILD_ROOT) -> Path:
+    """Compile the image loader against libjpeg and libpng under build_root
+    (if not built there yet) and return the library's path; raises where
+    g++, the libraries or their headers are missing."""
+    return _build(LOADER_SRC, "loader", LOADER_LIB_NAME, LOADER_LINK, "image loader",
+                  build_root)
 
 
 @functools.lru_cache(maxsize=1)
@@ -136,3 +157,36 @@ def entropy_decode_batch(data: bytes, batch: int, n_per_item: int,
     if got != batch:
         raise RuntimeError(f"entropy batch decode: {got}/{batch} items decoded")
     return out
+
+
+@functools.lru_cache(maxsize=1)
+def loader_library() -> ctypes.CDLL:
+    """The loaded image loader (built on first call)."""
+    lib = ctypes.CDLL(str(build_loader()))
+    lib.cic_load_images.restype = ctypes.c_size_t
+    lib.cic_load_images.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int),
+    ]
+    return lib
+
+
+def load_images(paths, target_size, normalization: str = "gan", num_threads: int = 0):
+    """Decode, resize and normalize image files on num_threads host threads
+    (0: up to 16). target_size: (W, H), as cv2.resize takes it;
+    normalization 'gan' -> [-1, 1], 'unit' -> [0, 1]. Returns the float32
+    batch (N, H, W, 3) and a bool mask (N,) of the files that decoded (the
+    others are zero-filled)."""
+    if normalization not in ("gan", "unit"):
+        raise ValueError(f"normalization 'gan' or 'unit', got {normalization!r}")
+    lib = loader_library()
+    tw, th = target_size
+    n = len(paths)
+    out = np.empty((n, th, tw, 3), np.float32)
+    ok = np.zeros(n, np.int32)
+    c_paths = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
+    lib.cic_load_images(c_paths, n, th, tw, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                        1 if normalization == "gan" else 0, _threads(num_threads),
+                        ok.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+    return out, ok.astype(bool)

@@ -40,17 +40,29 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 
+# K1's entry points, the cluster and the tiled route; its bf16 route takes the same
+_K1_CLUSTER = [
+    _P, _P, _I, _I, _I, _I, _I,  # gray, spec, B, H, W, spec_h, spec_w
+    _P, _P, _P, _P,              # up_idx_h, up_w_h, up_idx_w, up_w_w
+    _I, _I, _F, _F,              # scale_mask, rmax, spectral_w, fine_w
+    _I, _P, _I,                  # radius, bilateral taps (host), n taps
+    _P, _I,                      # gaussian kernel (host), ksize
+    _I, _I, _I, _I, _I,          # cluster, rows, stride, halo, smem bytes
+    _P, _P,                      # out, stream
+]
+_K1_TILED = [
+    _P, _P, _I, _I, _I, _I, _I,  # gray, spec, B, H, W, spec_h, spec_w
+    _P, _P, _P, _P,              # up_idx_h, up_w_h, up_idx_w, up_w_w
+    _I, _I, _F, _F,              # scale_mask, rmax, spectral_w, fine_w
+    _I, _P, _I,                  # radius, bilateral taps, n taps
+    _P, _I,                      # gaussian kernel, ksize
+    _P, _P, _P, _P, _P,          # scratch1, scratch2, maxes, out, stream
+]
+
 # argtypes of every exported function (all return a cudaError_t as int)
 _SIGNATURES = {
-    "cic_contextual_mask_cluster": [
-        _P, _P, _I, _I, _I, _I, _I,  # gray, spec, B, H, W, spec_h, spec_w
-        _P, _P, _P, _P,              # up_idx_h, up_w_h, up_idx_w, up_w_w
-        _I, _I, _F, _F,              # scale_mask, rmax, spectral_w, fine_w
-        _I, _P, _I,                  # radius, bilateral taps (host), n taps
-        _P, _I,                      # gaussian kernel (host), ksize
-        _I, _I, _I, _I, _I,          # cluster, rows, stride, halo, smem bytes
-        _P, _P,                      # out, stream
-    ],
+    "cic_contextual_mask_cluster": _K1_CLUSTER,
+    "cic_contextual_mask_cluster_bf16": _K1_CLUSTER,  # K1's bf16 route
     "cic_smooth_mask_cluster": [
         _P, _I, _I, _I,              # saliency, B, H, W
         _I, _P, _I,                  # radius, bilateral taps (host), n taps
@@ -63,14 +75,8 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I,          # cluster, rows, stride, halo, smem bytes
         _P,                          # int *max_clusters (host)
     ],
-    "cic_contextual_mask": [
-        _P, _P, _I, _I, _I, _I, _I,  # gray, spec, B, H, W, spec_h, spec_w
-        _P, _P, _P, _P,              # up_idx_h, up_w_h, up_idx_w, up_w_w
-        _I, _I, _F, _F,              # scale_mask, rmax, spectral_w, fine_w
-        _I, _P, _I,                  # radius, bilateral taps, n taps
-        _P, _I,                      # gaussian kernel, ksize
-        _P, _P, _P, _P, _P,          # scratch1, scratch2, maxes, out, stream
-    ],
+    "cic_contextual_mask": _K1_TILED,
+    "cic_contextual_mask_bf16": _K1_TILED,  # K1's bf16 route
     "cic_smooth_mask": [
         _P, _I, _I, _I,              # saliency, B, H, W
         _I, _P, _I,                  # radius, bilateral taps, n taps

@@ -33,9 +33,18 @@ the image and filter sizes alone:
 * 'tiled': six launches over 32x32 tiles with two scratch images in device
   memory, for images whose strips do not fit in a cluster's shared memory.
 
+K1 also has a bf16 route, the TPU kernel's compute_dtype=bfloat16
+(`contextual_mask(..., compute_dtype=torch.bfloat16)`, selected by
+SaliencyConfig.mask_engine_dtype): the windowed passes in bf16, summed in
+chunks of CHUNK taps in the TPU kernel's order, the normalizations, the
+upsample, the blend and the bilateral's division in float32. Its twin,
+`_contextual_mask_plain_bf16`, rounds each bf16 operation once; the card's
+kernels match it bit for bit.
+
 Each wrapper counts its launches in `.launches` and, apart, per route in
-`.route_launches`. A route is never chosen because a launch failed: a
-refused launch, or a cluster the card cannot schedule, raises.
+`.route_launches` (K1's bf16 launches as 'cluster_bf16' / 'tiled_bf16'). A
+route is never chosen because a launch failed: a refused launch, or a
+cluster the card cannot schedule, raises.
 """
 
 from __future__ import annotations
@@ -64,9 +73,16 @@ def contextual_mask_plain(
     sigma_color: float = 75.0,
     sigma_space: float = 75.0,
     gauss_ksize: int = 31,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """K1's function in plain PyTorch, float32. gray255: (B, H, W) in
-    [0, 255]; spectral: (B, r, r) (upsampled here) or (B, H, W)."""
+    """K1's function in plain PyTorch. gray255: (B, H, W) in [0, 255];
+    spectral: (B, r, r) (upsampled here) or (B, H, W). compute_dtype
+    bfloat16 runs the windowed passes in bf16 (`_contextual_mask_plain_bf16`)."""
+    if compute_dtype == torch.bfloat16:
+        return _contextual_mask_plain_bf16(gray255, spectral, scales, spectral_weight,
+                                           fine_weight, d, sigma_color, sigma_space, gauss_ksize)
+    if compute_dtype != torch.float32:
+        raise ValueError(f"contextual_mask: compute_dtype float32 or bfloat16, got {compute_dtype}")
     h, w = gray255.shape[-2:]
     g = gray255.to(torch.float32) * (1.0 / 255.0)
     fine = torch.zeros_like(g)
@@ -82,6 +98,130 @@ def contextual_mask_plain(
     comb = iops.normalize_max(spectral_weight * spec + fine_weight * fine)
     y = iops.bilateral_filter_taylor(comb, d, sigma_color, sigma_space)
     return iops.normalize_max(iops.gaussian_blur(y, gauss_ksize, 0.0))
+
+
+# Taps a bf16 partial sum takes before it joins the running total: the bf16
+# route sums every window in chunks of this many taps, in the TPU kernel's
+# order (contextual_image_compression_tpu/ops/fused_mask.py: _CHUNK).
+CHUNK = 8
+
+
+def bf16_value(v: float) -> float:
+    """v rounded to float32, then to bfloat16 (nearest even), as a float:
+    `jnp.asarray(v, jnp.bfloat16)` for the TPU kernel's constants."""
+    return float(torch.tensor(float(np.float32(v))).to(torch.bfloat16).float())
+
+
+def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
+    """Indices of positions -pad .. n + pad - 1 after reflect-101."""
+    i = torch.arange(-pad, n + pad, device=device).abs()
+    return torch.where(i >= n, 2 * n - 2 - i, i)
+
+
+def _chunked_sum(n: int, term):
+    """term(0) + ... + term(n - 1) as the bf16 route adds taps: CHUNK terms at
+    a time in order, each chunk's sum then added to the total. With bf16
+    tensors every add rounds to bf16, as each operation of the TPU kernel does."""
+    total = None
+    for c0 in range(0, n, CHUNK):
+        acc = term(c0)
+        for i in range(c0 + 1, min(c0 + CHUNK, n)):
+            acc = acc + term(i)
+        total = acc if total is None else total + acc
+    return total
+
+
+def upsample_two_tap(spec: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The linear upsample (B, r, r) -> (B, h, w) in its two-tap form, rows
+    first, in float32 with every product and sum rounded apart: what K1's
+    bf16 route computes (the bf16 mask then rounds this map, so the twin and
+    the kernel must agree on it to the bit)."""
+    ih, wh = (torch.from_numpy(a).to(spec.device) for a in upsample_taps(spec.shape[-2], h))
+    iw, ww = (torch.from_numpy(a).to(spec.device) for a in upsample_taps(spec.shape[-1], w))
+    s = spec.to(torch.float32)
+    i1 = torch.clamp(ih.long() + 1, max=spec.shape[-2] - 1)
+    rows = wh[:, :1] * s[..., ih.long(), :] + wh[:, 1:] * s[..., i1, :]  # (B, h, r)
+    j1 = torch.clamp(iw.long() + 1, max=spec.shape[-1] - 1)
+    return rows[..., iw.long()] * ww[:, 0] + rows[..., j1] * ww[:, 1]
+
+
+def _contextual_mask_plain_bf16(gray255, spectral, scales, spectral_weight, fine_weight, d,
+                                sigma_color, sigma_space, gauss_ksize):
+    """K1's bf16 route in plain PyTorch, following the TPU kernel's
+    `_make_contextual_kernel(dt=bfloat16)` operation by operation:
+
+      * g = bf16(gray * (1/255) in float32);
+      * per radius r, the running vertical sum (rs + g[y - r]) + g[y + r]
+        and the horizontal box sum of rs over 2r + 1 columns in chunks
+        (`_chunked_sum`), surround = sum * bf16(1 / k^2), fine += |g - surround|,
+        all in bf16; the fine map's max-normalization in float32;
+      * comb = max-normalize(0.6 * spec + 0.4 * fine) in float32, rounded to bf16;
+      * the disk bilateral in bf16: per tap wgt = sw + swc * diff^2 (sw, swc
+        rounded to bf16), num += wgt * shifted, den += wgt, in chunks; the
+        ratio in float32, rounded to bf16;
+      * the separable Gaussian (rows, then columns) in bf16 in chunks, then
+        max-normalization in float32 -> float32 mask.
+
+    Every bf16 operation is a torch operation on bf16 tensors, so each rounds
+    once to bf16 (float32 holds a product of two bf16 values exactly, and a
+    sum rounded to float32 then to bf16 is the sum rounded to bf16). The
+    spectral map is upsampled by `upsample_two_tap`, as the kernel does."""
+    bf = torch.bfloat16
+    dev = gray255.device
+    h, w = gray255.shape[-2:]
+    g = (gray255.to(torch.float32) * (1.0 / 255.0)).to(bf)
+
+    rmax = max(scales)
+    rows_i = _reflect_index(h, rmax, dev)
+    rs = g
+    fine = None
+    for r in range(1, rmax + 1):
+        rs = (rs + g[..., rows_i[rmax - r:rmax - r + h], :]) + g[..., rows_i[rmax + r:rmax + r + h], :]
+        if r not in scales:
+            continue
+        k = 2 * r + 1
+        cols_i = _reflect_index(w, r, dev)
+        cs = _chunked_sum(k, lambda i: rs[..., cols_i[i:i + w]])
+        surround = cs * torch.tensor(bf16_value(1.0 / (k * k)), dtype=bf, device=dev)
+        term = torch.abs(g - surround)
+        fine = term if fine is None else fine + term
+    fine = iops.normalize_max(fine.to(torch.float32))
+
+    spec = spectral.to(torch.float32)
+    if tuple(spec.shape[-2:]) != (h, w):
+        if spec.shape[-2] > h or spec.shape[-1] > w:
+            spec = resize_spectral(spec, h, w)
+        else:
+            spec = upsample_two_tap(spec, h, w)
+    x = iops.normalize_max(spectral_weight * spec + fine_weight * fine).to(bf)
+
+    radius = d // 2
+    taps = iops.bilateral_taps(d, sigma_space, sigma_color)
+    ri, ci = _reflect_index(h, radius, dev), _reflect_index(w, radius, dev)
+    xp = x[..., ri, :][..., ci]
+    num = den = None
+    for c0 in range(0, len(taps), CHUNK):
+        acc_n = acc_d = None
+        for dy, dx, sw, swc in taps[c0:c0 + CHUNK]:
+            sh = xp[..., radius + dy:radius + dy + h, radius + dx:radius + dx + w]
+            diff = sh - x
+            wgt = (torch.tensor(bf16_value(sw), dtype=bf, device=dev)
+                   + torch.tensor(bf16_value(swc), dtype=bf, device=dev) * (diff * diff))
+            acc_n = wgt * sh if acc_n is None else acc_n + wgt * sh
+            acc_d = wgt if acc_d is None else acc_d + wgt
+        num = acc_n if num is None else num + acc_n
+        den = acc_d if den is None else den + acc_d
+    y = (num.to(torch.float32) / torch.clamp(den.to(torch.float32), min=1e-20)).to(bf)
+
+    gk = [torch.tensor(bf16_value(v), dtype=bf, device=dev)
+          for v in iops.gaussian_kernel_1d(gauss_ksize, 0.0)]
+    pad = gauss_ksize // 2
+    ri, ci = _reflect_index(h, pad, dev), _reflect_index(w, pad, dev)
+    yr = y[..., ri, :]
+    rowout = _chunked_sum(gauss_ksize, lambda i: gk[i] * yr[..., i:i + h, :])
+    rc = rowout[..., ci]
+    out = _chunked_sum(gauss_ksize, lambda i: gk[i] * rc[..., i:i + w])
+    return iops.normalize_max(out.to(torch.float32))
 
 
 def resize_spectral(spec: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -116,22 +256,26 @@ def upsample_taps(src: int, dst: int):
 
 
 @functools.lru_cache(maxsize=8)
-def _host_filter_tables(d, sigma_color, sigma_space, gauss_ksize):
+def _host_filter_tables(d, sigma_color, sigma_space, gauss_ksize, bf16=False):
     """The bilateral (sw, swc) pairs and the Gaussian taps as host arrays,
     which the cluster route copies into its kernel arguments, and the
-    number of bilateral taps."""
+    number of bilateral taps; bf16=True rounds them to bf16 (`bf16_value`)
+    for K1's bf16 route."""
     taps = iops.bilateral_taps(d, sigma_space, sigma_color)
     tap_w = np.ascontiguousarray(
         np.array([[sw, swc] for _, _, sw, swc in taps], np.float32).reshape(-1))
     gk = np.ascontiguousarray(iops.gaussian_kernel_1d(gauss_ksize, 0.0), np.float32).copy()
+    if bf16:
+        tap_w = np.array([bf16_value(v) for v in tap_w], np.float32)
+        gk = np.array([bf16_value(v) for v in gk], np.float32)
     return tap_w, gk, len(taps)
 
 
 @functools.lru_cache(maxsize=8)
-def _filter_tables(dev, d, sigma_color, sigma_space, gauss_ksize):
+def _filter_tables(dev, d, sigma_color, sigma_space, gauss_ksize, bf16=False):
     """`_host_filter_tables` on `dev` (the tiled route reads them from device
     memory)."""
-    tap_w, gk, n_taps = _host_filter_tables(d, sigma_color, sigma_space, gauss_ksize)
+    tap_w, gk, n_taps = _host_filter_tables(d, sigma_color, sigma_space, gauss_ksize, bf16)
     return torch.from_numpy(tap_w).to(dev), torch.from_numpy(gk).to(dev), n_taps
 
 
@@ -248,13 +392,18 @@ def contextual_mask(
     sigma_color: float = 75.0,
     sigma_space: float = 75.0,
     gauss_ksize: int = 31,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Fused contextual mask (B, H, W) float32 from gray255 (B, H, W) and the
     spectral map (B, r, r). Launches K1 for CUDA tensors, on the route
-    `_mask_plan` picks; the plain twin runs only for CPU tensors."""
+    `_mask_plan` picks, in float32 or (compute_dtype bfloat16) on the bf16
+    route, counted apart as routes 'cluster_bf16' / 'tiled_bf16'; the plain
+    twin runs only for CPU tensors."""
     args = (scales, spectral_weight, fine_weight, d, sigma_color, sigma_space, gauss_ksize)
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"contextual_mask: compute_dtype float32 or bfloat16, got {compute_dtype}")
     if gray255.device.type == "cpu":
-        return contextual_mask_plain(gray255, spectral, *args)
+        return contextual_mask_plain(gray255, spectral, *args, compute_dtype=compute_dtype)
     if gray255.device.type != "cuda":
         raise ValueError(f"contextual_mask: unsupported device {gray255.device}")
     if gray255.dtype != torch.float32 or spectral.dtype != torch.float32:
@@ -280,33 +429,35 @@ def contextual_mask(
     for r in scales:
         scale_mask |= 1 << r
     plan = _mask_plan(h, w, rmax, d // 2, gauss_ksize)
+    bf16 = compute_dtype == torch.bfloat16
+    suffix = "_bf16" if bf16 else ""
     out = torch.empty_like(gray255)
     head = (gray255.data_ptr(), spectral.data_ptr(), b, h, w, rh, rw,
             up[0].data_ptr(), up[1].data_ptr(), up[2].data_ptr(), up[3].data_ptr(),
             scale_mask, rmax, float(spectral_weight), float(fine_weight), d // 2)
     if plan.route == "cluster":
         tap_w, gk, n_taps = _host_filter_tables(d, float(sigma_color), float(sigma_space),
-                                                gauss_ksize)
-        err = ck.library().cic_contextual_mask_cluster(
-            *head, tap_w.ctypes.data, n_taps, gk.ctypes.data, gauss_ksize,
-            *_cluster_args(plan), out.data_ptr(), ck.stream_ptr(dev))
+                                                gauss_ksize, bf16)
+        launch = getattr(ck.library(), "cic_contextual_mask_cluster" + suffix)
+        err = launch(*head, tap_w.ctypes.data, n_taps, gk.ctypes.data, gauss_ksize,
+                     *_cluster_args(plan), out.data_ptr(), ck.stream_ptr(dev))
     else:
         tap_w, gk, n_taps = _filter_tables(dev, d, float(sigma_color), float(sigma_space),
-                                           gauss_ksize)
+                                           gauss_ksize, bf16)
         scratch1 = torch.empty_like(gray255)
         scratch2 = torch.empty_like(gray255)
         maxes = torch.empty((b, 4), dtype=torch.float32, device=dev)
-        err = ck.library().cic_contextual_mask(
-            *head, tap_w.data_ptr(), n_taps, gk.data_ptr(), gauss_ksize,
-            scratch1.data_ptr(), scratch2.data_ptr(), maxes.data_ptr(), out.data_ptr(),
-            ck.stream_ptr(dev))
-    ck.check(err, f"contextual_mask ({plan.route} route)")
-    _count(contextual_mask, plan.route)
+        launch = getattr(ck.library(), "cic_contextual_mask" + suffix)
+        err = launch(*head, tap_w.data_ptr(), n_taps, gk.data_ptr(), gauss_ksize,
+                     scratch1.data_ptr(), scratch2.data_ptr(), maxes.data_ptr(), out.data_ptr(),
+                     ck.stream_ptr(dev))
+    ck.check(err, f"contextual_mask ({plan.route + suffix} route)")
+    _count(contextual_mask, plan.route + suffix)
     return out
 
 
 contextual_mask.launches = 0
-contextual_mask.route_launches = {"cluster": 0, "tiled": 0}
+contextual_mask.route_launches = {"cluster": 0, "tiled": 0, "cluster_bf16": 0, "tiled_bf16": 0}
 
 
 def smooth_mask_plain(

@@ -11,8 +11,10 @@ Counterpart of `contextual_image_compression_tpu/ops/masks.py`:
     K4 (ops/fused_mask.py); the threshold is not consulted;
   * create_saliency_mask(smooth=False): the binary mask saliency > threshold;
   * compute_contextual_mask: 'combined' with the smooth mask runs kernel K1
-    on gray255 and the 64^2 spectral map; every other method, and the
-    binary mask, runs compute_saliency_map -> create_saliency_mask.
+    on gray255 and the 64^2 spectral map, in float32 or, with
+    mask_engine_dtype 'bfloat16', on K1's bf16 route; every other method,
+    and the binary mask, runs compute_saliency_map -> create_saliency_mask,
+    which never read the engine dtype (nor does the JAX package there).
 
 The thresholds are discrete, so they reproduce the JAX package's float32
 arithmetic step by step: the same bin-index expression (truncation, then
@@ -25,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from contextual_image_compression_tpu_torch.config import SaliencyConfig
+from contextual_image_compression_tpu_torch.config import SaliencyConfig, torch_dtype
 from contextual_image_compression_tpu_torch.ops import image_ops as iops
 from contextual_image_compression_tpu_torch.ops import saliency as saliency_ops
 from contextual_image_compression_tpu_torch.ops.fused_mask import contextual_mask, smooth_mask
@@ -116,8 +118,8 @@ def create_saliency_mask(
 
 
 def _check_config(cfg: SaliencyConfig) -> None:
-    if cfg.mask_engine_dtype != "float32":
-        raise NotImplementedError(f"mask_engine_dtype={cfg.mask_engine_dtype!r} is not ported")
+    if cfg.mask_engine_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"mask_engine_dtype {cfg.mask_engine_dtype!r}: 'float32' or 'bfloat16'")
     if not cfg.mask_use_pallas:
         raise NotImplementedError("mask_use_pallas=False: the port always runs K1 / K4")
 
@@ -127,8 +129,9 @@ def compute_contextual_mask(
 ) -> torch.Tensor:
     """images: (B, H, W, 3) uint8, or (B, H, W, 3) float in [-1, 1] (a single
     image without the batch axis also works). Returns (B, H, W) float32 masks
-    in [0, 1]: through K1 for the 'combined' smooth mask, through
-    compute_saliency_map and K4 for the other methods' smooth masks."""
+    in [0, 1]: through K1 for the 'combined' smooth mask (in the
+    mask_engine_dtype), through compute_saliency_map and K4 for the other
+    methods' smooth masks."""
     cfg = config or SaliencyConfig()
     _check_config(cfg)
     if images.dtype == torch.uint8:
@@ -154,6 +157,7 @@ def compute_contextual_mask(
         sigma_color=cfg.mask_bilateral_sigma_color,
         sigma_space=cfg.mask_bilateral_sigma_space,
         gauss_ksize=cfg.mask_gaussian_ksize,
+        compute_dtype=torch_dtype(cfg.mask_engine_dtype),
     )
     return out if batched else out[0]
 

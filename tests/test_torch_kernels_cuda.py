@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch twins, on the card, in
 the cases chip_smoke.py does not run: ragged sizes, B = 1, K1 and K4 on the
 cluster route with halos that span several blocks, a height that is not a
-multiple of the cluster, other filter sizes, and on the tiled route, K3 and
+multiple of the cluster, other filter sizes, and on the tiled route, K1's
+bf16 route at B = 1, 4 and 16 on 64^2, 256^2 and 336^2 (tiled), K3 and
 K3b with score and strength in bf16 (B, 1) and float32 (B,), K2's backward,
 K2 and K6 in bf16 at every key width (DK 4..64) and value width, N from 1 to
 1024 at B = 1 and 3, on unaligned inputs and with every row's max in the last
@@ -154,6 +155,24 @@ def test_k1_tiled_route_matches_twin(dev):
     got, route = _route_of(contextual_mask, lambda: contextual_mask(gray, spec))
     assert route == "tiled"
     assert (got - contextual_mask_plain(gray, spec)).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("b", [1, 4, 16])
+@pytest.mark.parametrize("size", [64, 256, 336])
+def test_k1_bf16_matches_twin(dev, b, size):
+    """K1's bf16 route (compute_dtype=bfloat16) against its bf16 twin on the
+    card: bit-identical (every bf16 operation rounded once, in the twin's
+    order), one launch a call, on the cluster route up to 256^2 and the
+    tiled one at 336^2 (route names with "_bf16"), bitwise repeatable, and
+    within JAX's 5e-2 of the float32 kernel."""
+    gray, spec = _k1_inputs(dev, b, size, size)
+    call = lambda: contextual_mask(gray, spec, compute_dtype=torch.bfloat16)  # noqa: E731
+    got, route = _route_of(contextual_mask, call)
+    assert route == ("tiled_bf16" if size == 336 else "cluster_bf16")
+    want = contextual_mask_plain(gray, spec, compute_dtype=torch.bfloat16)
+    assert torch.equal(got, want)
+    assert torch.equal(got, call())
+    assert (got - contextual_mask(gray, spec)).abs().max().item() <= 5e-2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

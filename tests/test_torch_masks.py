@@ -21,7 +21,10 @@ from contextual_image_compression_tpu.data import pipeline as jpipeline
 from contextual_image_compression_tpu.ops import image_ops as jiops
 from contextual_image_compression_tpu.ops import masks as jmasks
 from contextual_image_compression_tpu.ops import saliency as jsal
-from contextual_image_compression_tpu.ops.fused_mask import smooth_mask_pallas
+from contextual_image_compression_tpu.ops.fused_mask import (
+    contextual_mask_pallas,
+    smooth_mask_pallas,
+)
 from contextual_image_compression_tpu_torch import ops as tops
 from contextual_image_compression_tpu_torch.config import SaliencyConfig
 from contextual_image_compression_tpu_torch.data import images as timages
@@ -207,22 +210,70 @@ def test_enhance_saliency_map_matches_jax():
     dict(mask_use_pallas=False, method="fine_grained"),
 ], ids=["fft-core", "fft-core-spectral", "bf16-engine", "bf16-engine-fine", "no-pallas-fine"])
 def test_unported_mask_options_raise(change):
-    """The bf16 mask engine is not ported, and the port has no plain path on
-    the card: these configs raise. The FFT spectral core
-    (spectral_dft_matmul=False) is ported: its cases compute the mask, within
-    1e-4 of the JAX package's (tests/test_torch_w8a8_fft.py holds the FFT
-    core's maps, thresholds and binary masks)."""
+    """The port has no plain path on the card: mask_use_pallas=False raises.
+    The FFT spectral core (spectral_dft_matmul=False) is ported: its cases
+    compute the mask, within 1e-4 of the JAX package's
+    (tests/test_torch_w8a8_fft.py holds the FFT core's maps, thresholds and
+    binary masks). The bf16 mask engine is ported: with 'combined' it runs
+    K1's bf16 twin, held to `contextual_mask_pallas(compute_dtype=bfloat16)`
+    in interpret mode at the bar tests/test_torch_bf16_mask.py states (XLA
+    holds fused bf16 chains in float32 on the CPU; with that off the two are
+    bit-identical); with 'fine_grained' the dtype is never read, so the mask
+    is the float32 path's, bit for bit, within 1e-4 of JAX's."""
     cfg = dataclasses.replace(SaliencyConfig(), **change)
+    jcfg = dataclasses.replace(JSaliencyConfig(), **change)
+    u8 = _rich_u8(2, 32, seed=9)
     if not cfg.spectral_dft_matmul:
-        u8 = _rich_u8(2, 32, seed=9)
         got = tmasks.compute_contextual_mask(torch.from_numpy(u8), cfg).numpy()
-        want = jmasks.compute_contextual_mask(
-            jnp.asarray(u8), dataclasses.replace(JSaliencyConfig(), **change))
+        want = jmasks.compute_contextual_mask(jnp.asarray(u8), jcfg)
         assert got.shape == (2, 32, 32) and got.dtype == np.float32
         np.testing.assert_allclose(got, np.asarray(want), atol=1e-4)
         return
+    if cfg.mask_engine_dtype == "bfloat16":
+        got = tmasks.compute_contextual_mask(torch.from_numpy(u8), cfg).numpy()
+        assert got.shape == (2, 32, 32) and got.dtype == np.float32
+        if cfg.method == "combined":
+            gray = jiops.rgb_to_gray(jnp.asarray(u8).astype(jnp.float32))
+            spec = jsal.spectral_residual_small(gray, 64, 3.0)
+            want = np.asarray(contextual_mask_pallas(gray, spec, compute_dtype=jnp.bfloat16))
+            assert np.abs(got - want).max() <= 2e-2
+            f32 = tmasks.compute_contextual_mask(torch.from_numpy(u8), SaliencyConfig()).numpy()
+            assert 1e-3 < np.abs(got - f32).max() <= 5e-2  # the bf16 route does round
+        else:
+            f32_cfg = dataclasses.replace(cfg, mask_engine_dtype="float32")
+            np.testing.assert_array_equal(
+                got, tmasks.compute_contextual_mask(torch.from_numpy(u8), f32_cfg).numpy())
+            np.testing.assert_allclose(
+                got, np.asarray(jmasks.compute_contextual_mask(jnp.asarray(u8), jcfg)), atol=1e-4)
+        return
     with pytest.raises(NotImplementedError):
         tmasks.compute_contextual_mask(torch.zeros((1, 32, 32, 3), dtype=torch.uint8), cfg)
+
+
+@pytest.mark.parametrize("change", [
+    dict(method="spectral_residual"),
+    dict(method="fine_grained"),
+    dict(method="spectral_residual", mask_smooth=False),
+    dict(method="fine_grained", mask_smooth=False),
+    dict(mask_smooth=False),
+], ids=["spectral", "fine", "spectral-binary", "fine-binary", "combined-binary"])
+def test_bf16_engine_where_jax_never_reads_it(change):
+    """mask_engine_dtype='bfloat16' outside the fused 'combined' smooth path:
+    JAX ignores the dtype there and returns its float32 mask, and so does
+    the port (it used to refuse the config). Masks within 1e-4 of JAX's,
+    the adaptive thresholds of the saliency maps equal."""
+    cfg = SaliencyConfig(mask_engine_dtype="bfloat16", **change)
+    jcfg = JSaliencyConfig(mask_engine_dtype="bfloat16", **change)
+    u8 = _rich_u8(2, 48, seed=31)
+    got = tmasks.compute_contextual_mask(torch.from_numpy(u8), cfg).numpy()
+    want = np.asarray(jmasks.compute_contextual_mask(jnp.asarray(u8), jcfg))
+    assert got.shape == (2, 48, 48) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    gray = _gray255(u8)
+    t_sal = tsal.compute_saliency_map(torch.from_numpy(gray), cfg.method, cfg)
+    j_sal = jsal.compute_saliency_map(jnp.asarray(gray), cfg.method, jcfg)
+    np.testing.assert_array_equal(tmasks.adaptive_threshold(t_sal, cfg).numpy(),
+                                  np.asarray(jmasks.adaptive_threshold(j_sal, jcfg)))
 
 
 def test_prepare_masks_default_device_raises_without_cuda(monkeypatch):
