@@ -6,8 +6,9 @@
 2. builds the port's CUDA kernels from contextual_image_compression_tpu_torch/csrc
    and its range coder (g++) from contextual_image_compression_tpu_torch/native,
    printing each kernel's registers and spills (and failing if a K2 / K6
-   tensor-core kernel, bf16 or float32, spills or starts at other than the
-   168 registers its setmaxnreg split deals out);
+   tensor-core kernel, bf16 or float32, spills, or if it or K8's float32
+   kernel starts at other than the 168 registers its setmaxnreg split deals
+   out);
 3. holds the serving kernels (K1 contextual mask, K2 attention block, K3 quantizer)
    against its plain PyTorch twin on the card at the serving path's shapes
    (B = 16, 256^2, D = 512) and times kernel, twin and, where one exists, a
@@ -75,14 +76,16 @@
    HQ encoder's SelfAttention weights of a full-width codec (gamma 0.5) on
    a (16, 256, 32, 32) activation, K7b reading the NCHW tensor through
    x.permute(0, 2, 3, 1), and against the module's own forward (F.linear
-   projections + K2), bf16 on the tensor-core route and float32 on the
-   CUDA-core one (route counts); times both, host-inclusive and on the
-   device alone, beside the composed torch yardstick;
+   projections + K2), bf16 on the "wgmma" route and float32 on the
+   "tf32x3" one (three TF32 passes on the tensor cores; route counts);
+   times both, host-inclusive and on the device alone, beside the composed
+   torch yardstick (float32: TF32 off) and the float32 bounds;
 15. holds K8 (the fused generator tail) against its twin and against
    packed_tail_forward(use_pallas=False) with the HQ generator's deconv4,
    bn4 (random statistics) and out_conv on a (16, 128, 128, 128) input,
-   bf16 on the tensor-core route and float32 on the CUDA-core one, and
-   times it the same two ways;
+   bf16 on the "wgmma" route and float32 on the "tf32x3" one, and times it
+   the same two ways, float32 beside cuDNN's float32 (TF32 off) and its
+   bounds;
 16. drives the entry points of K6-K8 once at full width in bf16
    (attention_core, sagan_block, sagan_block_spatial,
    packed_tail_forward(use_pallas=True)): each kernel +1 and no other;
@@ -2010,9 +2013,9 @@ def check_k7(dev, B, codec):
     for dt in (torch.bfloat16, torch.float32):
         x = x32.to(dt)
         view = x.permute(0, 2, 3, 1)  # the NCHW activation, read in place
-        xf = view.reshape(B, N, C)    # a contiguous (B, N, C) copy
+        xf = view.reshape(B, N, C)    # (B, N, C) in place: positions 1 apart
         w = _sagan_weights(attn, dt)
-        route = "wgmma" if dt == torch.bfloat16 else "cuda_core"
+        route = "wgmma" if dt == torch.bfloat16 else "tf32x3"
         got_a, route_a = _route_of(sagan_block, lambda: sagan_block(xf, *w))
         got_b, route_b = _route_of(sagan_block_spatial, lambda: sagan_block_spatial(view, *w))
         if (route_a, route_b) != (route, route):
@@ -2083,11 +2086,19 @@ def check_k7(dev, B, codec):
     mod32_dev = device_ms(lambda: attn(x32c))
     dev32_a = device_ms(lambda: sagan_block(xf32, *w32))
     dev32_b = device_ms(lambda: sagan_block_spatial(x32v, *w32))
-    log(f"K7 float32 (CUDA-core route) K7a {ms32_a:.4f} ms (device alone {dev32_a:.4f}), K7b "
-        f"{ms32_b:.4f} (device alone {dev32_b:.4f}); float32 with TF32 off: three F.linear + "
-        f"softmax(q k^T) v in three calls + epilogue {lib32:.4f} ms (device alone "
-        f"{lib32_dev:.4f}); SelfAttention.forward (F.linear + K2 on \"tf32x3\") {mod32:.4f} ms "
-        f"(device alone {mod32_dev:.4f})")
+    parts32 = kernel_device_ms(lambda: sagan_block_spatial(x32v, *w32))
+    # float32: every product as three TF32 passes; x read once, the output
+    # written once in 4-byte elements
+    b32_ms, b32_by = bound_ms(2 * x.numel() * 4 + (2 * C * inner + C * C) * 4, 3 * flops,
+                              H100_TF32_TFLOPS)
+    cc32_ms = flops / H100_FP32_TFLOPS * 1e3
+    log(f"K7 float32 (\"tf32x3\": a three-pass TF32 QKV GEMM, then K2's float32 kernel) K7a "
+        f"{ms32_a:.4f} ms (device alone {dev32_a:.4f}), K7b {ms32_b:.4f} (device alone "
+        f"{dev32_b:.4f}); K7b's kernels (torch.profiler, device ms) {json.dumps(parts32)}; "
+        f"float32 with TF32 off, the same run: three F.linear + softmax(q k^T) v in three calls "
+        f"+ epilogue {lib32:.4f} ms (device alone {lib32_dev:.4f}); SelfAttention.forward "
+        f"(F.linear + K2 on \"tf32x3\") {mod32:.4f} ms (device alone {mod32_dev:.4f}); bound "
+        f"three TF32 passes {b32_ms:.4f} ms ({b32_by}), CUDA-core float32 {cc32_ms:.4f} ms")
     log(f"K7 times bf16 (wgmma QKV GEMM + K2's tensor-core kernel): K7a {ms_a:.4f} ms (device "
         f"alone {dev_a:.4f}), K7b (NCHW view) {ms_b:.4f} ms (device alone {dev_b:.4f}); float32 "
         f"K7a {ms32_a:.4f}, K7b {ms32_b:.4f} ms; twin {plain:.4f} ms, bound {b_ms:.4f} ms "
@@ -2099,7 +2110,10 @@ def check_k7(dev, B, codec):
                   yardstick_ms=yard, yardstick_device_ms=yard_dev, module_k2_ms=mod,
                   library_float32_ms=lib32, library_float32_device_ms=lib32_dev,
                   library_float32_tf32="off", module_k2_float32_ms=mod32,
-                  module_k2_float32_device_ms=mod32_dev, design="wgmma")
+                  module_k2_float32_device_ms=mod32_dev, design="wgmma",
+                  route_float32="tf32x3", float32_kernels_device_ms=parts32,
+                  float32_bound_ms=b32_ms, float32_bound_by=b32_by,
+                  float32_cuda_core_bound_ms=cc32_ms, max_abs_err_float32=max(ea32, eb32))
     return (dict(name="K7a sagan_block", replaces="contextual_image_compression_tpu/ops/attention.py:336",
                  max_abs_err=ea16, ms=ms_a, device_ms=dev_a, float32_ms=ms32_a,
                  float32_device_ms=dev32_a, **common),
@@ -2144,7 +2158,7 @@ def check_k8(dev, B, codec):
         x = x32.to(dt)
         args = _tail_args(gm, dt)
         got, route = _route_of(fused_tail, lambda: fused_tail(x, *args))
-        if route != ("wgmma" if dt == torch.bfloat16 else "cuda_core"):
+        if route != ("wgmma" if dt == torch.bfloat16 else "tf32x3"):
             raise AssertionError(f"K8 {dt} took the {route} route")
         want = fused_tail_plain(x, *args)
         cudnn = _tail_forward(gm, x, use_pallas=False)
@@ -2181,11 +2195,15 @@ def check_k8(dev, B, codec):
     flops = 2.0 * px * 32 * 4 * 128 + 2.0 * px * 3 * 16 * 32
     nbytes = x.numel() * 2 + px * 3 * 2
     b_ms, b_by = bound_ms(nbytes, flops, H100_BF16_TFLOPS)
+    # float32: three TF32 passes of every product, 4-byte elements
+    b32_ms, b32_by = bound_ms(2 * nbytes, 3 * flops, H100_TF32_TFLOPS)
+    cc32_ms = flops / H100_FP32_TFLOPS * 1e3
     log(f"K8 times: kernel bf16 (wgmma) {ms:.4f} ms (device alone {dev:.4f}), float32 "
-        f"{ms32:.4f} ms (device alone {dev32:.4f}), twin {plain:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}); yardstick packed_tail_forward(use_pallas=False) (cuDNN) {yard:.4f} ms (device "
-        f"alone {yard_dev:.4f}), in float32 with TF32 off {yard32:.4f} ms (device alone "
-        f"{yard32_dev:.4f})")
+        f"(\"tf32x3\") {ms32:.4f} ms (device alone {dev32:.4f}), twin {plain:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), float32 three TF32 passes {b32_ms:.4f} ms ({b32_by}), CUDA-core "
+        f"float32 {cc32_ms:.4f} ms; yardstick packed_tail_forward(use_pallas=False) (cuDNN) "
+        f"{yard:.4f} ms (device alone {yard_dev:.4f}), in float32 with TF32 off, the same run, "
+        f"{yard32:.4f} ms (device alone {yard32_dev:.4f})")
     return dict(name="K8 fused_tail", route="cuda",
                 source="contextual_image_compression_tpu_torch/csrc/packed_tail.cu",
                 replaces="contextual_image_compression_tpu/models/packed_tail.py:207",
@@ -2193,7 +2211,9 @@ def check_k8(dev, B, codec):
                 library_ms=None, yardstick_ms=yard, yardstick_device_ms=yard_dev,
                 library_float32_ms=yard32, library_float32_device_ms=yard32_dev,
                 library_float32_tf32="off", device_ms=dev, float32_ms=ms32,
-                float32_device_ms=dev32, design="wgmma")
+                float32_device_ms=dev32, design="wgmma", route_float32="tf32x3",
+                float32_bound_ms=b32_ms, float32_bound_by=b32_by, float32_cuda_core_bound_ms=cc32_ms,
+                max_abs_err_float32=t32)
 
 
 def run_entry_points(dev, B, codec):
@@ -2669,11 +2689,12 @@ def main():
         elif "Used" in line and "registers" in line:
             log(f"  ptxas: {entry[:110]}: {spills}; {line.split(':', 1)[-1].strip()}")
             attn = "attn_tc_kernel" in entry or "attn_tf32_kernel" in entry
+            split = attn or "tail_tf32_kernel" in entry
             if attn and not spills.startswith("0 bytes stack frame, 0 bytes spill"):
                 raise AssertionError(f"the K2 / K6 tensor-core kernel spills: {entry} {spills}")
-            if attn and "Used 168 registers" not in line:
-                raise AssertionError(f"the K2 / K6 tensor-core kernel does not start at the 168 "
-                                     f"registers its setmaxnreg split deals out: {entry} {line}")
+            if split and "Used 168 registers" not in line:
+                raise AssertionError(f"a setmaxnreg tensor-core kernel does not start at the 168 "
+                                     f"registers its split deals out: {entry} {line}")
         elif "error" in line.lower() or "warning" in line.lower():
             log("  ptxas: " + line.strip())
     if arrives:

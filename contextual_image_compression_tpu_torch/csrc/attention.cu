@@ -54,7 +54,10 @@
 // cvt.rna.tf32(x - hi), accumulated in float32 (see namespace tf below). Its
 // bound is the tensor cores' TF32 rate for three passes: 3 * 2 * N^2 * (DK +
 // DV) per image at 495 TFLOP/s, 0.0586 ms at B = 16 against 0.0163 ms for the
-// 54.5 MB of float32 q, k, v, residual and output.
+// 54.5 MB of float32 q, k, v, residual and output. K7's float32 attention
+// (cic::attn::tf32_block) runs the same kernel with another order of sums
+// (APART: score_mma_apart, e.V in segments added in float32), which holds
+// K7's bar at the scale of its scores; K2 / K6 keep theirs, bit for bit.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -460,44 +463,14 @@ attn_tc_kernel(__grid_constant__ const CUtensorMap kmap, __grid_constant__ const
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime, so the
-// library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // The (B, rows, W) tensor at ptr, of elements `bytes` wide, as a 3-D map
 // with boxes of box_w x box_rows, 128-byte swizzle (box_w * bytes = 128), and
 // zero fill outside (the ragged key tile, DK below the box).
 int encode_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int bytes, int B,
                int rows, int W, int box_w, int box_rows) {
-  EncodeTiled enc = encode_tiled();
-  if (!enc) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)rows, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)W * bytes, (cuuint64_t)rows * W * bytes};
-  const cuuint32_t box[3] = {(cuuint32_t)box_w, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = enc(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  const long long dims[3] = {W, rows, B};
+  const int box[3] = {box_w, box_rows, 1};
+  return cic::hop::encode_map(map, ptr, type, bytes, 3, dims, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Once per device and instantiation: the dynamic shared-memory limit, and a
@@ -619,6 +592,7 @@ constexpr int KEYS = 32;                  // keys per tile
 constexpr int CONSUMERS = 256;            // two warpgroups
 constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup (one thread loads)
 constexpr int BAR_TURN = 1;               // named barriers 1, 2: whose turn on the tensor cores
+constexpr int BAR_SLICE = 3;              // named barriers 3, 4: the strided epilogue's slices
 constexpr int Q_PART = 64 * 128;          // 64 rows x 32 floats of Q, hi or lo, swizzled
 constexpr int Q_BYTES = 4 * Q_PART;       // a warpgroup's Q: hi, lo x two 32-column blocks
 constexpr int K_PART = KEYS * 128;        // 32 keys x 32 floats of K, hi or lo
@@ -628,6 +602,7 @@ constexpr int SMEM_LIMIT = 232448;        // an H100 block's dynamic shared memo
 
 constexpr int STAGES_MAX = 4;
 constexpr int HEAD = 1024;                // the barriers, ahead of Q
+static_assert(KEYS == TF32_KEYS, "attention.cuh's scratch layout pads N to this key tile");
 
 // K and V^T stream through rings of their own. A turn runs tile t's scores
 // and tile t - 1's e.V, so a V^T tile is held for one turn more than its K
@@ -718,18 +693,42 @@ __device__ __forceinline__ void score_mma(float (&s)[16], uint64_t dqh, uint64_t
   }
 }
 
+// K7's S: the same products, the lo terms of every slice first and the
+// hi.hi ones after them. The tensor cores' float32 sums align their terms
+// to the largest and drop the low bits, so every product added into a
+// running score of tens (K7's widths) loses bits at that scale: here the
+// lo terms sum at their own scale, and only the ksteps hi.hi products meet
+// the large sum (score_mma's order adds all 3 ksteps into it).
+__device__ __forceinline__ void score_mma_apart(float (&s)[16], uint64_t dqh, uint64_t dql,
+                                                uint64_t dkh, uint64_t dkl, int ksteps) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    if (kk < ksteps) {
+      const uint64_t oq = slice(kk, Q_PART), ok = slice(kk, K_PART);
+      wgmma_ss_m64n32k8_tf32(s, dqh + oq, dkl + ok, kk > 0);
+      wgmma_ss_m64n32k8_tf32(s, dql + oq, dkh + ok, 1);
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    if (kk < ksteps)
+      wgmma_ss_m64n32k8_tf32(s, dqh + slice(kk, Q_PART), dkh + slice(kk, K_PART), 1);
+}
+
 // O += P V over a 32-key tile: 4 slices of 8 keys, NCH 64-column chunks,
 // each as lo.hi + hi.lo + hi.hi. vt: the stage's V^T hi, then its lo.
+// fresh: O = P V, O's values before ignored.
 template <int NCH>
 __device__ __forceinline__ void value_mma(float (&o)[NCH][32], const uint32_t (&ph)[4][4],
-                                          const uint32_t (&pl)[4][4], const unsigned char* vt) {
+                                          const uint32_t (&pl)[4][4], const unsigned char* vt,
+                                          int fresh = 0) {
   const uint64_t dvh = sw128_desc(vt, 16, 1024), dvl = sw128_desc(vt + NCH * V_PART, 16, 1024);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
       const uint64_t off = (uint64_t)((c * V_PART + kk * 32) >> 4);
-      wgmma_rs_m64n64k8_tf32(o[c], pl[kk], dvh + off);
+      wgmma_rs_m64n64k8_tf32(o[c], pl[kk], dvh + off, kk > 0 || !fresh);
       wgmma_rs_m64n64k8_tf32(o[c], ph[kk], dvl + off);
       wgmma_rs_m64n64k8_tf32(o[c], ph[kk], dvh + off);
     }
@@ -791,11 +790,11 @@ struct Maps {
   CUtensorMap qh, ql, kh, kl, vh, vl;
 };
 
-template <int NCH>
+template <int NCH, bool STRIDED, bool APART>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_tf32_kernel(__grid_constant__ const Maps maps, const float* __restrict__ res,
                  const float* __restrict__ gamma, float* __restrict__ out, int N, int ksteps,
-                 int kblocks) {
+                 int kblocks, const Strides st, float* __restrict__ acc) {
   constexpr int VST = vstages<NCH>();
   constexpr int DV = NCH * 64;
   const int KST = kstages<NCH>(kblocks), kstage = 2 * kblocks * K_PART;
@@ -883,7 +882,14 @@ attn_tf32_kernel(__grid_constant__ const Maps maps, const float* __restrict__ re
     if (!(last && wg == 1)) bar_arrive(BAR_TURN + (wg ^ 1), CONSUMERS);
   };
 
+  // S: K2's as score_mma forms it, K7's (APART) as score_mma_apart
   float s[16];
+  auto scores = [&](int i) {
+    if constexpr (APART)
+      score_mma_apart(s, dqh, dql, kdesc(i, 0), kdesc(i, 1), ksteps);
+    else
+      score_mma(s, dqh, dql, kdesc(i, 0), kdesc(i, 1), ksteps);
+  };
 
   // Pass 1: the row max over all keys.
   float m0 = -INFINITY, m1 = -INFINITY;
@@ -892,7 +898,7 @@ attn_tf32_kernel(__grid_constant__ const Maps maps, const float* __restrict__ re
     turn_begin();
     fence_regs(s);
     wgmma_fence();
-    score_mma(s, dqh, dql, kdesc(t, 0), kdesc(t, 1), ksteps);
+    scores(t);
     wgmma_commit();
     turn_end(false);
     wgmma_wait_all();
@@ -921,11 +927,69 @@ attn_tf32_kernel(__grid_constant__ const Maps maps, const float* __restrict__ re
   float l0 = 0.f, l1 = 0.f;
   uint32_t ph[4][4], pl[4][4];
 
+  // K7 (APART): e.V in segments of TF32_SEG_TILES key tiles, each summed on
+  // the tensor cores from zero (value_mma's fresh); every segment but the
+  // last is stored to its slice of acc ((segments - 1, B, N, DV), streaming
+  // stores: read once, at the end) and added in float32 in segment order to
+  // the last one. The tensor cores' float32 sums drop the low bits of every
+  // product at the running sum's scale, so one sum over all N keys would
+  // lose bits at the scale of the whole e.V.
+  const int row0 = q0 + wg * 64 + warp * 16 + (lane >> 2);
+  const size_t seg_elems = (size_t)gridDim.y * N * DV;
+  float* arow = acc ? acc + ((size_t)b * N + row0) * DV + 2 * qd : nullptr;
+  auto store_segment = [&](int g) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (row0 + 8 * h >= N) continue;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          __stcs(reinterpret_cast<float2*>(arow + g * seg_elems + 8 * h * DV + c * 64 + 8 * j),
+                 make_float2(o[c][4 * j + 2 * h], o[c][4 * j + 2 * h + 1]));
+    }
+  };
+  // o = ((seg 0 + seg 1) + ...) + o, a row's 8 values of one 64-column
+  // chunk at a time with the loads of 4 segments in flight
+  auto add_segments = [&](int stored) {
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (row0 + 8 * h >= N) continue;
+        const float* a = arow + 8 * h * DV + c * 64;
+        float2 sum[8];
+        for (int g0 = 0; g0 < stored; g0 += 4) {
+          float2 v[4][8];
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              if (g0 + g < stored)
+                v[g][j] =
+                    __ldcs(reinterpret_cast<const float2*>(a + (g0 + g) * seg_elems + 8 * j));
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              if (g0 + g < stored)
+                sum[j] = g0 + g == 0 ? v[g][j]
+                                     : make_float2(__fadd_rn(sum[j].x, v[g][j].x),
+                                                   __fadd_rn(sum[j].y, v[g][j].y));
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[c][4 * j + 2 * h] = __fadd_rn(sum[j].x, o[c][4 * j + 2 * h]);
+          o[c][4 * j + 2 * h + 1] = __fadd_rn(sum[j].y, o[c][4 * j + 2 * h + 1]);
+        }
+      }
+  };
+
   k_wait(T);
   turn_begin();
   fence_regs(s);
   wgmma_fence();
-  score_mma(s, dqh, dql, kdesc(T, 0), kdesc(T, 1), ksteps);
+  scores(T);
   wgmma_commit();
   turn_end(false);
   wgmma_wait_all();
@@ -939,26 +1003,30 @@ attn_tf32_kernel(__grid_constant__ const Maps maps, const float* __restrict__ re
     turn_begin();
     fence_operands(o, ph, pl, s);
     wgmma_fence();
-    value_mma<NCH>(o, ph, pl, vtile(t - 1));
-    score_mma(s, dqh, dql, kdesc(i, 0), kdesc(i, 1), ksteps);
+    value_mma<NCH>(o, ph, pl, vtile(t - 1), APART && t > 1 && (t - 1) % TF32_SEG_TILES == 0);
+    scores(i);
     wgmma_commit();
     turn_end(false);
     wgmma_wait_all();
     fence_operands(o, ph, pl, s);
     mbar_arrive(&kempty[i % KST]);
     mbar_arrive(&vempty[(t - 1) % VST]);
+    if constexpr (APART)
+      if (t % TF32_SEG_TILES == 0) store_segment(t / TF32_SEG_TILES - 1);
     softmax_tile(s, m0, m1, l0, l1, ph, pl, t * KEYS, N, qd);
   }
   v_wait(T - 1);
   turn_begin();
   fence_operands(o, ph, pl, s);
   wgmma_fence();
-  value_mma<NCH>(o, ph, pl, vtile(T - 1));
+  value_mma<NCH>(o, ph, pl, vtile(T - 1), APART && T > 1 && (T - 1) % TF32_SEG_TILES == 0);
   wgmma_commit();
   turn_end(true);
   wgmma_wait_all();
   fence_operands(o, ph, pl, s);
   mbar_arrive(&vempty[(T - 1) % VST]);
+  if constexpr (APART)
+    if (T > TF32_SEG_TILES) add_segments((T - 1) / TF32_SEG_TILES);
 
 #pragma unroll
   for (int x = 1; x <= 2; x <<= 1) {
@@ -966,11 +1034,59 @@ attn_tf32_kernel(__grid_constant__ const Maps maps, const float* __restrict__ re
     l1 += __shfl_xor_sync(0xffffffffu, l1, x);
   }
 
-  // Epilogue: K2 (gamma / l) * acc + residual, K6 acc * (1 / l), in float32
+  // Epilogue: K2 (gamma / l) * o + residual, K6 o * (1 / l), in float32
   // with the twin's roundings, straight from the accumulator: a thread's two
   // neighbouring columns as one 8-byte access where res and out allow.
   const float g = res ? *gamma : 1.f;
   const float sc[2] = {__fmul_rn(g, 1.0f / l0), __fmul_rn(g, 1.0f / l1)};
+  if constexpr (STRIDED) {
+    // K7's residual (not null) and output at element strides: 32-column
+    // slices of the scaled accumulator through this warpgroup's Q tiles (free
+    // now; rows 33 floats apart), then neighbouring threads on neighbouring
+    // groups of 4 positions (the NCHW view's contiguous axis). The same float32
+    // arithmetic as the contiguous store below, so either layout gives the
+    // same bits.
+    float* slice = reinterpret_cast<float*>(qtiles + wg * Q_BYTES);
+    const int lrow = warp * 16 + (lane >> 2);
+#pragma unroll
+    for (int part = 0; part < 2 * NCH; ++part) {
+      bar_sync(BAR_SLICE + wg, 128);  // the slice before is read out
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = (part & 1) * 4 + jj, at = (lrow + 8 * h) * 33 + 8 * jj + 2 * qd;
+          slice[at] = __fmul_rn(sc[h], o[part >> 1][4 * j + 2 * h]);
+          slice[at + 1] = __fmul_rn(sc[h], o[part >> 1][4 * j + 2 * h + 1]);
+        }
+      bar_sync(BAR_SLICE + wg, 128);
+      // 4 positions of one channel a thread, 16-byte accesses where the
+      // positions are contiguous and aligned (the NCHW view)
+      for (int idx = tid & 127; idx < 16 * 32; idx += 128) {
+        const int r0 = (idx & 15) * 4, cc = idx >> 4, n0 = q0 + wg * 64 + r0;
+        if (n0 >= N) continue;
+        const long long col = part * 32 + cc;
+        const long long ri = b * st.rb + n0 * st.rn + col * st.rc;
+        const long long oi = b * st.ob + n0 * st.on + col * st.oc;
+        float y[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) y[e] = slice[(r0 + e) * 33 + cc];
+        const bool vec = st.rn == 1 && st.on == 1 && n0 + 4 <= N &&
+                         (((uintptr_t)(res + ri) | (uintptr_t)(out + oi)) & 15) == 0;
+        if (vec) {
+          const float4 rr = *reinterpret_cast<const float4*>(res + ri);
+          *reinterpret_cast<float4*>(out + oi) =
+              make_float4(__fadd_rn(y[0], rr.x), __fadd_rn(y[1], rr.y), __fadd_rn(y[2], rr.z),
+                          __fadd_rn(y[3], rr.w));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (n0 + e < N) out[oi + e * st.on] = __fadd_rn(y[e], res[ri + e * st.rn]);
+        }
+      }
+    }
+    return;
+  }
   const bool vec =
       ((reinterpret_cast<uintptr_t>(res) | reinterpret_cast<uintptr_t>(out)) & 7) == 0;
 #pragma unroll
@@ -1004,34 +1120,83 @@ attn_tf32_kernel(__grid_constant__ const Maps maps, const float* __restrict__ re
   }
 }
 
-template <int NCH>
+template <int NCH, bool STRIDED, bool APART>
 int prepare(int device) {
   static int ready[tc::MAX_DEVICES] = {};
   if (device < 0 || device >= tc::MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   if (ready[device]) return 0;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, attn_tf32_kernel<NCH>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, attn_tf32_kernel<NCH, STRIDED, APART>);
   if (err != cudaSuccess) return (int)err;
   if (attr.numRegs != tc::START_REGS) return (int)cudaErrorInvalidKernelImage;
-  err = cudaFuncSetAttribute(attn_tf32_kernel<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_LIMIT);
+  err = cudaFuncSetAttribute(attn_tf32_kernel<NCH, STRIDED, APART>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
   if (err != cudaSuccess) return (int)err;
   ready[device] = 1;
   return 0;
 }
 
-template <int NCH>
+template <int NCH, bool STRIDED, bool APART>
 int launch_one(const Maps& maps, const float* res, const float* gamma, float* out, int B, int N,
-               int ksteps, int kblocks, cudaStream_t st) {
+               int ksteps, int kblocks, const Strides& sd, float* acc, cudaStream_t st) {
   int device = 0;
   cudaError_t dev_err = cudaGetDevice(&device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  const int err = prepare<NCH>(device);
+  const int err = prepare<NCH, STRIDED, APART>(device);
   if (err != 0) return err;
   const dim3 grid((N + ROWS - 1) / ROWS, B);
-  attn_tf32_kernel<NCH><<<grid, THREADS, SMEM_LIMIT, st>>>(maps, res, gamma, out, N, ksteps,
-                                                           kblocks);
+  attn_tf32_kernel<NCH, STRIDED, APART><<<grid, THREADS, SMEM_LIMIT, st>>>(
+      maps, res, gamma, out, N, ksteps, kblocks, sd, acc);
   return (int)cudaGetLastError();
+}
+
+template <bool STRIDED, bool APART>
+int launch_dv(const Maps& maps, const float* r, const float* gamma, float* o, int B, int N,
+              int ksteps, int kblocks, int DV, const Strides& sd, float* acc,
+              cudaStream_t st) {
+  switch (DV / 64) {
+    case 1:
+      return launch_one<1, STRIDED, APART>(maps, r, gamma, o, B, N, ksteps, kblocks, sd, acc, st);
+    case 2:
+      return launch_one<2, STRIDED, APART>(maps, r, gamma, o, B, N, ksteps, kblocks, sd, acc, st);
+    case 3:
+      return launch_one<3, STRIDED, APART>(maps, r, gamma, o, B, N, ksteps, kblocks, sd, acc, st);
+    default:
+      return launch_one<4, STRIDED, APART>(maps, r, gamma, o, B, N, ksteps, kblocks, sd, acc, st);
+  }
+}
+
+// The main kernel on scratch that holds the TF32 hi and lo of q, k and V^T
+// (Tf32Scratch, attention.cuh). K2 (apart false): its contiguous epilogue.
+// K7 (apart): K7's scores (score_mma_apart) and e.V in segments of
+// TF32_SEG_TILES key tiles added in float32 in s.acc; strides: null for a
+// contiguous (B, N, DV) residual and output, else their element strides.
+int run(const Tf32Scratch& s, const void* res, const float* gamma, void* out, int B, int N,
+        int DK, int DV, bool apart, const Strides* strides, cudaStream_t st) {
+  if (reinterpret_cast<uintptr_t>(out) & 3) return (int)cudaErrorMisalignedAddress;
+  Maps maps;
+  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const int DKP = s.dkp, NP = s.np;
+  int err = 0;
+  if ((err = tc::encode_map(&maps.qh, s.qh, f32, 4, B, N, DKP, 32, 64)) != 0 ||
+      (err = tc::encode_map(&maps.ql, s.ql, f32, 4, B, N, DKP, 32, 64)) != 0 ||
+      (err = tc::encode_map(&maps.kh, s.kh, f32, 4, B, N, DKP, 32, KEYS)) != 0 ||
+      (err = tc::encode_map(&maps.kl, s.kl, f32, 4, B, N, DKP, 32, KEYS)) != 0 ||
+      (err = tc::encode_map(&maps.vh, s.vh, f32, 4, B, DV, NP, 32, DV)) != 0 ||
+      (err = tc::encode_map(&maps.vl, s.vl, f32, 4, B, DV, NP, 32, DV)) != 0)
+    return err;
+  const float* r = static_cast<const float*>(res);
+  float* o = static_cast<float*>(out);
+  const int ksteps = (DK + 7) / 8, kblocks = DKP / 32;
+  if (!apart)
+    return launch_dv<false, false>(maps, r, gamma, o, B, N, ksteps, kblocks, DV, Strides{},
+                                   nullptr, st);
+  if (tf32_segments(N) > 1 && s.acc == nullptr) return (int)cudaErrorInvalidValue;
+  if (strides)
+    return launch_dv<true, true>(maps, r, gamma, o, B, N, ksteps, kblocks, DV, *strides, s.acc,
+                                 st);
+  return launch_dv<false, true>(maps, r, gamma, o, B, N, ksteps, kblocks, DV, Strides{}, s.acc,
+                                st);
 }
 
 // Scratch (float32 elements): hi and lo of q and k, (B, N, DKP) each, then hi
@@ -1039,41 +1204,16 @@ int launch_one(const Maps& maps, const float* res, const float* gamma, float* ou
 int launch(const void* q, const void* k, const void* v, const void* res, const float* gamma,
            void* out, void* scratch, long long scratch_elems, int B, int N, int DK, int DV,
            cudaStream_t st) {
-  const int DKP = DK <= 32 ? 32 : 64, NP = (N + KEYS - 1) / KEYS * KEYS;
-  const long long nq = (long long)B * N * DKP, nv = (long long)B * DV * NP;
-  if (scratch == nullptr || scratch_elems < 4 * nq + 2 * nv) return (int)cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(scratch) & 15) || (reinterpret_cast<uintptr_t>(out) & 3))
-    return (int)cudaErrorMisalignedAddress;
-  float* qh = static_cast<float*>(scratch);
-  float* ql = qh + nq;
-  float* kh = ql + nq;
-  float* kl = kh + nq;
-  float* vh = kl + nq;
-  float* vl = vh + nv;
-  split_kernel<<<dim3(NP / KEYS, B), 256, 0, st>>>(
+  if (scratch == nullptr || scratch_elems < tf32_scratch_elems(B, N, DK, DV))
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(scratch) & 15) return (int)cudaErrorMisalignedAddress;
+  const Tf32Scratch s = tf32_scratch(scratch, B, N, DK, DV);
+  split_kernel<<<dim3(s.np / KEYS, B), 256, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      qh, ql, kh, kl, vh, vl, N, DK, DV, DKP, NP);
+      s.qh, s.ql, s.kh, s.kl, s.vh, s.vl, N, DK, DV, s.dkp, s.np);
   cudaError_t launched = cudaGetLastError();
   if (launched != cudaSuccess) return (int)launched;
-  Maps maps;
-  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  int err = 0;
-  if ((err = tc::encode_map(&maps.qh, qh, f32, 4, B, N, DKP, 32, 64)) != 0 ||
-      (err = tc::encode_map(&maps.ql, ql, f32, 4, B, N, DKP, 32, 64)) != 0 ||
-      (err = tc::encode_map(&maps.kh, kh, f32, 4, B, N, DKP, 32, KEYS)) != 0 ||
-      (err = tc::encode_map(&maps.kl, kl, f32, 4, B, N, DKP, 32, KEYS)) != 0 ||
-      (err = tc::encode_map(&maps.vh, vh, f32, 4, B, DV, NP, 32, DV)) != 0 ||
-      (err = tc::encode_map(&maps.vl, vl, f32, 4, B, DV, NP, 32, DV)) != 0)
-    return err;
-  const float* r = static_cast<const float*>(res);
-  float* o = static_cast<float*>(out);
-  const int ksteps = (DK + 7) / 8, kblocks = DKP / 32;
-  switch (DV / 64) {
-    case 1: return launch_one<1>(maps, r, gamma, o, B, N, ksteps, kblocks, st);
-    case 2: return launch_one<2>(maps, r, gamma, o, B, N, ksteps, kblocks, st);
-    case 3: return launch_one<3>(maps, r, gamma, o, B, N, ksteps, kblocks, st);
-    default: return launch_one<4>(maps, r, gamma, o, B, N, ksteps, kblocks, st);
-  }
+  return run(s, res, gamma, out, B, N, DK, DV, false, nullptr, st);
 }
 
 }  // namespace tf
@@ -1098,6 +1238,14 @@ int cic::attn::tc_block(const void* q, const void* k, const void* v, const void*
   if (DK < 1 || DK > DK_MAX || DV < 64 || DV > DV_MAX || DV % 64 != 0 || N < 1)
     return (int)cudaErrorInvalidValue;
   return tc::launch(q, k, v, res, gamma, out, B, N, DK, DV, strides, stream);
+}
+
+int cic::attn::tf32_block(const Tf32Scratch& s, const void* res, const float* gamma, void* out,
+                          int B, int N, int DK, int DV, const Strides* strides,
+                          cudaStream_t stream) {
+  if (DK < 1 || DK > DK_MAX || DV < 64 || DV > DV_MAX || DV % 64 != 0 || N < 1 || !res)
+    return (int)cudaErrorInvalidValue;
+  return tf::run(s, res, gamma, out, B, N, DK, DV, true, strides, stream);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. q, k: (B, N, DK); v, res, out: (B, N, DV);

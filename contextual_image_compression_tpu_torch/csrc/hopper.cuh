@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile loads,
 // the proxy fence, named barriers, setmaxnreg and warpgroup matrix multiplies
-// (wgmma) with 128-byte-swizzled shared-memory operands.
+// (wgmma) with 128-byte-swizzled shared-memory operands; and on the host,
+// the driver's tensor-map encoder.
 //
 // Tiles handed to wgmma here are rows of 128 bytes (64 bf16 or 32 TF32),
 // 1024-byte aligned, with the 128-byte swizzle: the 16-byte chunk `ch` of row `r` lies at
@@ -80,6 +81,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One TMA load of a box of a 4-D tensor map (coordinates fastest first).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -283,6 +294,22 @@ __device__ __forceinline__ void wgmma_ss_m64n32k8_tf32(float (&d)[16], uint64_t 
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D (64 x 32, float32) (+)= A (64 x 8 TF32, registers, fragment as
+// wgmma_rs_m64n64k8_tf32's) * B (8 x 32, K-major in shared memory). D's
+// fragment as wgmma_ss_m64n32k8_tf32's.
+__device__ __forceinline__ void wgmma_rs_m64n32k8_tf32(float (&d)[16], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " CIC_WGMMA_D16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : CIC_WGMMA_ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 // D (64 x 64, float32) += A (64 x 8 TF32, registers) * B (8 x 64, K-major in
 // shared memory). A's fragment: a[0] row r, column c; a[1] row r + 8, column
 // c; a[2] row r, column c + 4; a[3] row r + 8, column c + 4; r = 16 * warp +
@@ -304,6 +331,61 @@ __device__ __forceinline__ void wgmma_rs_m64n64k8_tf32(float (&d)[32], const uin
 #undef CIC_WGMMA_ACC16
 #undef CIC_WGMMA_D32
 #undef CIC_WGMMA_ACC32
+
+// ------------------------------------------------------------- tensor maps
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime, so the
+// library needs no -lcuda.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A dense tensor of `rank` (<= 5) dimensions, dims[0] the fastest, of
+// elements `bytes` wide at ptr, as a map with boxes of box[0] x ... elements
+// and zero fill outside the tensor. Returns 0 or a cudaError_t.
+inline int encode_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int bytes,
+                      int rank, const long long* dims, const int* box,
+                      CUtensorMapSwizzle swizzle) {
+  EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorNotSupported;
+  cuuint64_t d[5], strides[4];
+  cuuint32_t b[5], elem[5];
+  cuuint64_t stride = (cuuint64_t)bytes;
+  for (int i = 0; i < rank; ++i) {
+    d[i] = (cuuint64_t)dims[i];
+    b[i] = (cuuint32_t)box[i];
+    elem[i] = 1;
+    if (i > 0) strides[i - 1] = stride;
+    stride *= d[i];
+  }
+  const CUresult r = enc(map, type, (cuuint32_t)rank, const_cast<void*>(ptr), d, strides, b, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A float32 tensor as encode_map's.
+inline int encode_f32_map(CUtensorMap* map, const void* ptr, int rank, const long long* dims,
+                          const int* box, CUtensorMapSwizzle swizzle) {
+  return encode_map(map, ptr, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, rank, dims, box, swizzle);
+}
 
 }  // namespace hop
 }  // namespace cic

@@ -56,182 +56,68 @@
 // ones (1.52x); the x window's loads are 2-byte-channel gathers from NCHW;
 // the kernel is at the 255-register limit with a small spill.
 //
-// float32 (bar 2e-5 against the twin): tail_kernel, one block of 320 threads
-// per image per 16 x 16 output pixels on float32 CUDA cores. The tile reads
-// planar rows and columns 8t .. 8t + 9 (10 x 10 positions x 4 slabs x Cmid,
-// the 4.1 MB planar tensor of a full image never exists) from an 11 x 11 x
-// Cin x tile in shared memory; warp w owns planar column w and all ten rows,
-// lane l four planar channels, so the x reads of a warp are one broadcast and
-// each (ci) step is 40 FMAs for 4 + 10 shared loads; it is bound by float32
-// FMA throughput.
+// float32 (bar 2e-5 against the twin): tail_tf32_kernel, the same plan on the
+// tensor cores with every product as three TF32 passes a_hi b_hi + a_hi b_lo
+// + a_lo b_hi (hi = cvt.rna.tf32(a), lo = cvt.rna.tf32(a - hi), summed in
+// float32). What float32 changes:
+//   * the four taps' weights in hi and lo are 512 KB at full width, 2.3x a
+//     block's shared memory, so they stream from L2 through a ring of STAGES
+//     stages (a producer thread, TMA, mbarriers): a stage is one tap's 64
+//     planar columns x 32 input channels, hi and lo, K-major and 128-byte
+//     swizzled (ops/generator_tail.py::_pack_taps_tf32: Cmid padded to 32,
+//     so the planar columns are slab * 32 + o; each group of 8 channels in
+//     the order 0, 2, 4, 6, 1, 3, 5, 7);
+//   * the x window is one TMA box (20 x 9 positions x Cin padded to 32,
+//     zeros outside the image and past Cin; its first column rounded down
+//     to a multiple of 4, since a box whose start is not 16-byte aligned
+//     faults on the H100; a producer warp's own loads where x's rows are not
+//     16-byte multiples), kept once in float32 and
+//     channel-major, a channel 180 floats: stage A loads the A fragments with
+//     32-bit loads (ldmatrix is a 16-bit load) and splits them into hi and
+//     lo in registers (the RS form). A lane's two channels of a k8 slice are
+//     2c and 2c + 1 (hence the weights' channel order), which puts the
+//     lanes of one load on 32 distinct banks;
+//   * stage A: per 64-column group and tap, fresh float32 accumulators over
+//     Cin, one for hi.hi and one for the two lo terms, added once: the
+//     tensor cores' float32 sums drop low bits, and small terms added into
+//     the large sum lose more (with one accumulator the card sat several
+//     times further from the twin than an exact sum of the passes); the taps
+//     combined in the TPU order in registers; once both warpgroups are
+//     done with the window, + shift, LeakyReLU and the out-of-image zeros
+//     from registers into the planar tile (128 positions x 4 slabs x 32
+//     channels; positions 168 floats apart, slabs 36, so stage B's loads
+//     are free of bank conflicts within an output row), which takes the
+//     window's place; the next window loads once stage B has read it;
+//   * stage B: a GEMM with Co as its N (8 at the least) wastes the tensor
+//     cores, and a product costs about what an N = 64 one does (a first
+//     version on m64n8k8 spent more cycles there than in stage A). So
+//     the out-conv is turned around: T = z . W_o over every z-pixel of the
+//     tile (each planar position and slab: 512 rows, K = 32 channels), N =
+//     taps x Co padded to 4, in two rounds of 8 taps (m64n32k8, A the planar
+//     values split in registers, B the out-conv weights' hi and lo, resident;
+//     hi.hi and the lo terms again summed apart); T goes to the ring, which
+//     stage A leaves free by holding back its tile's last STAGES stages; each
+//     output pixel then sums its 16 T values in tap order, + bias, tanh.
+// Shared memory: the window / planar tile 92,160 bytes, the out-conv weights
+// 16,384, the ring 5 x 16,384 (stage B's T, 512 x 33 floats a round, in its
+// place), stage A's first column group parked while the second runs 32,768
+// (in registers it pushed the consumers past their 232), barriers. ptxas
+// spills one register (8 bytes) around stage A's tap combine; more registers
+// for the consumers (240) spill more. Bound at B = 16: 3 x 37.6 GFLOP at the TF32 rate, 0.228
+// ms (0.561 at the CUDA cores' float32 rate).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
-#include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int TILE = 16;         // output pixels per tile side
-constexpr int PL = TILE / 2 + 2; // planar positions per tile side (10)
-constexpr int XT = PL + 1;       // x rows / cols per tile side (11)
-constexpr int THREADS = 32 * PL; // one warp per planar column
 constexpr int CIN_MAX = 128;
 constexpr int NC_MAX = 128;      // 4 slabs x Cmid
 constexpr int CO_MAX = 4;
-
-__host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) / 16 * 16; }
-
-template <typename T>
-__host__ __device__ size_t smem_bytes(int Cin, int NC, int Co, int Cmid) {
-  return align16((size_t)Cin * XT * XT * sizeof(T)) + align16((size_t)Cin * NC * sizeof(T)) +
-         align16((size_t)PL * PL * NC * sizeof(T)) + (size_t)Co * Cmid * 16 * sizeof(float);
-}
-
-template <typename T>
-__device__ __forceinline__ float add_round(float a, float b) {
-  return cic::round_to<T>(a + b);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-tail_kernel(const T* __restrict__ x, const T* __restrict__ wpk, const T* __restrict__ shift,
-            const T* __restrict__ wo, const float* __restrict__ bias, T* __restrict__ out,
-            int Cin, int H, int W, int Cmid, int Co, float slope) {
-  extern __shared__ __align__(16) unsigned char raw[];
-  const int NC = 4 * Cmid;
-  T* xs = reinterpret_cast<T*>(raw);                                      // [Cin][XT][XT]
-  T* ws = reinterpret_cast<T*>(raw + align16((size_t)Cin * XT * XT * sizeof(T)));  // [Cin][NC]
-  T* ys = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(ws) +
-                               align16((size_t)Cin * NC * sizeof(T)));    // [PL][PL][NC]
-  float* wos = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(ys) +
-                                        align16((size_t)PL * PL * NC * sizeof(T)));  // [Co][Cmid][4][4]
-
-  const int b = blockIdx.z;
-  const int M0 = blockIdx.y * (TILE / 2), J0 = blockIdx.x * (TILE / 2);
-  const int tid = threadIdx.x;
-  const int jl = tid / 32, cg = tid % 32;
-  const bool active = cg * 4 < NC;
-  const int j = J0 + jl;  // global planar column of this warp
-
-  // x tile rows M0 - 1 .. M0 + 9, columns J0 - 1 .. J0 + 9, zero outside the image
-  const T* xb = x + (size_t)b * Cin * H * W;
-  for (int i = tid; i < Cin * XT * XT; i += THREADS) {
-    const int ci = i / (XT * XT), rem = i % (XT * XT), rr = rem / XT, cc = rem % XT;
-    const int row = M0 - 1 + rr, col = J0 - 1 + cc;
-    xs[i] = (row >= 0 && row < H && col >= 0 && col < W)
-                ? xb[((size_t)ci * H + row) * W + col]
-                : cic::from_f32<T>(0.f);
-  }
-  for (int i = tid; i < Co * Cmid * 16; i += THREADS) wos[i] = cic::to_f32(wo[i]);
-
-  float Y[PL][4], acc[PL][4];
-  for (int t = 0; t < 4; ++t) {
-    const int r = t / 2, s = t % 2;
-    __syncthreads();  // the previous tap's weights are consumed
-    for (int i = tid; i < Cin * NC; i += THREADS) ws[i] = wpk[(size_t)t * Cin * NC + i];
-    __syncthreads();
-    if (!active) continue;
-#pragma unroll
-    for (int ml = 0; ml < PL; ++ml)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[ml][k] = 0.f;
-#pragma unroll 2
-    for (int ci = 0; ci < Cin; ++ci) {
-      const T* wrow = ws + ci * NC + cg * 4;
-      const float w4[4] = {cic::to_f32(wrow[0]), cic::to_f32(wrow[1]), cic::to_f32(wrow[2]),
-                           cic::to_f32(wrow[3])};
-      const T* xcol = xs + (ci * XT + r) * XT + jl + s;
-#pragma unroll
-      for (int ml = 0; ml < PL; ++ml) {
-        const float xv = cic::to_f32(xcol[ml * XT]);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[ml][k] += xv * w4[k];
-      }
-    }
-#pragma unroll
-    for (int ml = 0; ml < PL; ++ml) {
-      T* slot = ys + (ml * PL + jl) * NC + cg * 4;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float p = cic::round_to<T>(acc[ml][k]);
-        if (t == 0) {
-          Y[ml][k] = p;
-        } else if (t == 1) {
-          Y[ml][k] = add_round<T>(Y[ml][k], p);
-        } else if (t == 2) {
-          slot[k] = cic::from_f32<T>(p);  // P(1, 0), combined after P(1, 1)
-        } else {
-          const float p10 = cic::to_f32(slot[k]);
-          Y[ml][k] = (j % 2 == 0) ? add_round<T>(add_round<T>(Y[ml][k], p), p10)
-                                  : add_round<T>(add_round<T>(Y[ml][k], p10), p);
-        }
-      }
-    }
-  }
-
-  // + shift, LeakyReLU, zeros at the out-of-range pixels, into the planar tile
-  if (active) {
-#pragma unroll
-    for (int ml = 0; ml < PL; ++ml) {
-      const int m = M0 + ml;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int n = cg * 4 + k, slab = n / Cmid, o = n % Cmid;
-        const int P = 2 * m - slab / 2, Q = 2 * j - slab % 2;
-        float v = add_round<T>(Y[ml][k], cic::to_f32(shift[o]));
-        v = cic::round_to<T>(v >= 0.f ? v : slope * v);
-        if (P < 0 || P >= 2 * H || Q < 0 || Q >= 2 * W) v = 0.f;
-        ys[(ml * PL + jl) * NC + n] = cic::from_f32<T>(v);
-      }
-    }
-  }
-  __syncthreads();
-
-  // out-conv: pixel (p, q) reads z[p - 1 .. p + 2, q - 1 .. q + 2]
-  if (tid >= TILE * TILE) return;
-  const int p = blockIdx.y * TILE + tid / TILE, q = blockIdx.x * TILE + tid % TILE;
-  if (p >= 2 * H || q >= 2 * W) return;
-  float o[CO_MAX];
-#pragma unroll
-  for (int co = 0; co < CO_MAX; ++co) o[co] = 0.f;
-  for (int dy = 0; dy < 4; ++dy) {
-    const int P = p - 1 + dy, ml = ((P + 1) >> 1) - M0, a = P & 1;
-    for (int dx = 0; dx < 4; ++dx) {
-      const int Q = q - 1 + dx, jq = ((Q + 1) >> 1) - J0, bb = Q & 1;
-      const T* z = ys + (ml * PL + jq) * NC + (a * 2 + bb) * Cmid;
-      for (int c = 0; c < Cmid; ++c) {
-        const float zv = cic::to_f32(z[c]);
-#pragma unroll
-        for (int co = 0; co < CO_MAX; ++co)
-          if (co < Co) o[co] += zv * wos[((co * Cmid + c) * 4 + dy) * 4 + dx];
-      }
-    }
-  }
-  const size_t plane = (size_t)4 * H * W;
-#pragma unroll
-  for (int co = 0; co < CO_MAX; ++co)
-    if (co < Co)
-      out[((size_t)b * Co + co) * plane + (size_t)p * 2 * W + q] =
-          cic::from_f32<T>(tanhf(o[co] + bias[co]));
-}
-
-template <typename T>
-int launch(const void* x, const void* wpk, const void* shift, const void* wo, const float* bias,
-           void* out, int B, int Cin, int H, int W, int Cmid, int Co, float slope,
-           cudaStream_t st) {
-  const size_t smem = smem_bytes<T>(Cin, 4 * Cmid, Co, Cmid);
-  cudaError_t err = cudaFuncSetAttribute(tail_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((2 * W + TILE - 1) / TILE, (2 * H + TILE - 1) / TILE, B);
-  tail_kernel<T><<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wpk), static_cast<const T*>(shift),
-      static_cast<const T*>(wo), bias, static_cast<T*>(out), Cin, H, W, Cmid, Co, slope);
-  return (int)cudaGetLastError();
-}
 
 // ------------------------------------------------------ bf16: tensor cores
 
@@ -668,26 +554,461 @@ int launch(const void* x, const void* wt, const void* shift, const void* wo, con
 
 }  // namespace tc
 
+// ------------------------------------------------- float32: three TF32 passes
+
+namespace tf {
+
+using namespace cic::hop;
+
+constexpr int PR = tc::PR, PC = tc::PC, POS = PR * PC;  // the bf16 kernel's tile
+constexpr int TH = tc::TH, TW = tc::TW;
+constexpr int ZTILES = 4 * POS / 64;  // stage B's row m-tiles: every (position, slab) of the tile
+constexpr int XR = PR + 1;           // window rows (9)
+constexpr int XW = 20;               // window columns loaded: 17 used after 0..3 of alignment
+constexpr int CH = XR * XW;          // floats a channel of the window (180)
+constexpr int NP = 128;              // planar columns: 4 slabs x Cmid padded to 32
+constexpr int CHUNK = 2 * 64 * 128;  // a ring stage: 64 planar columns x 32 channels, hi and lo
+constexpr int STAGES = 5;
+constexpr int ZP = 168;              // the planar tile: floats between positions (8 mod 32)
+constexpr int ZS = 36;               // and between slabs (4 mod 32)
+constexpr int WO_PART = 32 * 128;    // out-conv weights of a round, hi or lo: 8 taps x 4 co rows
+constexpr int TST = 33;              // floats between rows of stage B's T
+constexpr int CONSUMERS = 256;       // two warpgroups
+constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup (two warps load)
+constexpr int START_REGS = 168;      // at 384 threads; setmaxnreg deals them out as:
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int WIN_BYTES = CIN_MAX * CH * 4;
+constexpr int WO_OFF = WIN_BYTES;
+constexpr int RING_OFF = WO_OFF + 4 * WO_PART;
+constexpr int Y0_OFF = RING_OFF + STAGES * CHUNK;  // stage A's first column group, parked
+constexpr int BAR_OFF = Y0_OFF + CONSUMERS * 32 * 4;
+constexpr int SMEM = BAR_OFF + 512 + 1024;  // barriers, shift and bias; the base's alignment
+static_assert(POS * ZP * 4 <= WIN_BYTES, "the planar tile fits the window's place");
+static_assert(ZTILES * 64 * TST * 4 <= STAGES * CHUNK, "stage B's T fits the ring");
+static_assert(TH * TW <= 2 * CONSUMERS, "two output pixels a consumer thread");
+static_assert(WO_OFF % 1024 == 0 && RING_OFF % 1024 == 0, "swizzled tiles start 1024-aligned");
+static_assert(SMEM <= tc::SMEM_LIMIT, "one block's shared memory");
+static_assert(128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS == THREADS * START_REGS,
+              "setmaxnreg must deal out exactly the block's starting registers");
+
+// The planar tile from one 64-column group's sums v (rows p0, p0 + 8 of the
+// accumulator layout): + shift, LeakyReLU, zeros at the out-of-image pixels
+// (-1 and 2H; they must read as zero in the out-conv), two columns a store.
+__device__ __forceinline__ void store_planar(float* __restrict__ z, const float (&v)[32], int g,
+                                             int prow, int pcol, int qd, int M0, int J0, int H,
+                                             int W, const float* __restrict__ shs, float slope) {
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int pc = pcol + 8 * ((i >> 1) & 1);
+    const int n = g * 64 + 8 * (i >> 2) + 2 * qd, slab = n >> 5, o = n & 31;
+    const int P = 2 * (M0 + prow) - (slab >> 1), Q = 2 * (J0 + pc) - (slab & 1);
+    float a = __fadd_rn(v[i], shs[o]), c = __fadd_rn(v[i + 1], shs[o + 1]);
+    a = a >= 0.f ? a : __fmul_rn(slope, a);
+    c = c >= 0.f ? c : __fmul_rn(slope, c);
+    const bool outside = P < 0 || P >= 2 * H || Q < 0 || Q >= 2 * W;
+    *reinterpret_cast<float2*>(z + (prow * PC + pc) * ZP + slab * ZS + o) =
+        outside ? make_float2(0.f, 0.f) : make_float2(a, c);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+tail_tf32_kernel(__grid_constant__ const CUtensorMap xmap, __grid_constant__ const CUtensorMap wmap,
+                 const float* __restrict__ x, int x_tma, const float* __restrict__ wo,
+                 const float* __restrict__ shift, const float* __restrict__ bias,
+                 float* __restrict__ out, int B, int Cin, int cin_pad, int H, int W, int Co,
+                 float slope, int tiles_y, int tiles_x) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* win = reinterpret_cast<float*>(base);  // [cin_pad][XR][XW]; later the planar tile [POS][ZP]
+  unsigned char* wob = base + WO_OFF;
+  unsigned char* ring = base + RING_OFF;
+  float* y0s = reinterpret_cast<float*>(base + Y0_OFF);  // [32][CONSUMERS]
+  uint64_t* wfull = reinterpret_cast<uint64_t*>(base + BAR_OFF);
+  uint64_t* wempty = wfull + 1;
+  uint64_t* full = wfull + 2;
+  uint64_t* empty = full + STAGES;
+  float* shs = reinterpret_cast<float*>(empty + STAGES);  // shift (32), then bias (8)
+  float* bs = shs + 32;
+  const int tid = threadIdx.x;
+  const int per_image = tiles_y * tiles_x, total = B * per_image;
+  const int KB = cin_pad / 32;
+
+  if (tid == 0) {
+    mbar_init(wfull, 1);
+    mbar_init(wempty, CONSUMERS);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  // once per block: the out-conv weights (2, 16, 4, 32) (half, tap, co,
+  // channel) as 16-byte pieces into a 32-row swizzled K-major tile per round
+  // of 8 taps and half (row (tap % 8) * 4 + co); shift and bias
+  for (int i = tid; i < 2 * 16 * 4 * 8; i += THREADS) {
+    const int half = i >> 9, tap = (i >> 5) & 15, row = (tap & 7) * 4 + ((i >> 3) & 3);
+    store_chunk_sw128(wob + ((tap >> 3) * 2 + half) * WO_PART, row, i & 7,
+                      *reinterpret_cast<const uint4*>(wo + (size_t)i * 4));
+  }
+  if (tid < 32) shs[tid] = shift[tid];
+  if (tid < 8) bs[tid] = bias[tid];
+  fence_proxy_async();
+  __syncthreads();
+
+  auto origin = [&](int tile, int& b, int& M0, int& J0) {
+    b = tile / per_image;
+    M0 = ((tile % per_image) / tiles_x) * (PR - 2);
+    J0 = (tile % tiles_x) * (PC - 2);
+  };
+
+  if (tid >= CONSUMERS) {
+    // ------------------------------------------------------------ producers
+    reg_dealloc<PRODUCER_REGS>();
+    if (tid == CONSUMERS) {
+      // the weight ring, in the consumers' order: per tile, column group g,
+      // tap t, 32-channel block kb
+      int i = 0;
+      for (int tile = blockIdx.x; tile < total; tile += gridDim.x)
+        for (int g = 0; g < 2; ++g)
+          for (int t = 0; t < 4; ++t)
+            for (int kb = 0; kb < KB; ++kb, ++i) {
+              const int s = i % STAGES;
+              mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+              unsigned char* stage = ring + s * CHUNK;
+              mbar_arrive_tx(&full[s], CHUNK);
+              tma_load_3d(stage, &wmap, &full[s], kb * 32, t * NP + g * 64, 0);
+              tma_load_3d(stage + CHUNK / 2, &wmap, &full[s], kb * 32, t * NP + g * 64, 1);
+            }
+    } else if (tid >= CONSUMERS + 32 && tid < CONSUMERS + 64) {
+      // the x windows, each once stage B of the tile before has read the
+      // planar tile out of their place
+      const int lane = tid & 31;
+      int k = 0;
+      for (int tile = blockIdx.x; tile < total; tile += gridDim.x, ++k) {
+        int b, M0, J0;
+        origin(tile, b, M0, J0);
+        mbar_wait(wempty, (k & 1) ^ 1);
+        const int x0 = (J0 - 1) & ~3;  // a box starts 16-byte aligned (TMA)
+        if (x_tma) {
+          if (lane == 0) {
+            mbar_arrive_tx(wfull, cin_pad * CH * 4);
+            tma_load_4d(win, &xmap, wfull, x0, M0 - 1, 0, b);
+          }
+        } else {
+          const float* xb = x + (size_t)b * Cin * H * W;
+          for (int e = lane; e < cin_pad * CH; e += 32) {
+            const int c = e / CH, rem = e - c * CH;
+            const int row = M0 - 1 + rem / XW, col = x0 + rem % XW;
+            win[e] = c < Cin && row >= 0 && row < H && col >= 0 && col < W
+                         ? xb[((size_t)c * H + row) * W + col]
+                         : 0.f;
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(wfull);
+        }
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------------------- consumers
+  reg_alloc<CONSUMER_REGS>();
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, qd = lane & 3;
+  // this thread's accumulator rows in stage A: planar positions p0 = 16 prow
+  // + pcol and p0 + 8 of the tile (one planar column parity: J0 is even)
+  const int prow = wg * 4 + warp, pcol = lane >> 2;
+  const bool odd_col = pcol & 1;
+  int chunk = 0, k = 0;
+  for (int tile = blockIdx.x; tile < total; tile += gridDim.x, ++k) {
+    int b, M0, J0;
+    origin(tile, b, M0, J0);
+    mbar_wait(wfull, k & 1);
+    // the accumulators live in this tile's stage A only (the products read
+    // them, as far as the compiler knows, so they are set here)
+    float y[32], hold[32], d[32], dc[32];
+#pragma unroll
+    for (int q = 0; q < 32; ++q) d[q] = dc[q] = 0.f;
+
+    // ---------------------------------------------------------------- stage A
+    // Per column group g and tap t = (r, s): D = X_t . W_t[g] with a fresh
+    // float32 accumulator, A from the window shifted by the tap (a[0], a[1]:
+    // channel 2 qd of the slice at columns pcol, pcol + 8; a[2], a[3]:
+    // channel 2 qd + 1), B the ring's stage; each 32-channel block's 12
+    // products are one group, waited for before its stage goes back.
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float* xa =
+            win + 2 * qd * CH + (prow + (t >> 1)) * XW + ((J0 - 1) & 3) + pcol + (t & 1);
+        for (int kb = 0; kb < KB; ++kb, ++chunk) {
+          const int s = chunk % STAGES;
+          mbar_wait(&full[s], (chunk / STAGES) & 1);
+          uint32_t ah[4][4], al[4][4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float* p = xa + (kb * 32 + kk * 8) * CH;
+            tf32_split(p[0], ah[kk][0], al[kk][0]);
+            tf32_split(p[8], ah[kk][1], al[kk][1]);
+            tf32_split(p[CH], ah[kk][2], al[kk][2]);
+            tf32_split(p[CH + 8], ah[kk][3], al[kk][3]);
+          }
+          fence_regs(d);
+          fence_regs(dc);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            fence_regs(ah[kk]);
+            fence_regs(al[kk]);
+          }
+          wgmma_fence();
+          const unsigned char* stage = ring + s * CHUNK;
+          const uint64_t dh = sw128_desc(stage, 16, 1024);
+          const uint64_t dl = sw128_desc(stage + CHUNK / 2, 16, 1024);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const int acc = kb > 0 || kk > 0;
+            wgmma_rs_m64n64k8_tf32(dc, al[kk], dh + 2 * kk, acc);
+            wgmma_rs_m64n64k8_tf32(dc, ah[kk], dl + 2 * kk, 1);
+            wgmma_rs_m64n64k8_tf32(d, ah[kk], dh + 2 * kk, acc);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(d);
+          fence_regs(dc);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            fence_regs(ah[kk]);
+            fence_regs(al[kk]);
+          }
+          // the tile's last STAGES stages stay held: stage B keeps T there
+          if ((g * 4 + t) * KB + kb < 8 * KB - STAGES) mbar_arrive(&empty[s]);
+        }
+        // the tap's product (hi.hi + the lo terms), into the sums in the TPU
+        // order: P(0, 0) + P(0, 1), then P(1, 1) before P(1, 0) on even
+        // planar columns and after it on odd ones
+#pragma unroll
+        for (int q = 0; q < 32; ++q) {
+          const float pt = __fadd_rn(d[q], dc[q]);
+          if (t == 0) {
+            y[q] = pt;
+          } else if (t == 1) {
+            y[q] = __fadd_rn(y[q], pt);
+          } else if (t == 2) {
+            hold[q] = pt;  // P(1, 0)
+          } else {
+            y[q] = odd_col ? __fadd_rn(__fadd_rn(y[q], hold[q]), pt)
+                           : __fadd_rn(__fadd_rn(y[q], pt), hold[q]);
+          }
+        }
+      }
+      if (g == 0) {  // parked in shared memory: in registers it would crowd group 1's
+#pragma unroll
+        for (int q = 0; q < 32; ++q) y0s[q * CONSUMERS + tid] = y[q];
+      }
+    }
+
+    // both warpgroups are done with the window: the planar tile takes its place
+    float* z = win;
+    bar_sync(1, CONSUMERS);
+    {
+      float y0[32];
+#pragma unroll
+      for (int q = 0; q < 32; ++q) y0[q] = y0s[q * CONSUMERS + tid];
+      store_planar(z, y0, 0, prow, pcol, qd, M0, J0, H, W, shs, slope);
+    }
+    store_planar(z, y, 1, prow, pcol, qd, M0, J0, H, W, shs, slope);
+    bar_sync(1, CONSUMERS);
+
+    // ---------------------------------------------------------------- stage B
+    // The 4 x 4 out-conv, out[P][Q][co] = sum over taps (dy, dx) of
+    // T[z-pixel (P - 1 + dy, Q - 1 + dx)][tap, co], where T = z . W_o is a
+    // GEMM on the tensor cores: a row per z-pixel (each planar position and
+    // slab of the tile, 512), K = 32 channels, N = taps x 4 (Co padded) in
+    // two rounds of 8 taps; then each output sums its 16 T values in tap
+    // order. T goes to the ring, which the weights leave free: stage A held
+    // back the ring's last STAGES stages. Row m-tile mt: slab mt / 2,
+    // positions 64 (mt % 2) + 0 .. 63.
+    float* ts = reinterpret_cast<float*>(ring);  // T of a round: [512][TST]
+    // What depends on the thread alone is rebuilt on every tile from an
+    // opaque zero: hoisted out of the tile loop, it would hold registers
+    // through stage A and spill.
+    int zero = 0;
+    asm volatile("" : "+r"(zero));
+    const int ltid = tid + zero;
+    float osum[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    int pp[2], qq[2];  // this thread's output pixels: tid and tid + 256 (if in the tile)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int pix = h ? ltid + CONSUMERS : ltid;
+      pp[h] = pix / TW;
+      qq[h] = pix % TW;
+    }
+#pragma unroll 1
+    for (int round = 0; round < 2; ++round) {
+      const unsigned char* wr = wob + round * 2 * WO_PART;
+      const uint64_t dh = sw128_desc(wr, 16, 1024), dl = sw128_desc(wr + WO_PART, 16, 1024);
+#pragma unroll 1
+      for (int i = 0; i < ZTILES / 2; ++i) {
+        const int mt = 2 * i + wg, slab = mt >> 1;
+        const int pos = (mt & 1) * 64 + 16 * warp + (lane >> 2) + zero;
+        const float* za = z + pos * ZP + slab * ZS + qd;
+        uint32_t ah[4][4], al[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          tf32_split(za[kk * 8], ah[kk][0], al[kk][0]);
+          tf32_split(za[8 * ZP + kk * 8], ah[kk][1], al[kk][1]);
+          tf32_split(za[kk * 8 + 4], ah[kk][2], al[kk][2]);
+          tf32_split(za[8 * ZP + kk * 8 + 4], ah[kk][3], al[kk][3]);
+        }
+        float t[16], tc[16];  // hi.hi, and the lo terms
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          fence_regs(ah[kk]);
+          fence_regs(al[kk]);
+        }
+        fence_regs(t);
+        fence_regs(tc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_rs_m64n32k8_tf32(tc, al[kk], dh + 2 * kk, kk > 0);
+          wgmma_rs_m64n32k8_tf32(tc, ah[kk], dl + 2 * kk, 1);
+          wgmma_rs_m64n32k8_tf32(t, ah[kk], dh + 2 * kk, kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(t);
+        fence_regs(tc);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          fence_regs(ah[kk]);
+          fence_regs(al[kk]);
+        }
+        // t[j]: z-pixel row mt * 64 + 16 warp + lane / 4 + 8 ((j / 2) % 2),
+        // column 8 (j / 4) + 2 qd + j % 2 (tap 8 round + column / 4, co column % 4)
+        const int zi = mt * 64 + 16 * warp + (lane >> 2) + zero;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          ts[(zi + 8 * ((j >> 1) & 1)) * TST + 8 * (j >> 2) + 2 * qd + (j & 1)] =
+              __fadd_rn(t[j], tc[j]);
+      }
+      bar_sync(1, CONSUMERS);  // T of the round is in (and, after round 1, z is read out)
+      if (round == 1) {
+        // the planar tile is read out: the next window may take its place
+        fence_proxy_async();
+        mbar_arrive(wempty);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h && tid + CONSUMERS >= TH * TW) continue;
+#pragma unroll
+        for (int tl = 0; tl < 8; ++tl) {
+          const int tap = round * 8 + tl, r = pp[h] + (tap >> 2), c = qq[h] + (tap & 3);
+          const int zi = (((r + 1) & 1) * 2 + ((c + 1) & 1)) * POS + (r >> 1) * PC + (c >> 1);
+          const float* row = ts + zi * TST + tl * 4;
+#pragma unroll
+          for (int co = 0; co < 4; ++co) osum[h][co] = __fadd_rn(osum[h][co], row[co]);
+        }
+      }
+      bar_sync(1, CONSUMERS);  // T of the round is read out
+    }
+    // the ring's last STAGES stages go back to the producer
+    fence_proxy_async();
+#pragma unroll 1
+    for (int q = 0; q < STAGES; ++q) mbar_arrive(&empty[(chunk - STAGES + q) % STAGES]);
+
+    // + bias, tanh, the NCHW store
+    const size_t plane = (size_t)4 * H * W;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int pix = h ? tid + CONSUMERS : tid;
+      const int P = 2 * M0 + pp[h], Q = 2 * J0 + qq[h];
+      if (pix >= TH * TW || P >= 2 * H || Q >= 2 * W) continue;
+#pragma unroll
+      for (int co = 0; co < 4; ++co)
+        if (co < Co)
+          out[((size_t)b * Co + co) * plane + (size_t)P * 2 * W + Q] =
+              tanhf(__fadd_rn(osum[h][co], bs[co]));
+    }
+  }
+}
+
+int launch(const void* x, const float* taps, const float* wo, const float* shift,
+           const float* bias, void* out, int B, int Cin, int H, int W, int Co, float slope,
+           cudaStream_t st) {
+  static int ready[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  if (!ready[device]) {
+    // the build must start a thread at START_REGS registers, the pool
+    // setmaxnreg deals from; a block that started lower would stall in its
+    // first increase, so such a build is refused before its first launch
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, tail_tf32_kernel);
+    if (err != cudaSuccess) return (int)err;
+    if (attr.numRegs != START_REGS) return (int)cudaErrorInvalidKernelImage;
+    err = cudaFuncSetAttribute(tail_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM);
+    if (err != cudaSuccess) return (int)err;
+    ready[device] = 1;
+  }
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (!aligned(taps) || !aligned(wo)) return (int)cudaErrorMisalignedAddress;
+  const int cin_pad = (Cin + 31) / 32 * 32;
+  CUtensorMap xmap = {}, wmap = {};
+  const int x_tma = W % 4 == 0 && aligned(x);
+  if (x_tma) {
+    const long long dims[4] = {W, H, Cin, B};
+    const int box[4] = {XW, XR, cin_pad, 1};
+    const int e = encode_f32_map(&xmap, x, 4, dims, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (e != 0) return e;
+  }
+  const long long wdims[3] = {cin_pad, 4 * NP, 2};
+  const int wbox[3] = {32, 64, 1};
+  const int e = encode_f32_map(&wmap, taps, 3, wdims, wbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != 0) return e;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_y = (2 * H + TH - 1) / TH, tiles_x = (2 * W + TW - 1) / TW;
+  const long long total = (long long)B * tiles_y * tiles_x;
+  if (total > (1ll << 31) - 1) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(total < sms ? total : sms);
+  tail_tf32_kernel<<<grid, THREADS, SMEM, st>>>(
+      xmap, wmap, static_cast<const float*>(x), x_tma, wo, shift, bias, static_cast<float*>(out),
+      B, Cin, cin_pad, H, W, Co, slope, tiles_y, tiles_x);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf
+
 }  // namespace
 
-// float32 (x, wpk, shift, wo, out). x: (B, Cin, H, W); wpk: (4, Cin, 4 * Cmid)
-// packed deconv taps with BatchNorm folded in; shift: (Cmid,); wo: (Co, Cmid,
-// 4, 4); bias: (Co,) float32; out: (B, Co, 2H, 2W). Takes Cin <= 128,
-// Cmid <= 32, Co <= 4.
-extern "C" int cic_packed_tail(const void* x, const void* wpk, const void* shift, const void* wo,
+// float32. x: (B, Cin, H, W); taps: (2, 4, 128, Cin padded to 32), TF32 hi
+// then lo of the BN-folded deconv taps r * 2 + s, rows slab * 32 + o (Cmid
+// padded to 32), input channels of each group of 8 in the order 0, 2, 4, 6,
+// 1, 3, 5, 7 (ops/generator_tail.py::_pack_taps_tf32); shift: (32,) and bias:
+// (8,) float32, zeros in the padding; wo: (2, 16, 4, 32), hi then lo of the
+// out-conv weight at tap dy * 4 + dx, output channel co, channel c (zeros
+// past Co and Cmid); out: (B, Co, 2H, 2W). Takes Cin <= 128, Cmid <= 32, Co <= 4.
+extern "C" int cic_packed_tail(const void* x, const void* taps, const void* shift, const void* wo,
                                const float* bias, void* out, int B, int Cin, int H, int W,
                                int Cmid, int Co, float slope, void* stream) {
   if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cin > CIN_MAX || Cmid < 1 || 4 * Cmid > NC_MAX ||
       Co < 1 || Co > CO_MAX)
     return (int)cudaErrorInvalidValue;
-  return launch<float>(x, wpk, shift, wo, bias, out, B, Cin, H, W, Cmid, Co, slope,
-                       static_cast<cudaStream_t>(stream));
+  return tf::launch(x, static_cast<const float*>(taps), static_cast<const float*>(wo),
+                    static_cast<const float*>(shift), bias, out, B, Cin, H, W, Co, slope,
+                    static_cast<cudaStream_t>(stream));
 }
 
-// bf16 (x, wt, shift, wo, out), arguments as cic_packed_tail but the taps as
-// tiles wt: (4, ceil(4 Cmid / 64), Cin padded to 16, 64), tap r * 2 + s,
-// column group g holding columns g * 64 .. + 63 of (a * 2 + b) * Cmid + o,
-// zeros in the padding.
+// bf16 (x, wt, shift, wo, out). x: (B, Cin, H, W); the taps as tiles wt:
+// (4, ceil(4 Cmid / 64), Cin padded to 16, 64), tap r * 2 + s, column group
+// g holding columns g * 64 .. + 63 of (a * 2 + b) * Cmid + o, zeros in the
+// padding; shift: (Cmid,); wo: (Co, Cmid, 4, 4); bias: (Co,) float32; out:
+// (B, Co, 2H, 2W). Takes Cin <= 128, Cmid <= 32, Co <= 4.
 extern "C" int cic_packed_tail_bf16(const void* x, const void* wt, const void* shift,
                                     const void* wo, const float* bias, void* out, int B, int Cin,
                                     int H, int W, int Cmid, int Co, float slope, void* stream) {

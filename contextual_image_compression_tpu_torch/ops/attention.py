@@ -18,8 +18,11 @@ Counterpart of `contextual_image_compression_tpu/ops/attention.py`, no
     projections, gamma * softmax((x Wq + bq)(x Wk + bk)^T)(x Wv + bv) + x,
     on the (B, N, C) and the (B, H, W, C) views; `csrc/sagan_block.cu`
     reads either in place, the port's NCHW activation as
-    `x.permute(0, 2, 3, 1)` included: in bf16 a wgmma QKV GEMM, then K2's
-    tensor-core kernel with a strided epilogue; in float32 a CUDA-core pair.
+    `x.permute(0, 2, 3, 1)` included: a QKV GEMM on the tensor cores, then
+    K2's kernel with a strided epilogue; in bf16 one pass (route "wgmma"),
+    in float32 three TF32 passes per product (route "tf32x3": the GEMM
+    writes the TF32 hi and lo of Q, K and V^T straight into K2's float32
+    scratch).
 
 Each wrapper launches its kernel for CUDA tensors and its twin (`*_plain`,
 the kernel's rounding) for CPU tensors. `use_pallas=False` runs the `*_jnp`
@@ -33,10 +36,12 @@ autograd Function, which would cost more host time than their kernel.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from contextual_image_compression_tpu_torch.ops import cuda_kernels as ck
 
 TF32_KEY_TILE = 32  # keys a tile of the float32 route (csrc/attention.cu tf::KEYS)
+TF32_SEG_TILES = 8  # key tiles a segment of K7's float32 e.V (csrc/attention.cuh)
 
 
 def attention_core_jnp(q, k, v):
@@ -126,13 +131,16 @@ def _launch_attention(name, q, k, v, residual=None, gamma=None):
     return out, ("tf32x3" if code == 0 else "wgmma")
 
 
-def _tf32_scratch_elems(b, n, dk, dv):
+def _tf32_scratch_elems(b, n, dk, dv, with_acc=False):
     """float32 elements of the float32 route's scratch: TF32 hi and lo of q
     and k at DK zero-padded to 32 or 64, and of V^T (B, DV, N rounded up to
-    the key tile)."""
+    the key tile); with_acc (K7), where N takes more than one segment of
+    TF32_SEG_TILES key tiles, e.V of every segment but the last, (segments
+    - 1, B, N, DV) float32."""
     dkp = 32 if dk <= 32 else 64
-    np_ = -(-n // TF32_KEY_TILE) * TF32_KEY_TILE
-    return 4 * b * n * dkp + 2 * b * dv * np_
+    tiles = -(-n // TF32_KEY_TILE)
+    acc = (-(-tiles // TF32_SEG_TILES) - 1) * b * n * dv if with_acc else 0
+    return 4 * b * n * dkp + 2 * b * dv * tiles * TF32_KEY_TILE + acc
 
 
 def _attention_core_kernel(q, k, v):
@@ -268,12 +276,27 @@ def _pack_qkv(wq, bq, wk, bk, wv, bv, dt):
     return w, bias
 
 
+def _pack_qkv_tf32(wq, bq, wk, bk, wv, bv):
+    """K7's float32 projection weights: the rows [Wq^T; 0; Wk^T; 0; Wv^T]
+    (out, in), Q's and K's zero-padded to dkp = 32 (C/8 <= 32) or 64, so
+    that the GEMM's 64-column tiles are all Q / K or all V and write K2's
+    float32 scratch at its padded width; as TF32 hi and lo, (2, 2 dkp + C,
+    C); and the float32 biases in the same rows, zeros in the padding."""
+    inner = wq.shape[1]
+    pad = (32 if inner <= 32 else 64) - inner
+    w = torch.cat([F.pad(wq.float().t(), (0, 0, 0, pad)), F.pad(wk.float().t(), (0, 0, 0, pad)),
+                   wv.float().t()])
+    bias = torch.cat([F.pad(bq.reshape(-1).float(), (0, pad)),
+                      F.pad(bk.reshape(-1).float(), (0, pad)), bv.reshape(-1).float()])
+    return ck.tf32_split(w), bias
+
+
 def _sagan_kernel(owner, x, wq, bq, wk, bk, wv, bv, gamma):
     """Launch K7 on x (B, N, C) or (B, H, W, C) in any layout whose positions
-    share one stride; the output has x's shape and layout. bf16 takes the
-    tensor-core route (a wgmma QKV GEMM, then K2's kernel), float32 the
-    CUDA-core one. `owner` is the public wrapper whose launch and route
-    counts move."""
+    share one stride; the output has x's shape and layout. A QKV GEMM, then
+    K2's kernel, on the tensor cores: bf16 in one pass (route "wgmma"),
+    float32 in three TF32 passes (route "tf32x3"). `owner` is the public
+    wrapper whose launch and route counts move."""
     name = owner.__name__
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
@@ -305,17 +328,16 @@ def _sagan_kernel(owner, x, wq, bq, wk, bk, wv, bv, gamma):
             sob, son, soc, b, n, c, inner, stream)
         route = "wgmma"
     else:
-        kbuf = torch.empty((b, n, inner), dtype=dt, device=x.device)
-        vbuf = torch.empty((b, n, dv), dtype=dt, device=x.device)
-        ws = [w.to(dt).contiguous() for w in (wq, wk, wv)]
-        bs = [t.to(torch.float32).reshape(-1).contiguous() for t in (bq, bk, bv)]
-        ck.require_cuda(name, *ws, *bs, g, kbuf, vbuf)
+        wqkv, bias = _pack_qkv_tf32(wq, bq, wk, bk, wv, bv)
+        # the TF32 hi and lo of Q, K and V^T, written by the GEMM, read by K2's
+        # kernel, and its e.V segments but the last
+        elems = _tf32_scratch_elems(b, n, inner, c, with_acc=True)
+        scratch = torch.empty(elems, dtype=torch.float32, device=x.device)
+        ck.require_cuda(name, wqkv, bias, g, scratch)
         err = lib.cic_sagan_block(
-            x.data_ptr(), sxb, sxn, sxc,
-            ws[0].data_ptr(), bs[0].data_ptr(), ws[1].data_ptr(), bs[1].data_ptr(),
-            ws[2].data_ptr(), bs[2].data_ptr(), g.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(),
-            out.data_ptr(), sob, son, soc, b, n, c, inner, dv, stream)
-        route = "cuda_core"
+            x.data_ptr(), sxb, sxn, sxc, wqkv.data_ptr(), bias.data_ptr(), g.data_ptr(),
+            scratch.data_ptr(), elems, out.data_ptr(), sob, son, soc, b, n, c, inner, stream)
+        route = "tf32x3"
     ck.check(err, name)
     owner.launches += 1
     owner.route_launches[route] += 1
@@ -370,6 +392,6 @@ def sagan_block_spatial(x, wq, bq, wk, bk, wv, bv, gamma, use_pallas: bool = Tru
 sagan_block.launches = 0
 sagan_block_spatial.launches = 0
 # launches per route: "wgmma" (bf16: the QKV GEMM and K2's kernel on the
-# tensor cores), "cuda_core" (float32)
-sagan_block.route_launches = {"wgmma": 0, "cuda_core": 0}
-sagan_block_spatial.route_launches = {"wgmma": 0, "cuda_core": 0}
+# tensor cores), "tf32x3" (float32, three TF32 passes on the tensor cores)
+sagan_block.route_launches = {"wgmma": 0, "tf32x3": 0}
+sagan_block_spatial.route_launches = {"wgmma": 0, "tf32x3": 0}

@@ -102,10 +102,10 @@ _SIGNATURES = {
     ],
     "cic_sagan_block": [         # float32
         _P, _L, _L, _L,              # x and its (batch, position, channel) element strides
-        _P, _P, _P, _P, _P, _P,      # wq, bq(f32), wk, bk(f32), wv, bv(f32)
-        _P, _P, _P,                  # gamma(f32), K scratch, V scratch
+        _P, _P, _P,                  # packed QKV weight (TF32 hi, lo), its bias(f32), gamma(f32)
+        _P, _L,                      # the float32 route's TF32 scratch, its element count
         _P, _L, _L, _L,              # out and its element strides
-        _I, _I, _I, _I, _I, _P,      # B, N, C, DK, DV, stream
+        _I, _I, _I, _I, _P,          # B, N, C, DK, stream
     ],
     "cic_sagan_block_bf16": [
         _P, _L, _L, _L,              # x and its (batch, position, channel) element strides
@@ -115,7 +115,7 @@ _SIGNATURES = {
         _I, _I, _I, _I, _P,          # B, N, C, DK, stream
     ],
     "cic_packed_tail": [         # float32
-        _P, _P, _P, _P, _P, _P,      # x, packed deconv taps, shift, out weight, bias(f32), out
+        _P, _P, _P, _P, _P, _P,      # x, taps (TF32 hi, lo), shift(f32), out weight (hi, lo), bias(f32), out
         _I, _I, _I, _I, _I, _I,      # B, Cin, H, W, Cmid, Co
         _F, _P,                      # LeakyReLU slope, stream
     ],
@@ -258,3 +258,18 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: all tensors must be on {dev}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def tf32_split(t: torch.Tensor) -> torch.Tensor:
+    """(2, *t.shape) float32: the TF32 hi and lo of t as `csrc/hopper.cuh`'s
+    tf32_split forms them, hi = cvt.rna.tf32(t) (10 mantissa bits, ties away
+    from zero: half a TF32 ulp added to the magnitude bits, the 13 low bits
+    cleared) and lo = cvt.rna.tf32(t - hi); hi + lo is t to within 2^-22 of
+    |t|. The float32 routes of K7 and K8 take their weights split so."""
+
+    def rna(a):
+        return ((a.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    t = t.float().contiguous()
+    hi = rna(t)
+    return torch.stack([hi, rna(t - hi)])

@@ -4,9 +4,9 @@ K8 replaces `contextual_image_compression_tpu/models/packed_tail.py::
 fused_tail_pallas`, which `packed_tail_forward(use_pallas=True)` reaches:
 BN-folded 4x4/s2 transposed conv -> + shift -> LeakyReLU -> zeros outside
 the image -> 4x4/s1 SAME conv -> + bias -> tanh, in NCHW. `fused_tail`
-launches the kernel in `csrc/packed_tail.cu` for CUDA tensors (bf16: the
-deconv's tap products and the out-conv on the tensor cores; float32: CUDA
-cores) and runs the twin
+launches the kernel in `csrc/packed_tail.cu` for CUDA tensors (the deconv's
+tap products and the out-conv on the tensor cores: bf16 in one pass, route
+"wgmma"; float32 in three TF32 passes, route "tf32x3") and runs the twin
 `fused_tail_plain` for CPU tensors. The twin keeps the TPU kernel's
 roundings: each of the four polyphase tap products rounded to the compute
 dtype and added into a dtype accumulator in the kernel's order, LeakyReLU in
@@ -108,6 +108,37 @@ def _pack_tap_tiles(folded: torch.Tensor) -> torch.Tensor:
     return wpk.reshape(4, cin_pad, ng, 64).permute(0, 2, 1, 3).contiguous()
 
 
+# The float32 route's channel order within each group of 8 input channels:
+# A fragment lane c of a k8 slice holds channels 2c and 2c + 1 (which puts a
+# load's lanes on distinct banks), so K position p of the slice is channel
+# TF32_CHANNEL_ORDER[p] (csrc/packed_tail.cu, namespace tf).
+TF32_CHANNEL_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _pack_taps_tf32(folded: torch.Tensor) -> torch.Tensor:
+    """The float32 route's tap weights: `_pack_taps`' (4, Cin, 4 Cmid) as
+    (2, 4, 128, Cin padded to 32), TF32 hi then lo: tap, planar column
+    slab * 32 + o (Cmid padded to 32), input channel K-major with each group
+    of 8 in TF32_CHANNEL_ORDER; zeros in the padding."""
+    wpk = _pack_taps(folded.float())
+    _, cin, nc = wpk.shape
+    cmid, cin_pad = nc // 4, -(-cin // 32) * 32
+    w = F.pad(wpk.reshape(4, cin, 4, cmid), (0, 32 - cmid, 0, 0, 0, cin_pad - cin))
+    w = w.permute(0, 2, 3, 1).reshape(4, 128, cin_pad)
+    k = torch.arange(cin_pad, device=w.device)  # K position -> channel, made on the device
+    perm = k // 8 * 8 + k % 4 * 2 + k % 8 // 4
+    return ck.tf32_split(w[..., perm])
+
+
+def _pack_out_conv_tf32(out_weight: torch.Tensor) -> torch.Tensor:
+    """The float32 route's out-conv weights (Co, Cmid, 4, 4) as (2, 16, 4,
+    32), TF32 hi then lo: tap dy * 4 + dx, output channel (Co padded to 4),
+    input channel (Cmid padded to 32); zeros in the padding."""
+    co, cmid = out_weight.shape[:2]
+    w = out_weight.float().permute(2, 3, 0, 1).reshape(16, co, cmid)
+    return ck.tf32_split(F.pad(w, (0, 32 - cmid, 0, 4 - co)))
+
+
 def fused_tail(x, folded, shift, out_weight, out_bias, leaky_slope: float = 0.2):
     """K8 on CUDA tensors (arguments as `fused_tail_plain`); the twin on CPU
     tensors."""
@@ -124,11 +155,16 @@ def fused_tail(x, folded, shift, out_weight, out_bias, leaky_slope: float = 0.2)
         raise ValueError(f"fused_tail: kernel takes Cin <= 128, Cmid <= 32, Co <= 4; got {cin}, {cmid}, {co}")
     code = ck.dtype_code(dt)
     x = x.contiguous()
-    # bf16: the tensor-core kernel and its tap tiles; float32: the CUDA-core one
-    taps = _pack_tap_tiles(folded.to(dt)) if code == 1 else _pack_taps(folded.to(dt))
-    shift = shift.to(dt).contiguous()
-    wo = out_weight.to(dt).contiguous()
-    bias = out_bias.to(torch.float32).contiguous()
+    if code == 1:  # the tap tiles, and shift and the out-conv weight in bf16
+        taps = _pack_tap_tiles(folded.to(dt))
+        shift = shift.to(dt).contiguous()
+        wo = out_weight.to(dt).contiguous()
+        bias = out_bias.to(torch.float32).contiguous()
+    else:  # TF32 hi / lo of the taps and the out-conv weight; shift and bias padded
+        taps = _pack_taps_tf32(folded)
+        wo = _pack_out_conv_tf32(out_weight)
+        shift = F.pad(shift.float(), (0, 32 - cmid))
+        bias = F.pad(out_bias.float(), (0, 8 - co))
     ck.require_cuda("fused_tail", x, taps, shift, wo, bias)
     out = torch.empty((b, co, 2 * h, 2 * w), dtype=dt, device=x.device)
     lib = ck.library()
@@ -138,10 +174,10 @@ def fused_tail(x, folded, shift, out_weight, out_bias, leaky_slope: float = 0.2)
                 ck.stream_ptr(x.device))
     ck.check(err, "fused_tail")
     fused_tail.launches += 1
-    fused_tail.route_launches["wgmma" if code == 1 else "cuda_core"] += 1
+    fused_tail.route_launches["wgmma" if code == 1 else "tf32x3"] += 1
     return out
 
 
 fused_tail.launches = 0
-# launches per route: "wgmma" (bf16, on the tensor cores), "cuda_core" (float32)
-fused_tail.route_launches = {"wgmma": 0, "cuda_core": 0}
+# launches per route: "wgmma" (bf16), "tf32x3" (float32, three TF32 passes)
+fused_tail.route_launches = {"wgmma": 0, "tf32x3": 0}

@@ -1,11 +1,12 @@
-"""Where the bf16 K8 (fused generator tail) and K7 (fused SAGAN block)
-kernels' time goes, on one GPU.
+"""Where the K8 (fused generator tail, bf16 and float32) and bf16 K7 (fused
+SAGAN block) kernels' time goes, on one GPU.
 
     python3 scripts/torch_tail_stages.py
 
 Copies csrc/packed_tail.cu and csrc/sagan_block.cu (with csrc/attention.cu),
 inserts clock64() reads by thread 0 of every block at the phase boundaries
-of tail_tc_kernel and qkv_proj_kernel, builds the copies with nvcc into
+of tail_tc_kernel, tail_tf32_kernel and qkv_proj_kernel, builds the copies
+with nvcc into
 their own libraries (the port's library is not touched) and runs them at
 the entry points' full-width shapes with seeded inputs:
 
@@ -14,6 +15,10 @@ the entry points' full-width shapes with seeded inputs:
      combine), the activation pass, stage B (the out-conv; the next tile's
      window loads are started before it) and the window store (which waits
      for those loads);
+  K8 in float32 (three TF32 passes) on the same shapes: per tile and
+     consumer warpgroup, the mean cycles of waiting for the window, stage
+     A, the planar store, stage B (the T GEMM and each output's tap sum)
+     and the output store;
   K7 on a (16, 1024, 256) bf16 activation, C/8 = 32, as the (B, N, C) view
      and as the NCHW view: per block of the QKV GEMM, the mean cycles of
      staging x and W, the products and the epilogue; and the device time of
@@ -75,6 +80,27 @@ TAIL_MARKS = [
 TAIL_PHASES = ["stage A", "activation", "stage B (+ starting the next window's loads)",
                "window store (+ waiting for its loads)"]
 
+# K8 float32 (the same copy): per consumer warpgroup's thread 0; slot 5
+# counts tiles x warpgroups
+TAIL32_MARKS = [
+    ("  int chunk = 0, k = 0;\n  for (int tile = blockIdx.x; tile < total; tile += gridDim.x, ++k) {\n",
+     "  unsigned long long ph[5] = {0, 0, 0, 0, 0}, tp = clock64();\n"
+     "  int chunk = 0, k = 0;\n  for (int tile = blockIdx.x; tile < total; tile += gridDim.x, ++k) {\n"),
+    ("    mbar_wait(wfull, k & 1);\n", "    mbar_wait(wfull, k & 1);\n    " + STAMP.format(k=0)),
+    ("    // both warpgroups are done with the window: the planar tile takes its place\n",
+     "    " + STAMP.format(k=1)
+     + "    // both warpgroups are done with the window: the planar tile takes its place\n"),
+    ("    store_planar(z, y, 1, prow, pcol, qd, M0, J0, H, W, shs, slope);\n    bar_sync(1, CONSUMERS);\n",
+     "    store_planar(z, y, 1, prow, pcol, qd, M0, J0, H, W, shs, slope);\n"
+     "    bar_sync(1, CONSUMERS);\n    " + STAMP.format(k=2)),
+    ("    // + bias, tanh, the NCHW store\n", "    " + STAMP.format(k=3) + "    // + bias, tanh, the NCHW store\n"),
+    ("              tanhf(__fadd_rn(osum[h][co], bs[co]));\n    }\n  }\n}\n",
+     "              tanhf(__fadd_rn(osum[h][co], bs[co]));\n    }\n    " + STAMP.format(k=4) + "  }\n"
+     "  if ((tid & 127) == 0) {\n    for (int q = 0; q < 5; ++q) atomicAdd(&g_prof[q], ph[q]);\n"
+     "    atomicAdd(&g_prof[5], (unsigned long long)k);\n  }\n}\n"),
+]
+TAIL32_PHASES = ["window wait", "stage A", "planar store", "stage B", "output store"]
+
 # K7's GEMM; slot 4 counts blocks
 GEMM_MARKS = [
     ('#include "hopper.cuh"\n', '#include "hopper.cuh"\n' + COUNTERS),
@@ -129,19 +155,21 @@ def main():
     from contextual_image_compression_tpu_torch.measure import card_name_and_power, device_ms
     from contextual_image_compression_tpu_torch.ops.attention import _pack_qkv
     from contextual_image_compression_tpu_torch.ops.generator_tail import (
-        _pack_tap_tiles, tc_tile_grid)
+        _pack_out_conv_tf32, _pack_tap_tiles, _pack_taps_tf32, tc_tile_grid)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(card_name_and_power(), flush=True)
     out_dir = Path(tempfile.mkdtemp(prefix="tail_stages-"))
     tail_src = out_dir / "packed_tail_stages.cu"
-    tail_src.write_text(instrument((CSRC / "packed_tail.cu").read_text(), TAIL_MARKS))
+    tail_src.write_text(instrument((CSRC / "packed_tail.cu").read_text(),
+                                   TAIL_MARKS + TAIL32_MARKS))
     gemm_src = out_dir / "sagan_block_stages.cu"
     gemm_src.write_text(instrument((CSRC / "sagan_block.cu").read_text(), GEMM_MARKS))
     tail = build(out_dir, "tail_stages", [tail_src])
     gemm = build(out_dir, "gemm_stages", [gemm_src, CSRC / "attention.cu"])
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     tail.cic_packed_tail_bf16.argtypes = [P] * 6 + [I] * 6 + [ctypes.c_float, P]
+    tail.cic_packed_tail.argtypes = [P] * 6 + [I] * 6 + [ctypes.c_float, P]
     gemm.cic_sagan_block_bf16.argtypes = [P, L, L, L, P, P, P, P, P, P, P, L, L, L, I, I, I, I, P]
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
@@ -175,6 +203,30 @@ def main():
     cyc = ", ".join(f"{name} {v[k] / v[4] * per_tile:.0f}" for k, name in enumerate(TAIL_PHASES))
     print(f"K8 bf16 x {(B, cin, h, h)}: instrumented call {ms:.4f} ms on the device; "
           f"{v[4]:.0f} blocks; mean cycles a tile: {cyc}", flush=True)
+
+    x32 = x.float()
+    taps32 = _pack_taps_tf32(r(cin, cmid, 4, 4))
+    wo32 = _pack_out_conv_tf32(r(co, cmid, 4, 4))
+    shift32 = torch.nn.functional.pad(r(cmid), (0, 32 - cmid))
+    bias32 = torch.nn.functional.pad(bias, (0, 8 - co))
+    out32 = torch.empty(B, co, 2 * h, 2 * h, device=dev)
+
+    def k8_f32():
+        err = tail.cic_packed_tail(x32.data_ptr(), taps32.data_ptr(), shift32.data_ptr(),
+                                   wo32.data_ptr(), bias32.data_ptr(), out32.data_ptr(), B, cin,
+                                   h, h, cmid, co, 0.2, stream)
+        if err:
+            raise RuntimeError(f"instrumented K8 float32 failed with cudaError_t {err}")
+
+    k8_f32()
+    ms = device_ms(k8_f32)
+    tail.cic_prof_zero()
+    k8_f32()
+    torch.cuda.synchronize()
+    v = read(tail)
+    cyc = ", ".join(f"{name} {v[k] / v[5]:.0f}" for k, name in enumerate(TAIL32_PHASES))
+    print(f"K8 float32 x {(B, cin, h, h)}: instrumented call {ms:.4f} ms on the device; "
+          f"mean cycles a tile and consumer warpgroup: {cyc}", flush=True)
 
     C, inner, N = 256, 32, 1024
     wqkv, qkv_bias = _pack_qkv(r(C, inner), r(inner), r(C, inner), r(inner), r(C, C), r(C), bf)

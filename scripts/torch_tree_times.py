@@ -22,9 +22,19 @@ CompressionPipeline(ModelConfig()) at B = 16 after 3 warm-up calls. Run it
 for parent and change in turns (parent, change, change, parent) on one
 machine, one after another: host-inclusive times move between processes
 and machines. It needs a CUDA device.
+
+Beside each kernel's times it prints the SHA-256 of its output at these
+seeded inputs, so two trees compare bit for bit. `--save FILE` writes the
+K7 / K8 outputs to an .npz, and `--against FILE` (another tree's --save)
+prints, per kernel of both, whether the outputs are bitwise equal and
+their largest difference:
+
+    python3 scripts/torch_tree_times.py PARENT --save parent.npz
+    python3 scripts/torch_tree_times.py CHANGE --against parent.npz
 """
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -37,7 +47,10 @@ import torch
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("checkout", help="root of a checkout holding contextual_image_compression_tpu_torch")
-    root = os.path.realpath(ap.parse_args().checkout)
+    ap.add_argument("--save", help="write the K7 / K8 outputs to this .npz")
+    ap.add_argument("--against", help="an .npz from another tree's --save to compare with")
+    args = ap.parse_args()
+    root = os.path.realpath(args.checkout)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
@@ -68,7 +81,7 @@ def main():
     u8 = torch.from_numpy(structured_images(np.random.RandomState(0), 16, 256)).to(dev)
     gray = image_ops.rgb_to_gray(u8.float()).contiguous()
     spec = saliency.spectral_residual_small(gray, 64, 3.0).contiguous()
-    sal = torch.rand(64, 256, 256, device=dev)
+    sal = torch.rand(64, 256, 256, device=dev, generator=torch.Generator(device=dev).manual_seed(4))
     cfg = QuantizerConfig(grad_mode="reference")
     gen = torch.Generator(device=dev).manual_seed(3)
     q_cases = []
@@ -124,9 +137,24 @@ def main():
     planes = (rgb_to_ycbcr((imgs + 1.0) * 127.5) - 128.0).permute(0, 3, 1, 2).contiguous()
     tables = torch.from_numpy(quality_tables(75)).to(dev)
     fns["K5"] = lambda: dct_strips(planes, tables)
+    saved = {}
     with torch.no_grad():
         for name, fn in fns.items():
-            out[name] = {"ms": event_ms(fn), "device_ms": device_ms(fn)}
+            res = fn()
+            torch.cuda.synchronize()
+            flat = [t.detach().float().cpu().numpy().ravel() for t in _tensors(res)]
+            digest = hashlib.sha256(b"".join(a.tobytes() for a in flat)).hexdigest()
+            if name.startswith(("K7", "K8")):
+                saved[name] = np.concatenate(flat)
+            out[name] = {"ms": event_ms(fn), "device_ms": device_ms(fn), "sha256": digest}
+    if args.save:
+        np.savez(args.save, **saved)
+    if args.against:
+        other = np.load(args.against)
+        out["against"] = {
+            name: {"bitwise_equal": bool(np.array_equal(saved[name], other[name])),
+                   "max_abs_diff": float(np.abs(saved[name] - other[name]).max())}
+            for name in sorted(set(saved) & set(other.files))}
 
     pipe = CompressionPipeline(model_config=ModelConfig(), device=dev, seed=0)
     randomize_stats(pipe.codec, 0)
@@ -143,6 +171,14 @@ def main():
                               "max": float(np.max(times))}
     print(json.dumps(out), flush=True)
     return 0
+
+
+def _tensors(res):
+    """The tensors of a kernel call's result, in order (a tensor, or nested
+    tuples and lists of them)."""
+    if torch.is_tensor(res):
+        return [res]
+    return [t for part in res for t in _tensors(part)]
 
 
 if __name__ == "__main__":

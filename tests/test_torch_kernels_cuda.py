@@ -15,9 +15,11 @@ all-zero maps, K5 at the smallest and a ragged width, at the extreme quality
 tables, at B = 128 (the persistent walk wrapping many times) and on unaligned
 planes, K6 and K7 at ragged N
 and value widths 64 and 128, K7b on a permuted (non-contiguous) view, K7 in
-bf16 at DK 8, 16 and 32 on the tensor-core route, K7's backward, K8 at an
-odd batch, a ragged size, Cin not a multiple of 16, the full path shape and
-in float32, each K7 / K8 call on the route its dtype takes.
+bf16 ("wgmma") and in float32 (three TF32 passes, "tf32x3") at DK 8, 16 and
+32, the float32 kernel's contiguous epilogue for K2 and K7a and its strided
+one for K7b, K7's backward, K8 at an odd batch, a ragged size, Cin not a
+multiple of 16, the full path shape and in float32 (TMA windows, and its own
+loads at W = 9), each K7 / K8 call on the route its dtype takes.
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels build at
 first use); elsewhere they skip. The file imports torch only, so it runs on a
@@ -640,7 +642,8 @@ def _sagan_params(dev, c, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k7a_ragged_matches_twin(dev, n, c, dtype):
     params, g = _sagan_params(dev, c, n + c)
-    x = torch.randn(2, n, c, device=dev).to(dtype)
+    gen = torch.Generator(device=dev).manual_seed(2 * n + c)
+    x = torch.randn(2, n, c, device=dev, generator=gen).to(dtype)
     before = sagan_block.launches
     got = sagan_block(x, *params, g)
     assert sagan_block.launches == before + 1 and got.dtype == dtype
@@ -692,6 +695,89 @@ def test_k7_bf16_takes_the_tensor_core_route(dev, c, n):
     assert torch.equal(got_b.reshape(2, n, c), got)
 
 
+def _attention_kernels(call):
+    """The names of the device kernels one call launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("n", [100, 1024])
+@pytest.mark.parametrize("c", [64, 128, 256], ids=["dk8", "dk16", "dk32"])
+def test_k7_f32_takes_the_tensor_core_route(dev, c, n):
+    """float32 at DK = C / 8 in {8, 16, 32} and a ragged N at the bf16
+    test's inputs (`_sagan_params`, x ~ N(0, 1)): the three-pass TF32 QKV
+    GEMM and K2's float32 kernel (route "tf32x3") on the (B, N, C) view and
+    on the permuted NCHW view, whose output is bitwise the contiguous one's;
+    within 1e-5 of the twin at DK 8 and 16. At DK 32 these inputs give
+    scores up to ~96, where the twin itself lies 1.0e-5 (N 100) and 2.0e-5
+    (N 1024) from the block in float64 and the 1e-5 bar is not met (PERF.md,
+    scripts/torch_k7_f32_error.py); test_k7_f32_holds_the_bar_at_the_paths_scale
+    holds DK 32 at the path's scale."""
+    params, g = _sagan_params(dev, c, 3 * n + c)
+    gen = torch.Generator(device=dev).manual_seed(n * c)
+    x_nchw = torch.randn(2, c, n, 1, device=dev, generator=gen)
+    view = x_nchw.permute(0, 2, 3, 1)
+    xf = view.reshape(2, n, c)
+    got, route = _route_of(sagan_block, lambda: sagan_block(xf, *params, g))
+    assert route == "tf32x3" and got.dtype == torch.float32
+    if c < 256:
+        assert (got - sagan_block_plain(xf, *params, g)).abs().max().item() <= 1e-5
+    got_b, route_b = _route_of(sagan_block_spatial, lambda: sagan_block_spatial(view, *params, g))
+    assert route_b == "tf32x3" and got_b.stride() == view.stride()
+    assert torch.equal(got_b.reshape(2, n, c), got)
+
+
+@pytest.mark.parametrize("b,n", [(16, 1024), (2, 100)], ids=["tree-times-16x1024", "ragged-2x100"])
+def test_k7_f32_holds_the_bar_at_the_paths_scale(dev, b, n):
+    """DK 32 (C 256) at scripts/torch_tree_times.py's scales, x ~ N(0, 0.25)
+    and `_sagan_params`' weights (its seeded input itself at (16, 1024),
+    drawn in its order): within 1e-5 of the twin, K7a and K7b."""
+    gen = torch.Generator(device=dev).manual_seed(7 if n == 1024 else 11)
+
+    def r(*shape, scale=0.1):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    act = r(b, 256, n, 1, scale=0.5)
+    params = [r(256, 32), r(32), r(256, 32), r(32), r(256, 256), r(256)]
+    g = torch.tensor(0.5, device=dev)
+    view = act.permute(0, 2, 3, 1)
+    xf = view.reshape(b, n, 256)
+    want = sagan_block_plain(xf, *params, g)
+    got = sagan_block(xf, *params, g)
+    assert (got - want).abs().max().item() <= 1e-5
+    got_b = sagan_block_spatial(view, *params, g)
+    assert torch.equal(got_b.reshape(b, n, 256), got)
+
+
+def test_f32_epilogues_by_layout(dev):
+    """K2 in float32 with a contiguous residual takes the float32 kernel's
+    contiguous epilogue with K2's order of sums (attn_tf32_kernel<NCH,
+    false, false>, its output bitwise the parent's); K7a on a contiguous
+    (B, N, C) the contiguous epilogue with K7's order (<NCH, false, true>);
+    K7b on the NCHW view the strided one (<NCH, true, true>)."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q, k = (torch.randn(2, 1024, 32, device=dev, generator=gen) * 0.4 for _ in range(2))
+    v, r = (torch.randn(2, 1024, 256, device=dev, generator=gen) for _ in range(2))
+    g = torch.tensor(0.5, device=dev)
+    params, g7 = _sagan_params(dev, 256, 3)
+    x_nchw = torch.randn(2, 256, 32, 32, device=dev, generator=gen) * 0.5
+    view = x_nchw.permute(0, 2, 3, 1)
+    calls = {"K2": (lambda: attention_block(q, k, v, r, g), "<4, false, false>"),
+             "K7a": (lambda: sagan_block(view.reshape(2, 1024, 256).contiguous(), *params, g7),
+                     "<4, false, true>"),
+             "K7b": (lambda: sagan_block_spatial(view, *params, g7), "<4, true, true>")}
+    for name, (call, want) in calls.items():
+        names = [n for n in _attention_kernels(call) if "attn_tf32_kernel" in n]
+        assert len(names) == 1 and "attn_tf32_kernel" + want in names[0], (name, names)
+
+
 def test_k7_backward_runs_through_the_jnp_formula(dev):
     params, g = _sagan_params(dev, 64, 9)
     x = torch.randn(1, 64, 64, device=dev, requires_grad=True)
@@ -711,14 +797,19 @@ def test_k7_backward_runs_through_the_jnp_formula(dev):
     (1, 12, 40, 8, torch.bfloat16),
     (2, 9, 24, 5, torch.bfloat16),
     (16, 128, 128, 32, torch.bfloat16),
+    (16, 128, 128, 32, torch.float32),
+    (2, 9, 24, 5, torch.float32),
 ], ids=["odd-batch-bf16", "odd-batch-f32", "ragged-narrow-f32", "ragged-bf16",
-        "ragged-narrow-bf16", "cin24-cmid5-bf16", "full-path-bf16"])
+        "ragged-narrow-bf16", "cin24-cmid5-bf16", "full-path-bf16", "full-path-f32",
+        "cin24-cmid5-f32"])
 def test_k8_matches_twin(dev, b, h, cin, cmid, dtype):
-    """H = 12 gives a 24-pixel output, not a multiple of the 16-pixel tile
-    of float32 nor of the 12 x 28 tile of bf16; Cin 40 and 24 are not
-    multiples of 16 (zero-padded in the bf16 route's K dimension), Cmid 5
-    not a multiple of 8; full-path-bf16 is chip_smoke's shape. bf16 takes
-    the tensor-core route, float32 the CUDA-core one. Bars: float32 2e-5
+    """H = 12 gives a 24-pixel output, not a multiple of the 28-pixel width
+    of the 12 x 28 tile both routes walk; Cin 40 and 24 are not multiples of
+    16 (zero-padded in the bf16 route's K dimension, to 32 in float32's),
+    Cmid 5 not a multiple of 8; full-path-* is chip_smoke's shape; W = 9 is not a
+    multiple of 4, so the float32 kernel stages its windows with its own
+    loads instead of TMA. bf16 takes the "wgmma" route, float32 the "tf32x3"
+    one (both on the tensor cores). Bars: float32 2e-5
     (as the CPU tests), bf16 1.6e-2 absolute on a tanh output (two bf16 ulps
     of 1), identical on >= 99% of outputs."""
     gen = torch.Generator(device=dev).manual_seed(b * h + cin)
@@ -728,7 +819,7 @@ def test_k8_matches_twin(dev, b, h, cin, cmid, dtype):
     ow = (torch.randn(3, cmid, 4, 4, device=dev, generator=gen) * 0.1).to(dtype)
     ob = torch.randn(3, device=dev, generator=gen) * 0.1
     got, route = _route_of(fused_tail, lambda: fused_tail(x, folded, shift, ow, ob))
-    assert route == ("wgmma" if dtype == torch.bfloat16 else "cuda_core")
+    assert route == ("wgmma" if dtype == torch.bfloat16 else "tf32x3")
     assert got.shape == (b, 3, 2 * h, 2 * h) and got.dtype == dtype
     want = fused_tail_plain(x, folded, shift, ow, ob)
     err = (got.float() - want.float()).abs()
