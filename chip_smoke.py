@@ -141,9 +141,10 @@ The evaluation slice adds four phases:
    loader builds exactly where that record says it can (it does not there:
    no libjpeg / libpng headers);
 (b) at the end, holds K1's bf16 route (compute_dtype=bfloat16, the TPU
-   kernel's bf16 compute) against its bf16 twin at B = 16, 256^2, bit for
-   bit, and within 5e-2 of the float32 kernel, one kernel per call, its
-   tiled route at (2, 512, 512), and times it beside the float32 route;
+   kernel's bf16 compute, two columns a thread as bf16x2) against its bf16
+   twin at B = 16, 256^2, bit for bit, and within 5e-2 of the float32
+   kernel, one kernel per call, its tiled route at (2, 512, 512) and an odd
+   width (2, 255, 255), and times it beside the float32 route;
 (c) runs the evaluation entry point at full width: the seeded codec written
    in JAX's layout to a temporary model_dir, CodecEvaluator with
    SaliencyConfig(mask_engine_dtype='bfloat16') through load_models,
@@ -155,6 +156,31 @@ The evaluation slice adds four phases:
    card against the CPU port within the bars of tests/test_torch_eval.py;
 (d) evaluate_autoencoder on runs/ae_ref over the same JPEGs, card against
    the CPU port, no kernel launch.
+
+The user entry points add two phases at the end:
+
+(e) the reference training flow at full width (ModelConfig(), B = 16,
+   float32, TF32 off, random VGG19) on 32 synthetic images, 2 steps an
+   epoch: where figures cannot be written, GANTrainer.fit(artifacts=True)
+   and scripts/torch_train_gan.py's main raise naming matplotlib before
+   any step; then train_full_reference_flow's calls: fit for 1 epoch with
+   profile_dir (a torch.profiler trace of step 1 on), fine_tune_epochs (3)
+   epochs at bpp 1.0 and the rate-control probe (figures only where they
+   can be written), checking the history (4 epochs), the metadata, the
+   'final' files against JAX's set, the probe's ratios (finite,
+   non-decreasing) and the trace, with K1 +1, per step K2 +1 ("tf32x3"),
+   K3 +2 and K3b +2, per probe point K2 +1 and K3 +2; it prints both fits'
+   images per second, a 'final' save's seconds, the peak memory and the
+   trace's five longest device kernels;
+(f) the codec CLIs on the card: scripts/torch_compress.py encodes the 16
+   JPEGs of runs/ae_ref/compressed_outputs at quality 75 (K5 +1 each;
+   streams byte-identical to the same CLI on the CPU) and decodes them;
+   scripts/torch_eval_bitstream.py (K1 +2, K2 +2 on "wgmma", K3 +4 per
+   bpp) and scripts/torch_codec_shootout.py (K5 +6, K1 +1, K2 +8 on
+   "tf32x3", K3 +16) from phase (b)'s full-width model_dir over 16
+   images, the shootout with --ae-dir runs/ae_ref/model; their JSON rows
+   must be finite, and without matplotlib the shootout's plot raises after
+   its JSON is written.
 
 K1's bf16 launches are counted apart (`launch_counts()`: 'K1' float32,
 'K1bf16' bf16) and K1bf16 has its own line in the kernels JSON.
@@ -173,6 +199,7 @@ import json
 import math
 import os
 import pathlib
+import runpy
 import shutil
 import sys
 import tempfile
@@ -1504,13 +1531,13 @@ def run_jax_trained_serving(dev, card):
     return counts
 
 
-def run_checkpoint_serving(dev, card):
+def run_checkpoint_serving(dev, card, tmp):
     """Phase (b): the seeded full-width codec's float32 state carried to
-    JAX's layout and saved by the store into a temporary directory (1.67
-    GB), then CompressionPipeline(model_dir=...) against the pipeline built
-    from the same state dict at B = 16: decoded images and symbols bitwise
-    equal (cuDNN's deterministic algorithms in both). Returns the launch
-    counts of the checkpoint pipeline's call."""
+    JAX's layout and saved by the store into the directory tmp (1.67 GB;
+    phase (f) runs the CLIs from it), then CompressionPipeline(model_dir=...)
+    against the pipeline built from the same state dict at B = 16: decoded
+    images and symbols bitwise equal (cuDNN's deterministic algorithms in
+    both). Returns the launch counts of the checkpoint pipeline's call."""
     from contextual_image_compression_tpu_torch import convert, ops
     from contextual_image_compression_tpu_torch.checkpoint import CheckpointStore
     from contextual_image_compression_tpu_torch.measure import structured_images
@@ -1521,22 +1548,21 @@ def run_checkpoint_serving(dev, card):
     sd = {k: v.clone() for k, v in codec.state_dict().items()}
     B = 16
     u8 = structured_images(np.random.RandomState(21), B, 256)
-    with tempfile.TemporaryDirectory() as tmp:
-        need = param_bytes(sd)
-        free = shutil.disk_usage(tmp).free
-        if free < 2 * need:
-            raise AssertionError(f"the codec checkpoint needs {need / 1e9:.2f} GB; {tmp} has "
-                                 f"{free / 1e9:.2f} GB free")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        CheckpointStore(tmp).save_components(convert.codec_variables(codec), "final")
-        t_write = time.perf_counter() - t0
-        nbytes = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
-        del codec
-        t0 = time.perf_counter()
-        pipe = CompressionPipeline(model_dir=tmp, device=dev)
-        torch.cuda.synchronize()
-        t_load = time.perf_counter() - t0
+    need = param_bytes(sd)
+    free = shutil.disk_usage(tmp).free
+    if free < 2 * need:
+        raise AssertionError(f"the codec checkpoint needs {need / 1e9:.2f} GB; {tmp} has "
+                             f"{free / 1e9:.2f} GB free")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    CheckpointStore(tmp).save_components(convert.codec_variables(codec), "final")
+    t_write = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+    del codec
+    t0 = time.perf_counter()
+    pipe = CompressionPipeline(model_dir=tmp, device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
     if sorted(pipe.provenance.values()) != ["final"] * 7:
         raise AssertionError(f"provenance {pipe.provenance}")
     direct = CompressionPipeline(state_dict=sd, device=dev)
@@ -2446,6 +2472,18 @@ def check_k1_bf16(dev, rng, B):
         f"{err_t:.3e} (bar: bit-identical), {tiled_ms:.4f} ms")
     if not (err_t == 0.0 and route_t == "tiled_bf16"):
         raise AssertionError(f"K1 bf16 tiled route: {route_t}, error {err_t}")
+    # two columns a thread: at an odd width the last pair's right lane is masked
+    odd = np.ascontiguousarray(structured_images(rng, 2, 256)[:, :255, :255])
+    u8o = torch.from_numpy(odd).to(dev)
+    gray_o = image_ops.rgb_to_gray(u8o.float()).contiguous()
+    spec_o = saliency.spectral_residual_small(gray_o, 64, 3.0).contiguous()
+    got_o, route_o = _route_of(contextual_mask,
+                               lambda: contextual_mask(gray_o, spec_o, compute_dtype=bf))
+    odd_ok = torch.equal(got_o, contextual_mask_plain(gray_o, spec_o, compute_dtype=bf))
+    log(f"K1 bf16 at an odd width {tuple(gray_o.shape)}: {route_o}, bit-identical to the twin: "
+        f"{odd_ok}")
+    if not (odd_ok and route_o == "cluster_bf16"):
+        raise AssertionError(f"K1 bf16 at an odd width: {route_o}, bit-identical {odd_ok}")
     ms = event_ms(lambda: contextual_mask(gray, spec, compute_dtype=bf))
     dev_ms = device_ms(lambda: contextual_mask(gray, spec, compute_dtype=bf))
     ms32 = event_ms(lambda: contextual_mask(gray, spec))
@@ -2453,10 +2491,10 @@ def check_k1_bf16(dev, rng, B):
     plain = event_ms(lambda: contextual_mask_plain(gray, spec, compute_dtype=bf), reps=5, warmup=1)
     # the float32 row's count of the operations the function needs, split by
     # type: the box sums, the bilateral taps and the Gaussian are bf16 work
-    # (the card's CUDA-core bf16 peak, 134 TFLOP/s), the entry scale, the
+    # (the card's CUDA-core bf16 peak with packed bf16x2 instructions, 134
+    # TFLOP/s, which this kernel issues), the entry scale, the
     # normalizations, the upsample and blend and the bilateral's division
-    # float32 (67 TFLOP/s). This kernel issues scalar bf16 instructions,
-    # which reach half the bf16 peak at most; the bound is the card's.
+    # float32 (67 TFLOP/s).
     pixels = gray.numel()
     rmax, ntaps, ksize = 6, 49, 31
     bf16_per_px = 8 * rmax + 7 * ntaps + 2 * 2 * ksize
@@ -2464,12 +2502,10 @@ def check_k1_bf16(dev, rng, B):
     nbytes = gray.numel() * 4 + spec.numel() * 4 + got.numel() * 4
     b_ms, b_by = bound_ms(nbytes, (bf16_per_px * pixels, f32_per_px * pixels),
                           (H100_BF16_CUDA_CORE_TFLOPS, H100_FP32_TFLOPS))
-    scalar_ms = (bf16_per_px + f32_per_px) * pixels / H100_FP32_TFLOPS * 1e3
     log(f"K1 bf16 times: kernel {ms:.4f} ms (device alone {dev_ms:.4f}); float32 route "
         f"{ms32:.4f} ms (device alone {dev_ms32:.4f}); bf16 twin {plain:.4f} ms; bound "
         f"{b_ms:.4f} ms ({b_by}: {bf16_per_px} bf16 operations a pixel at 134 TFLOP/s, "
-        f"{f32_per_px} float32 at 67; {scalar_ms:.4f} ms with scalar bf16 instructions), "
-        f"library none")
+        f"{f32_per_px} float32 at 67), library none")
     return dict(name="K1 contextual_mask, bf16 route", route="cuda",
                 source="contextual_image_compression_tpu_torch/csrc/fused_mask.cu",
                 replaces="contextual_image_compression_tpu/ops/fused_mask.py:252",
@@ -2477,9 +2513,8 @@ def check_k1_bf16(dev, rng, B):
                 library_ms=None, device_ms=dev_ms, float32_ms=ms32, float32_device_ms=dev_ms32,
                 identical_share=same, max_abs_err_vs_float32=err32, mask_route=route,
                 launches_per_call=per_call, tiled_route_ms=tiled_ms,
-                tiled_route_max_abs_err=err_t,
-                bound_peak="bf16 work at the CUDA-core bf16 peak (134 TFLOP/s), float32 at 67",
-                scalar_bf16_bound_ms=scalar_ms)
+                tiled_route_max_abs_err=err_t, odd_width_bit_identical=odd_ok,
+                bound_peak="bf16 work at the CUDA-core bf16 peak (134 TFLOP/s), float32 at 67")
 
 
 def _eval_rows(results, bpps):
@@ -2657,6 +2692,221 @@ def run_autoencoder_evaluation(dev, card):
         raise AssertionError(f"autoencoder evaluation: card {got}, CPU {want}")
 
 
+SCRIPTS = pathlib.Path(__file__).resolve().parent / "scripts"
+
+
+def _script_main(name):
+    """main(argv, device) of scripts/<name>."""
+    return runpy.run_path(str(SCRIPTS / name))["main"]
+
+
+def _longest_kernels(trace_dir, k=5):
+    """The k longest device kernels of the Chrome trace in trace_dir:
+    [(name, microseconds)]."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    if len(files) != 1:
+        raise AssertionError(f"want one trace in {trace_dir}, found {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [(e["name"], float(e["dur"])) for e in events
+               if e.get("cat") == "kernel" and "dur" in e]
+    if not kernels:
+        raise AssertionError(f"the trace {files[0]} holds no device kernel")
+    return sorted(kernels, key=lambda kv: -kv[1])[:k], len(kernels)
+
+
+def _raises_naming_matplotlib(label, call):
+    try:
+        call()
+    except RuntimeError as exc:
+        if "matplotlib" not in str(exc):
+            raise
+        log(f"{label}: raised {exc}")
+        return
+    raise AssertionError(f"{label} ran where figures cannot be written")
+
+
+def run_training_flow(dev, card):
+    """Phase (e): train_full_reference_flow's calls at full width (the
+    module docstring). Returns the path's launch counts."""
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.config import TrainConfig
+    from contextual_image_compression_tpu_torch.data.images import synthetic_images
+    from contextual_image_compression_tpu_torch.data.pipeline import (
+        CompressionDataset, prepare_masks)
+    from contextual_image_compression_tpu_torch.models.adaptive import ALL_CODEC_COMPONENTS
+    from contextual_image_compression_tpu_torch.train.loop import GANTrainer
+    from contextual_image_compression_tpu_torch.utils.tree import param_bytes
+
+    with tempfile.TemporaryDirectory() as root:
+        cfg = TrainConfig(vgg_weights_path="random:0", epochs=1,
+                          model_dir=os.path.join(root, "ckpt"),
+                          results_dir=os.path.join(root, "results"))
+        imgs = synthetic_images(32, cfg.model.img_size, seed=1)
+        trainer = GANTrainer(cfg, device=dev, log_fn=log)
+        state = trainer.init_state(resume=False)
+        n_params = sum(p.numel() for m in (state.codec, state.disc) for p in m.parameters())
+        state_bytes = param_bytes(state.codec) + param_bytes(state.disc) + 2 * 4 * n_params
+        if shutil.disk_usage(root).free < 2 * state_bytes:
+            raise AssertionError(f"the train-state checkpoint needs ~{state_bytes / 1e9:.2f} GB "
+                                 f"and room to rewrite it")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        masks = prepare_masks(imgs, cfg.saliency, device=dev)
+        ds = CompressionDataset(imgs, masks, batch_size=cfg.batch_size, bpp_range=cfg.bpp_range,
+                                seed=cfg.seed, device_resident=True, device=dev)
+        if not CARD_FIGURES:
+            _raises_naming_matplotlib("GANTrainer.fit(artifacts=True), before any step",
+                                      lambda: trainer.fit(ds))
+            _raises_naming_matplotlib(
+                "scripts/torch_train_gan.py main, before any step",
+                lambda: _script_main("torch_train_gan.py")(
+                    ["--synthetic", "32", "--model-dir", cfg.model_dir, "--results-dir",
+                     cfg.results_dir], device="cuda"))
+            if state.step != 0 or os.listdir(cfg.model_dir) or os.path.exists(cfg.results_dir):
+                raise AssertionError("an entry point trained or wrote files before raising")
+        trace_dir = os.path.join(root, "trace")
+        fits = []
+        for label, data, epochs, kw in (
+                ("fit", ds, cfg.epochs, dict(profile_dir=trace_dir, profile_steps=2)),
+                ("fine-tune at bpp 1.0", ds.with_target_bpp(1.0), cfg.fine_tune_epochs, {})):
+            t0 = time.perf_counter()
+            trainer.fit(data, epochs=epochs, artifacts=CARD_FIGURES, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            fits.append((label, epochs * ds.steps_per_epoch * cfg.batch_size / dt, dt))
+        probe_png = os.path.join(cfg.results_dir, "rate_control_test.png") if CARD_FIGURES else None
+        probe = trainer.rate_control_probe(ds.first_samples(), probe_png)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        steps = (cfg.epochs + cfg.fine_tune_epochs) * ds.steps_per_epoch
+        art = (cfg.epochs + cfg.fine_tune_epochs) if CARD_FIGURES else 0  # a forward + a probe
+        want = expect(K1=1, K2=steps + 3 + 4 * art, K3=2 * steps + 6 + 8 * art, K3b=2 * steps)
+        if counts != want:
+            raise AssertionError(f"training flow launches {counts}, want {want}")
+        check_cluster_route("training flow")
+        check_attention_route("training flow", "tf32x3")
+        with open(os.path.join(cfg.model_dir, "metadata_final.json")) as f:
+            meta = json.load(f)
+        final = sorted(os.listdir(cfg.model_dir))
+        want_final = sorted([f"{c}_final.msgpack" for c in ALL_CODEC_COMPONENTS]
+                            + ["discriminator_final.msgpack", "optimizers_final.msgpack",
+                               "metadata_final.json"])
+        ratios = [r for _, r, _ in probe]
+        hist = trainer.history
+        if not (all(len(v) == 4 and all(math.isfinite(x) for x in v) for v in hist.values())
+                and meta["epoch"] == 4 and final == want_final
+                and all(math.isfinite(r) and math.isfinite(g) for _, r, g in probe)
+                and ratios == sorted(ratios)):
+            raise AssertionError(f"training flow: history {hist}, metadata epoch {meta['epoch']}, "
+                                 f"files {final}, probe {probe}")
+        longest, n_kernels = _longest_kernels(trace_dir)
+        t0 = time.perf_counter()
+        trainer.save("final", blocking=True)
+        t_save = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(cfg.model_dir, f)) for f in final)
+    log(f"training flow at full width on {card} (ModelConfig(), B = {cfg.batch_size}, float32, "
+        f"TF32 off, random VGG19, {len(imgs)} images, {ds.steps_per_epoch} steps an epoch, "
+        f"figures {'on' if CARD_FIGURES else 'off: no matplotlib'}): "
+        + "; ".join(f"{label} {ips:.1f} img/s ({dt:.2f} s with its 'final' save)"
+                    for label, ips, dt in fits)
+        + f"; a 'final' save on its own {t_save:.2f} s ({nbytes / 1e9:.2f} GB); peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; launches {counts}; history {json.dumps(hist)}; probe {probe}")
+    log(f"training flow trace (torch.profiler, step 1 of the first epoch on): {n_kernels} device "
+        f"kernels; the five longest: "
+        + "; ".join(f"{name[:90]} {us:.1f} us" for name, us in longest))
+    return counts
+
+
+def _finite_rows(label, rows):
+    bad = [r for r in rows for k, v in r.items()
+           if not isinstance(v, bool) and isinstance(v, float) and not math.isfinite(v)]
+    if not rows or bad:
+        raise AssertionError(f"{label}: rows {rows}")
+
+
+def run_cli_paths(dev, card, model_dir):
+    """Phase (f): the codec CLIs on the card (the module docstring).
+    Returns each CLI's launch counts."""
+    import cv2
+
+    from contextual_image_compression_tpu_torch import ops
+
+    jpegs = sorted(str(p) for p in EVAL_IMAGES.glob("*.jpg"))
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        compress = _script_main("torch_compress.py")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        compress(["encode", *jpegs, "--out-dir", f"{tmp}/card", "--quality", "75"], device="cuda")
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        cics = sorted(str(p) for p in pathlib.Path(tmp, "card").glob("*.cic"))
+        t0 = time.perf_counter()
+        compress(["decode", *cics, "--out-dir", f"{tmp}/png"], device="cuda")
+        t_dec = time.perf_counter() - t0
+        paths["compress_cli"] = counts = launch_counts()
+        if counts != expect(K5=len(jpegs)):
+            raise AssertionError(f"compress CLI launches {counts}, want K5 {len(jpegs)}")
+        compress(["encode", *jpegs, "--out-dir", f"{tmp}/cpu", "--quality", "75"], device="cpu")
+        same = [pathlib.Path(c).read_bytes() == pathlib.Path(tmp, "cpu", pathlib.Path(c).name)
+                .read_bytes() for c in cics]
+        pngs = [cv2.imread(str(pathlib.Path(tmp, "png", pathlib.Path(c).stem + ".png"))) for c in cics]
+        log(f"torch_compress.py on {card}: {len(jpegs)} JPEGs at quality 75 encoded in "
+            f"{t_enc:.2f} s, decoded in {t_dec:.2f} s (host clock, files included); streams "
+            f"byte-identical to the CPU's: {sum(same)} of {len(cics)}; launches {counts}")
+        if len(cics) != len(jpegs) or not all(same) or any(
+                p is None or p.shape != cv2.imread(j).shape for p, j in zip(pngs, jpegs)):
+            raise AssertionError("compress CLI: streams or decoded images differ")
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _script_main("torch_eval_bitstream.py")(
+            ["--model-dir", model_dir, "--synthetic", "16", "--out", f"{tmp}/eb.json"],
+            device="cuda")
+        torch.cuda.synchronize()
+        t_eb = time.perf_counter() - t0
+        paths["eval_bitstream_cli"] = counts = launch_counts()
+        with open(f"{tmp}/eb.json") as f:
+            eb = json.load(f)
+        nb = len(eb["rows"])
+        if counts != expect(K1=2 * nb, K2=2 * nb, K3=4 * nb):
+            raise AssertionError(f"eval_bitstream CLI launches {counts}")
+        check_cluster_route("eval_bitstream CLI")
+        check_attention_route("eval_bitstream CLI", "wgmma")
+        _finite_rows("eval_bitstream CLI", eb["rows"])
+        log(f"torch_eval_bitstream.py on {card} (phase (b)'s full-width model_dir, 16 images, "
+            f"{nb} bpps) {t_eb:.2f} s: rows {eb['rows']}; launches {counts}")
+
+        ops.reset_launch_counts()
+        shootout = _script_main("torch_codec_shootout.py")
+        argv = ["--model-dir", model_dir, "--ae-dir", str(EVAL_IMAGES.parent / "model"),
+                "--synthetic", "16", "--out", f"{tmp}/cs.json", "--plot", f"{tmp}/cs.png"]
+        t0 = time.perf_counter()
+        if CARD_FIGURES:
+            shootout(argv, device="cuda")
+        else:
+            _raises_naming_matplotlib("torch_codec_shootout.py's plot, after its JSON",
+                                      lambda: shootout(argv, device="cuda"))
+        torch.cuda.synchronize()
+        t_cs = time.perf_counter() - t0
+        paths["shootout_cli"] = counts = launch_counts()
+        if counts != expect(K5=6, K1=1, K2=8, K3=16):
+            raise AssertionError(f"codec shootout CLI launches {counts}")
+        check_cluster_route("codec shootout CLI")
+        check_attention_route("codec shootout CLI", "tf32x3")
+        with open(f"{tmp}/cs.json") as f:
+            cs = json.load(f)
+        for series in ("dct", "gan", "ae"):
+            _finite_rows(f"codec shootout {series}", cs[series])
+        log(f"torch_codec_shootout.py on {card} (16 images, 256^2) {t_cs:.2f} s: "
+            + "; ".join(f"{series} {cs[series]}" for series in ("dct", "gan", "ae"))
+            + f"; launches {counts}")
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2713,7 +2963,8 @@ def main():
     check_small_pipeline_against_cpu(dev, w8a8=True)
     serving, med = run_full_pipeline(dev, card)
     jax_trained = run_jax_trained_serving(dev, card)
-    from_checkpoint = run_checkpoint_serving(dev, card)
+    codec_dir = tempfile.TemporaryDirectory()  # phase (b)'s model_dir, for phase (f)
+    from_checkpoint = run_checkpoint_serving(dev, card, codec_dir.name)
     w8a8_serving = run_w8a8_serving(dev, card)
     records.append(check_k3b(dev, B))
     check_small_train_step_against_cpu(dev)
@@ -2740,18 +2991,24 @@ def main():
     records.append(check_k1_bf16(dev, rng, B))
     evaluation = run_evaluation(dev, card)
     run_autoencoder_evaluation(dev, card)
+    training_flow = run_training_flow(dev, card)
+    with codec_dir:
+        clis = run_cli_paths(dev, card, codec_dir.name)
     paths = {"serving": serving, "jax_trained_serving": jax_trained,
              "checkpoint_serving": from_checkpoint, "w8a8_serving": w8a8_serving,
              "training": training, "mixed_training": mixed_training, "masks": mask_path,
              "fft_core_masks": fft_masks, "dct": dct_path, "entry_points": entry_points,
-             "storable_codec": codec_path, "evaluation": evaluation}
+             "storable_codec": codec_path, "evaluation": evaluation,
+             "training_flow": training_flow, **clis}
     serving_paths = ("serving", "jax_trained_serving", "checkpoint_serving", "w8a8_serving",
-                     "training", "mixed_training", "storable_codec")
+                     "training", "mixed_training", "storable_codec", "training_flow",
+                     "eval_bitstream_cli", "shootout_cli")
     runs_it = {"K1": serving_paths + ("fft_core_masks",), "K2": serving_paths + ("evaluation",),
-               "K3": serving_paths + ("evaluation",), "K3b": ("training", "mixed_training"),
-               "K4": ("masks", "fft_core_masks"), "K5": ("dct",), "K6": ("entry_points",),
-               "K7a": ("entry_points",), "K7b": ("entry_points",), "K8": ("entry_points",),
-               "K1bf16": ("evaluation",)}
+               "K3": serving_paths + ("evaluation",),
+               "K3b": ("training", "mixed_training", "training_flow"),
+               "K4": ("masks", "fft_core_masks"), "K5": ("dct", "compress_cli", "shootout_cli"),
+               "K6": ("entry_points",), "K7a": ("entry_points",), "K7b": ("entry_points",),
+               "K8": ("entry_points",), "K1bf16": ("evaluation",)}
     keys_in_order = ("K1", "K2", "K3", "K3b", "K4", "K5", "K6", "K7a", "K7b", "K8", "K1bf16")
     if len(records) != len(keys_in_order):
         raise AssertionError("one record per kernel")

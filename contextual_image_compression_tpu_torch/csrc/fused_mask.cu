@@ -46,21 +46,31 @@
 //   block reduction folded in with one atomicMax on the float's bits (the
 //   values are non-negative, so integer order is float order).
 //
-// K1's bf16 route (template argument BF16 of the K1 kernels; entry points
+// K1's bf16 route (template argument BF16 of mask_cluster_kernel, and the
+// *_bf16x2_kernel functions of the tiled route; entry points
 // cic_contextual_mask_cluster_bf16 and cic_contextual_mask_bf16) computes the
 // TPU kernel's compute_dtype=bfloat16 form (_make_contextual_kernel(dt=bf16)):
 // g = bf16(gray / 255); the fine-grained box sums, the bilateral taps and the
 // Gaussian taps in bf16, each window summed in chunks of CHUNK taps in the
 // TPU kernel's order (ops/fused_mask.py::_contextual_mask_plain_bf16); the
 // max-normalizations, the spectral upsample, the 0.6 / 0.4 blend and the
-// bilateral's division in float32. Every bf16 operation rounds once, as the
-// twin's do, and no multiply and add contract into an FMA (which would round
-// once where the twin rounds twice): the float32 steps use __fadd_rn /
-// __fmul_rn, and the bf16 steps native add.rn / sub.rn / mul.rn.bf16
-// (__hadd_rn, __hsub_rn, __hmul_rn), which nvcc never contracts. Values stay
-// float32 in shared and device memory (bf16 values are exact there, so the
-// strips' layout and the plan are the float32 route's); the kernels convert
-// each load to bf16 and each result back. The float32 route is unchanged.
+// bilateral's division in float32, a lane at a time (__fadd_rn / __fmul_rn).
+// Each thread computes two horizontally adjacent outputs as one
+// __nv_bfloat162 with the packed instructions add.rn / sub.rn / mul.rn.bf16x2
+// (__hadd2_rn, __hsub2_rn, __hmul2_rn): both lanes take every window's taps
+// in the same order and chunks, each lane rounds once per operation as the
+// twin does, and nvcc never contracts these into an FMA. The running column
+// sums and the chunk partials stay in bf16x2 registers. The box sums take
+// the term at an odd column offset as the pair straddling two lanes'
+// registers (high half of one, low half of the next). The cluster route's
+// strips of g and from the bilateral's input on hold bf16 (half the bytes
+// staged and read), so the pair of an even column is one aligned 32-bit
+// word and an odd column's pair the straddle of two; comb stays float32
+// until its image-wide max is known. The bf16 strips sit inside
+// the float32 route's buffers, so the plan (ops/fused_mask.py::_mask_plan)
+// is the same for both routes. A pair whose second column is past the
+// image's last (odd widths) is a masked lane: computed, never written. The
+// float32 route is unchanged.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -68,7 +78,10 @@
 #include <math.h>
 
 #include <algorithm>
+#include <cstdint>
+#include <cstring>
 #include <mutex>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -82,51 +95,93 @@ constexpr int BY = 8;    // block height: each thread covers TY / BY rows
 constexpr int MAXR = 8;  // largest box or bilateral radius taken
 constexpr int CHUNK = 8;  // taps of a bf16 partial sum (ops/fused_mask.py::CHUNK)
 
-// The bf16 route's arithmetic: native bf16 instructions on values converted
-// from float32 registers and shared memory, where they are exact.
+// The bf16 route's arithmetic, on pairs of outputs: lane x (.x) is the left
+// column of the pair, lane y (.y) the right one.
 using bf16_t = __nv_bfloat16;
+using bf162 = __nv_bfloat162;
+constexpr int HMAX = (MAXR + 1) / 2;  // column pairs a box of radius MAXR reaches each side
 
-__device__ __forceinline__ bf16_t to_bf16(float x) { return __float2bfloat16_rn(x); }
 // x rounded to bf16 (nearest even), held as a float32 value
-__device__ __forceinline__ float bf(float x) { return __bfloat162float(to_bf16(x)); }
-
-// Term i of n of a bf16 chunked sum (ops/fused_mask.py::_chunked_sum): it
-// opens or joins its chunk's partial sum, which joins the total (0 at the
-// start) at the chunk's last term.
-__device__ __forceinline__ void chunk_add(bf16_t term, int i, int n, bf16_t& part, bf16_t& total) {
-  part = i % CHUNK == 0 ? term : __hadd_rn(part, term);
-  if (i % CHUNK == CHUNK - 1 || i == n - 1) total = __hadd_rn(total, part);
+__device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+// two float32 values as one bf16x2 operand (one cvt.rn.bf16x2.f32)
+__device__ __forceinline__ bf162 pair(float lo, float hi) { return __floats2bfloat162_rn(lo, hi); }
+__device__ __forceinline__ bf162 zero2() { return __float2bfloat162_rn(0.f); }
+// the pair (a.y, b.x): the columns straddling two neighbouring pairs
+__device__ __forceinline__ bf162 straddle(bf162 a, bf162 b) {
+  return __halves2bfloat162(__high2bfloat16(a), __low2bfloat16(b));
+}
+// a float slot holding the bits of the bf16x2 {w, w} (see splat_bits below)
+__device__ __forceinline__ bf162 packed(float bits) {
+  bf162 r;
+  *reinterpret_cast<unsigned*>(&r) = __float_as_uint(bits);
+  return r;
+}
+// The bf16 strips of the cluster route: the aligned pair at p (columns x and
+// x + 1, x even), the pair straddling the aligned pairs at p - 1 and p + 1,
+// and the pair of two columns anywhere.
+__device__ __forceinline__ bf162 word(const bf16_t* p) {
+  return *reinterpret_cast<const bf162*>(p);
+}
+__device__ __forceinline__ bf162 odd_word(const bf16_t* p) { return straddle(word(p - 1), word(p + 1)); }
+__device__ __forceinline__ bf162 any_pair(const bf16_t* a, const bf16_t* b) {
+  return __halves2bfloat162(*a, *b);
+}
+// stores a pair at p (x even), or its low lane alone where x + 1 is past the
+// image (an odd width's masked lane)
+__device__ __forceinline__ void store_pair(bf16_t* p, bf162 v, bool both) {
+  if (both)
+    *reinterpret_cast<bf162*>(p) = v;
+  else
+    *p = __low2bfloat16(v);
 }
 
-// One bilateral tap (the t-th) for one output in bf16: wgt = sw + swc *
+// bf16(1 / k^2) in both lanes, k = 2r + 1 (ops/fused_mask.py: bf16_value)
+__device__ __forceinline__ bf162 inv_k2(int r) {
+  return __float2bfloat162_rn(1.0f / (float)((2 * r + 1) * (2 * r + 1)));
+}
+
+// Term i of n of a bf16 chunked sum (ops/fused_mask.py::_chunked_sum), for
+// both lanes: it opens or joins its chunk's partial sum, which joins the
+// total (0 at the start) at the chunk's last term.
+__device__ __forceinline__ void chunk_add2(bf162 term, int i, int n, bf162& part, bf162& total) {
+  part = i % CHUNK == 0 ? term : __hadd2_rn(part, term);
+  if (i % CHUNK == CHUNK - 1 || i == n - 1) total = __hadd2_rn(total, part);
+}
+
+// One bilateral tap (the t-th) for a pair of outputs: wgt = sw + swc *
 // diff^2, then its terms into the open chunks of num (wgt * sh) and den
-// (wgt); the chunks join the totals at CHUNK taps, and `bilateral_flush`
+// (wgt); the chunks join the totals at CHUNK taps, and `bilateral_flush2`
 // adds a chunk left open after the last tap.
-__device__ __forceinline__ void bilateral_tap(bf16_t sw, bf16_t swc, bf16_t sh, bf16_t center,
-                                              int t, bf16_t& pn, bf16_t& pd, bf16_t& num,
-                                              bf16_t& den) {
-  const bf16_t diff = __hsub_rn(sh, center);
-  const bf16_t wgt = __hadd_rn(sw, __hmul_rn(swc, __hmul_rn(diff, diff)));
-  const bf16_t term = __hmul_rn(wgt, sh);
-  pn = t % CHUNK == 0 ? term : __hadd_rn(pn, term);
-  pd = t % CHUNK == 0 ? wgt : __hadd_rn(pd, wgt);
+__device__ __forceinline__ void bilateral_tap2(bf162 sw, bf162 swc, bf162 sh, bf162 center,
+                                               int t, bf162& pn, bf162& pd, bf162& num,
+                                               bf162& den) {
+  const bf162 diff = __hsub2_rn(sh, center);
+  const bf162 wgt = __hadd2_rn(sw, __hmul2_rn(swc, __hmul2_rn(diff, diff)));
+  const bf162 term = __hmul2_rn(wgt, sh);
+  pn = t % CHUNK == 0 ? term : __hadd2_rn(pn, term);
+  pd = t % CHUNK == 0 ? wgt : __hadd2_rn(pd, wgt);
   if (t % CHUNK == CHUNK - 1) {
-    num = __hadd_rn(num, pn);
-    den = __hadd_rn(den, pd);
+    num = __hadd2_rn(num, pn);
+    den = __hadd2_rn(den, pd);
   }
 }
 
-__device__ __forceinline__ void bilateral_flush(int t, bf16_t pn, bf16_t pd, bf16_t& num,
-                                                bf16_t& den) {
+__device__ __forceinline__ void bilateral_flush2(int t, bf162 pn, bf162 pd, bf162& num,
+                                                 bf162& den) {
   if (t % CHUNK != 0) {
-    num = __hadd_rn(num, pn);
-    den = __hadd_rn(den, pd);
+    num = __hadd2_rn(num, pn);
+    den = __hadd2_rn(den, pd);
   }
 }
 
-// num / max(den, 1e-20) in float32, rounded to bf16 (the TPU kernel's division)
+// num / max(den, 1e-20) in float32 a lane at a time, rounded to bf16 (the
+// TPU kernel's division)
 __device__ __forceinline__ float bilateral_ratio(bf16_t num, bf16_t den) {
   return bf(__bfloat162float(num) / fmaxf(__bfloat162float(den), 1e-20f));
+}
+__device__ __forceinline__ float2 bilateral_ratio2(bf162 num, bf162 den) {
+  return make_float2(bilateral_ratio(__low2bfloat16(num), __low2bfloat16(den)),
+                     bilateral_ratio(__high2bfloat16(num), __high2bfloat16(den)));
 }
 
 __device__ __forceinline__ int reflect101(int i, int n) {
@@ -157,7 +212,6 @@ __device__ void block_max_to(float v, float* dst) {
 }
 
 // Stage 1: fine-grained center-surround saliency, unnormalized; max -> maxes[0].
-template <bool BF16>
 __global__ void __launch_bounds__(TX * BY)
 fine_kernel(const float* __restrict__ gray, int H, int W, int scale_mask, int rmax,
             float* __restrict__ fine, float* __restrict__ maxes) {
@@ -168,8 +222,7 @@ fine_kernel(const float* __restrict__ gray, int H, int W, int scale_mask, int rm
   for (int i = threadIdx.y * TX + threadIdx.x; i < th * tw; i += TX * BY) {
     const int ty = i / tw, tx = i % tw;
     const int y = reflect101(y0 - rmax + ty, H), x = reflect101(x0 - rmax + tx, W);
-    const float v = g[(size_t)y * W + x] * (1.0f / 255.0f);
-    tile[ty][tx] = BF16 ? bf(v) : v;
+    tile[ty][tx] = g[(size_t)y * W + x] * (1.0f / 255.0f);
   }
   __syncthreads();
   float local_max = 0.f;
@@ -188,35 +241,85 @@ fine_kernel(const float* __restrict__ gray, int H, int W, int scale_mask, int rm
     for (int r = 1; r <= rmax; ++r) {
 #pragma unroll
       for (int dx = -MAXR; dx <= MAXR; ++dx)
-        if (dx >= -rmax && dx <= rmax) {
-          if (BF16)
-            col[dx + MAXR] = __bfloat162float(__hadd_rn(
-                __hadd_rn(to_bf16(col[dx + MAXR]), to_bf16(tile[Y - r][X + dx])),
-                to_bf16(tile[Y + r][X + dx])));
-          else
-            col[dx + MAXR] += tile[Y - r][X + dx] + tile[Y + r][X + dx];
-        }
+        if (dx >= -rmax && dx <= rmax) col[dx + MAXR] += tile[Y - r][X + dx] + tile[Y + r][X + dx];
       if (scale_mask & (1 << r)) {
         const int kk = 2 * r + 1;
         float s = 0.f;
-        if (BF16) {
-          bf16_t sb = to_bf16(0.f), part = sb;
 #pragma unroll
-          for (int dx = -MAXR; dx <= MAXR; ++dx)
-            if (dx >= -r && dx <= r) chunk_add(to_bf16(col[dx + MAXR]), dx + r, kk, part, sb);
-          acc = __bfloat162float(__hadd_rn(to_bf16(acc), __habs(__hsub_rn(
-              to_bf16(gc), __hmul_rn(sb, to_bf16(1.0f / (float)(kk * kk)))))));
-        } else {
-#pragma unroll
-          for (int dx = -MAXR; dx <= MAXR; ++dx)
-            if (dx >= -r && dx <= r) s += col[dx + MAXR];
-          acc += fabsf(gc - s * (1.0f / (float)(kk * kk)));
-        }
+        for (int dx = -MAXR; dx <= MAXR; ++dx)
+          if (dx >= -r && dx <= r) s += col[dx + MAXR];
+        acc += fabsf(gc - s * (1.0f / (float)(kk * kk)));
       }
     }
     if (y < H && x < W) {
       fine[((size_t)b * H + y) * W + x] = acc;
       local_max = fmaxf(local_max, acc);
+    }
+  }
+  block_max_to(local_max, maxes + b * 4 + 0);
+}
+
+// The bf16 route's tiled kernels take a 32 x 32 tile with 16 x 16 threads,
+// each on a pair of columns (x, x + 1) and two rows.
+constexpr int PX = TX / 2, PY = 2 * BY;
+
+// Stage 1 on the bf16 route. The tile holds MAXR columns each side whatever
+// rmax is, so that the column pairs line up with the thread's own; vertical
+// sums are grown per column pair, and the box term at an odd offset is the
+// pair straddling two of them.
+__global__ void __launch_bounds__(TX * BY)
+fine_bf16x2_kernel(const float* __restrict__ gray, int H, int W, int scale_mask, int rmax,
+                   float* __restrict__ fine, float* __restrict__ maxes) {
+  __shared__ float tile[TY + 2 * MAXR][TX + 2 * MAXR];
+  const int b = blockIdx.z, x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
+  const float* g = gray + (size_t)b * H * W;
+  const int th = TY + 2 * rmax, tw = TX + 2 * MAXR;
+  for (int i = threadIdx.y * PX + threadIdx.x; i < th * tw; i += TX * BY) {
+    const int ty = i / tw, tx = i % tw;
+    const int y = reflect101(y0 - rmax + ty, H), x = reflect101(x0 - MAXR + tx, W);
+    tile[ty][tx] = bf(g[(size_t)y * W + x] * (1.0f / 255.0f));
+  }
+  __syncthreads();
+  float local_max = 0.f;
+  const int x = x0 + 2 * threadIdx.x;
+  const int X = MAXR + 2 * threadIdx.x;
+  for (int k = 0; k < TY / PY; ++k) {
+    const int yl = threadIdx.y + k * PY;
+    const int y = y0 + yl, Y = yl + rmax;
+    // col[j]: vertical sums of tile columns X + 2j and X + 2j + 1, grown with r
+    bf162 col[2 * HMAX + 1];
+#pragma unroll
+    for (int j = -HMAX; j <= HMAX; ++j) col[j + HMAX] = pair(tile[Y][X + 2 * j], tile[Y][X + 2 * j + 1]);
+    const bf162 gc = col[HMAX];
+    bf162 acc = zero2();
+    for (int r = 1; r <= rmax; ++r) {
+#pragma unroll
+      for (int j = -HMAX; j <= HMAX; ++j)
+        if (2 * abs(j) <= rmax + 1)
+          col[j + HMAX] = __hadd2_rn(
+              __hadd2_rn(col[j + HMAX], pair(tile[Y - r][X + 2 * j], tile[Y - r][X + 2 * j + 1])),
+              pair(tile[Y + r][X + 2 * j], tile[Y + r][X + 2 * j + 1]));
+      if (scale_mask & (1 << r)) {
+        bf162 s = zero2(), part = s;
+#pragma unroll
+        for (int dx = -MAXR; dx <= MAXR; ++dx)
+          if (dx >= -r && dx <= r) {
+            const int j = dx >> 1;  // floor(dx / 2)
+            chunk_add2((dx & 1) ? straddle(col[j + HMAX], col[j + 1 + HMAX]) : col[j + HMAX],
+                       dx + r, 2 * r + 1, part, s);
+          }
+        acc = __hadd2_rn(acc, __habs2(__hsub2_rn(gc, __hmul2_rn(s, inv_k2(r)))));
+      }
+    }
+    if (y < H && x < W) {
+      const float f0 = __low2float(acc), f1 = __high2float(acc);
+      float* o = fine + ((size_t)b * H + y) * W + x;
+      o[0] = f0;
+      local_max = fmaxf(local_max, f0);
+      if (x + 1 < W) {
+        o[1] = f1;
+        local_max = fmaxf(local_max, f1);
+      }
     }
   }
   block_max_to(local_max, maxes + b * 4 + 0);
@@ -266,9 +369,7 @@ combine_kernel(const float* __restrict__ fine, const float* __restrict__ spec, i
 
 // Stage 3: disk bilateral with the Taylor range weight, of comb / max(comb)
 // when normalize_input is set (K1), of the input as it is otherwise (K4).
-// taps holds (sw, swc) per disk tap in (dy, dx) row-major order (rounded
-// to bf16 by the caller on the bf16 route, which K1 alone takes).
-template <bool BF16>
+// taps holds (sw, swc) per disk tap in (dy, dx) row-major order.
 __global__ void __launch_bounds__(TX * BY)
 bilateral_kernel(const float* __restrict__ comb, int H, int W, int radius,
                  const float* __restrict__ taps, int ntaps, const float* __restrict__ maxes,
@@ -284,8 +385,7 @@ bilateral_kernel(const float* __restrict__ comb, int H, int W, int radius,
     const int ty = i / tw, tx = i % tw;
     const int y = reflect101(y0 - radius + ty, H), x = reflect101(x0 - radius + tx, W);
     const float v = c[(size_t)y * W + x];
-    const float u = normalize_input ? norm_max(v, maxes[b * 4 + 1]) : v;
-    tile[ty][tx] = BF16 ? bf(u) : u;
+    tile[ty][tx] = normalize_input ? norm_max(v, maxes[b * 4 + 1]) : v;
   }
   __syncthreads();
   const int x = x0 + threadIdx.x, X = threadIdx.x + radius;
@@ -295,32 +395,68 @@ bilateral_kernel(const float* __restrict__ comb, int H, int W, int radius,
     const int y = y0 + yl, Y = yl + radius;
     const float center = tile[Y][X];
     float num = 0.f, den = 0.f;
-    bf16_t bn = to_bf16(0.f), bd = bn, pn = bn, pd = bn;  // the bf16 route's sums
     int t = 0;
     for (int dy = -radius; dy <= radius; ++dy) {
       for (int dx = -radius; dx <= radius; ++dx) {
         if (dy * dy + dx * dx > r2max) continue;
         const float sh = tile[Y + dy][X + dx];
-        if (BF16) {
-          bilateral_tap(to_bf16(tw_s[2 * t]), to_bf16(tw_s[2 * t + 1]), to_bf16(sh),
-                        to_bf16(center), t, pn, pd, bn, bd);
-        } else {
-          const float diff = sh - center;
-          const float wgt = tw_s[2 * t] + tw_s[2 * t + 1] * (diff * diff);
-          num += wgt * sh;
-          den += wgt;
-        }
+        const float diff = sh - center;
+        const float wgt = tw_s[2 * t] + tw_s[2 * t + 1] * (diff * diff);
+        num += wgt * sh;
+        den += wgt;
         ++t;
       }
     }
-    if (BF16) bilateral_flush(t, pn, pd, bn, bd);
-    const float yv = BF16 ? bilateral_ratio(bn, bd) : num / fmaxf(den, 1e-20f);
-    if (y < H && x < W) out[((size_t)b * H + y) * W + x] = yv;
+    if (y < H && x < W) out[((size_t)b * H + y) * W + x] = num / fmaxf(den, 1e-20f);
+  }
+}
+
+// Stage 3 on the bf16 route (K1 only): comb / max(comb) rounded to bf16, the
+// taps (rounded to bf16 by the caller) as bf16x2 pairs in shared memory.
+__global__ void __launch_bounds__(TX * BY)
+bilateral_bf16x2_kernel(const float* __restrict__ comb, int H, int W, int radius,
+                        const float* __restrict__ taps, int ntaps,
+                        const float* __restrict__ maxes, float* __restrict__ out) {
+  __shared__ float tile[TY + 2 * MAXR][TX + 2 * MAXR];
+  __shared__ bf162 tw_s[2 * (2 * MAXR + 1) * (2 * MAXR + 1)];
+  const int b = blockIdx.z, x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
+  const int tid = threadIdx.y * PX + threadIdx.x;
+  for (int i = tid; i < 2 * ntaps; i += TX * BY) tw_s[i] = __float2bfloat162_rn(taps[i]);
+  const float* c = comb + (size_t)b * H * W;
+  const int th = TY + 2 * radius, tw = TX + 2 * radius;
+  for (int i = tid; i < th * tw; i += TX * BY) {
+    const int ty = i / tw, tx = i % tw;
+    const int y = reflect101(y0 - radius + ty, H), x = reflect101(x0 - radius + tx, W);
+    tile[ty][tx] = bf(norm_max(c[(size_t)y * W + x], maxes[b * 4 + 1]));
+  }
+  __syncthreads();
+  const int x = x0 + 2 * threadIdx.x, X = 2 * threadIdx.x + radius;
+  const int r2max = radius * radius;
+  for (int k = 0; k < TY / PY; ++k) {
+    const int yl = threadIdx.y + k * PY;
+    const int y = y0 + yl, Y = yl + radius;
+    const bf162 center = pair(tile[Y][X], tile[Y][X + 1]);
+    bf162 num = zero2(), den = num, pn = num, pd = num;
+    int t = 0;
+    for (int dy = -radius; dy <= radius; ++dy) {
+      for (int dx = -radius; dx <= radius; ++dx) {
+        if (dy * dy + dx * dx > r2max) continue;
+        const bf162 sh = pair(tile[Y + dy][X + dx], tile[Y + dy][X + dx + 1]);
+        bilateral_tap2(tw_s[2 * t], tw_s[2 * t + 1], sh, center, t, pn, pd, num, den);
+        ++t;
+      }
+    }
+    bilateral_flush2(t, pn, pd, num, den);
+    if (y < H && x < W) {
+      const float2 v = bilateral_ratio2(num, den);
+      float* o = out + ((size_t)b * H + y) * W + x;
+      o[0] = v.x;
+      if (x + 1 < W) o[1] = v.y;
+    }
   }
 }
 
 // Stage 4: Gaussian along rows (vertical taps), reflect-101.
-template <bool BF16>
 __global__ void __launch_bounds__(TX * BY)
 gauss_rows_kernel(const float* __restrict__ in, int H, int W, const float* __restrict__ gk,
                   int ksize, float* __restrict__ out) {
@@ -334,20 +470,37 @@ gauss_rows_kernel(const float* __restrict__ in, int H, int W, const float* __res
     const int y = blockIdx.y * TY + threadIdx.y + k * BY;
     if (y >= H || x >= W) continue;
     float acc = 0.f;
-    bf16_t bacc = to_bf16(0.f), part = bacc;
+    for (int t = 0; t < ksize; ++t) acc += g_s[t] * src[(size_t)reflect101(y + t - pad, H) * W + x];
+    out[((size_t)b * H + y) * W + x] = acc;
+  }
+}
+
+// Stage 4 on the bf16 route: a pair of columns, chunked bf16 sums.
+__global__ void __launch_bounds__(TX * BY)
+gauss_rows_bf16x2_kernel(const float* __restrict__ in, int H, int W,
+                         const float* __restrict__ gk, int ksize, float* __restrict__ out) {
+  __shared__ bf162 g_s[64];
+  const int tid = threadIdx.y * PX + threadIdx.x;
+  if (tid < ksize) g_s[tid] = __float2bfloat162_rn(gk[tid]);
+  __syncthreads();
+  const int b = blockIdx.z, x = blockIdx.x * TX + 2 * threadIdx.x, pad = ksize / 2;
+  const float* src = in + (size_t)b * H * W;
+  const int x1 = min(x + 1, W - 1);  // the masked lane of an odd width reads column W - 1
+  for (int k = 0; k < TY / PY; ++k) {
+    const int y = blockIdx.y * TY + threadIdx.y + k * PY;
+    if (y >= H || x >= W) continue;
+    bf162 acc = zero2(), part = acc;
     for (int t = 0; t < ksize; ++t) {
-      const float v = src[(size_t)reflect101(y + t - pad, H) * W + x];
-      if (BF16)
-        chunk_add(__hmul_rn(to_bf16(g_s[t]), to_bf16(v)), t, ksize, part, bacc);
-      else
-        acc += g_s[t] * v;
+      const float* row = src + (size_t)reflect101(y + t - pad, H) * W;
+      chunk_add2(__hmul2_rn(g_s[t], pair(row[x], row[x1])), t, ksize, part, acc);
     }
-    out[((size_t)b * H + y) * W + x] = BF16 ? __bfloat162float(bacc) : acc;
+    float* o = out + ((size_t)b * H + y) * W + x;
+    o[0] = __low2float(acc);
+    if (x + 1 < W) o[1] = __high2float(acc);
   }
 }
 
 // Stage 5: Gaussian along columns (horizontal taps); max -> maxes[2].
-template <bool BF16>
 __global__ void __launch_bounds__(TX * BY)
 gauss_cols_kernel(const float* __restrict__ in, int H, int W, const float* __restrict__ gk,
                   int ksize, float* __restrict__ out, float* __restrict__ maxes) {
@@ -362,17 +515,42 @@ gauss_cols_kernel(const float* __restrict__ in, int H, int W, const float* __res
     if (y < H && x < W) {
       const float* row = in + ((size_t)b * H + y) * W;
       float acc = 0.f;
-      bf16_t bacc = to_bf16(0.f), part = bacc;
-      for (int t = 0; t < ksize; ++t) {
-        const float v = row[reflect101(x + t - pad, W)];
-        if (BF16)
-          chunk_add(__hmul_rn(to_bf16(g_s[t]), to_bf16(v)), t, ksize, part, bacc);
-        else
-          acc += g_s[t] * v;
-      }
-      if (BF16) acc = __bfloat162float(bacc);
+      for (int t = 0; t < ksize; ++t) acc += g_s[t] * row[reflect101(x + t - pad, W)];
       out[((size_t)b * H + y) * W + x] = acc;
       local_max = fmaxf(local_max, acc);
+    }
+  }
+  block_max_to(local_max, maxes + b * 4 + 2);
+}
+
+// Stage 5 on the bf16 route: a pair of columns; max -> maxes[2].
+__global__ void __launch_bounds__(TX * BY)
+gauss_cols_bf16x2_kernel(const float* __restrict__ in, int H, int W,
+                         const float* __restrict__ gk, int ksize, float* __restrict__ out,
+                         float* __restrict__ maxes) {
+  __shared__ bf162 g_s[64];
+  const int tid = threadIdx.y * PX + threadIdx.x;
+  if (tid < ksize) g_s[tid] = __float2bfloat162_rn(gk[tid]);
+  __syncthreads();
+  const int b = blockIdx.z, x = blockIdx.x * TX + 2 * threadIdx.x, pad = ksize / 2;
+  float local_max = 0.f;
+  for (int k = 0; k < TY / PY; ++k) {
+    const int y = blockIdx.y * TY + threadIdx.y + k * PY;
+    if (y < H && x < W) {
+      const float* row = in + ((size_t)b * H + y) * W;
+      bf162 acc = zero2(), part = acc;
+      for (int t = 0; t < ksize; ++t)
+        chunk_add2(__hmul2_rn(g_s[t], pair(row[reflect101(x + t - pad, W)],
+                                           row[reflect101(x + 1 + t - pad, W)])),
+                   t, ksize, part, acc);
+      const float v0 = __low2float(acc), v1 = __high2float(acc);
+      float* o = out + ((size_t)b * H + y) * W + x;
+      o[0] = v0;
+      local_max = fmaxf(local_max, v0);
+      if (x + 1 < W) {
+        o[1] = v1;
+        local_max = fmaxf(local_max, v1);
+      }
     }
   }
   block_max_to(local_max, maxes + b * 4 + 2);
@@ -415,7 +593,8 @@ struct ClusterArgs {
   float sw, fw;
   int radius, ksize;
   // (sw, swc) per disk tap, (dy, dx) row-major, and the Gaussian; on the
-  // bf16 route they hold bf16 values, so to_bf16 of them is exact
+  // bf16 route each slot holds the bits of the bf16x2 pair {w, w} of its
+  // bf16 value (splat_bits)
   float taps[2 * CL_MAX_TAPS];
   float gk[64];
 };
@@ -456,12 +635,14 @@ __device__ float cluster_max(float v, float* slots, float* warp_max, int k,
 constexpr int STAGE_ROWS = 8;
 constexpr int BLOCK_OUT = 4;  // outputs per thread in the Gaussian passes
 
-template <typename RowOf, typename ColOf, typename Fix>
-__device__ __forceinline__ void stage_rows(float* dst, int S, int nrows, int x_lo, int x_hi,
+template <typename T, typename RowOf, typename ColOf, typename Fix>
+__device__ __forceinline__ void stage_rows(T* dst, int S, int nrows, int x_lo, int x_hi,
                                            int xt, int yt, int WT, int YT, RowOf row_of,
                                            ColOf col_of, Fix fix) {
+  using Src = decltype(row_of(0));
+  using V = typename std::remove_cv<typename std::remove_pointer<Src>::type>::type;
   for (int j0 = yt; j0 < nrows; j0 += STAGE_ROWS * YT) {
-    const float* src[STAGE_ROWS];
+    Src src[STAGE_ROWS];
 #pragma unroll
     for (int u = 0; u < STAGE_ROWS; ++u) {
       const int j = j0 + u * YT;
@@ -469,7 +650,7 @@ __device__ __forceinline__ void stage_rows(float* dst, int S, int nrows, int x_l
     }
     for (int x = x_lo + xt; x < x_hi; x += WT) {
       const int xs = col_of(x);
-      float v[STAGE_ROWS];
+      V v[STAGE_ROWS];
 #pragma unroll
       for (int u = 0; u < STAGE_ROWS; ++u) v[u] = src[u][xs];
 #pragma unroll
@@ -508,12 +689,26 @@ mask_cluster_kernel(const __grid_constant__ ClusterArgs p) {
   float* const b2 = b1 + (size_t)R * S;
   float* const slots = b2 + (size_t)R * S;
   float* const warp_max = slots + 4;
+  // The bf16 route holds stages 3-5 in bf16 strips inside the same buffers:
+  // rows of Sb values (Sb / 2 odd, so consecutive rows' words fall on
+  // distinct banks), column x at Cb + x with Cb even, so that the pair of
+  // an even column is one aligned 32-bit word.
+  const int Cb = (C0 + 1) & ~1;
+  const int Sb = 2 * (((W + 2 * Cb + 6) / 2) | 1);
+  bf16_t* const h0 = reinterpret_cast<bf16_t*>(b0);
+  bf16_t* const h1 = reinterpret_cast<bf16_t*>(b1);
+  bf16_t* const h2 = reinterpret_cast<bf16_t*>(b2);
   const int tid = threadIdx.x;
   // the threads as WT columns x YT rows for the per-pixel stages
   const int WT = min(CL_THREADS, (W + 31) & ~31);
   const int YT = CL_THREADS / WT;
   const int xt = tid % WT;
   const int yt = tid / WT < YT ? tid / WT : 1 << 20;  // spare threads skip those loops
+  // the bf16 route's pair stages: WP pairs of columns x YP rows
+  const int WP = min(CL_THREADS, ((W + 1) / 2 + 31) & ~31);
+  const int YP = CL_THREADS / WP;
+  const int xp = tid % WP;
+  const int yp = tid / WP < YP ? tid / WP : 1 << 20;
 
   float m2 = 0.f;
   if (CONTEXTUAL) {
@@ -526,15 +721,69 @@ mask_cluster_kernel(const __grid_constant__ ClusterArgs p) {
     // a register, with no barrier between the radii.
     const int rmax = RMAX_T > 0 ? RMAX_T : p.rmax;
     const float* img = p.in + (size_t)b * H * W;
-    stage_rows(
-        b0 + C0, S, n + 2 * rmax, -rmax, W + rmax, xt, yt, WT, YT,
-        [&](int j) { return img + (size_t)reflect101(r0 - rmax + j, H) * W; },
-        [&](int x) { return reflect101(x, W); },
-        [](float v) { return BF16 ? bf(v * (1.0f / 255.0f)) : v * (1.0f / 255.0f); });
+    const auto gray_row = [&](int j) { return img + (size_t)reflect101(r0 - rmax + j, H) * W; };
+    const auto reflect_col = [&](int x) { return reflect101(x, W); };
+    // the bf16 route's g: a bf16 strip whose halo columns, rmax rounded up
+    // to even each side and one more at the right, make every lane's pair an
+    // aligned word
+    const int hw = (rmax + 1) & ~1;
+    if constexpr (BF16)
+      stage_rows(h0 + Cb, Sb, n + 2 * rmax, -hw, W + hw + 1, xt, yt, WT, YT, gray_row,
+                 reflect_col, [](float v) { return __float2bfloat16_rn(v * (1.0f / 255.0f)); });
+    else
+      stage_rows(b0 + C0, S, n + 2 * rmax, -rmax, W + rmax, xt, yt, WT, YT, gray_row, reflect_col,
+                 [](float v) { return v * (1.0f / 255.0f); });
     __syncthreads();
     float local_max = 0.f;
-    {
-      const int lane = tid & 31;
+    const int lane = tid & 31;
+    if constexpr (BF16) {
+      // The same walk a pair of columns a lane: the lane's pair is columns x
+      // and x + 1, hl lanes each side are halo, and the box term at column
+      // offset dx is the pair of lane + dx / 2 (even dx) or the pair
+      // straddling lanes + (dx - 1) / 2 and + (dx + 1) / 2 (odd dx).
+      const int hl = (rmax + 1) / 2;
+      const int span = 2 * (32 - 2 * hl);  // output columns per warp task
+      const int nseg = (W + span - 1) / span;
+      for (int task = tid >> 5; task < n * nseg; task += CL_THREADS / 32) {
+        const int y = task / nseg, seg = task - y * nseg;
+        const int x = seg * span + 2 * (lane - hl);
+        // a halo lane past the staged columns reads the last aligned pair:
+        // no lane that stores reads it
+        const bf16_t* col =
+            h0 + (size_t)(y + rmax) * Sb + Cb + min(max(x, -hw), (W + hw - 1) & ~1);
+        const bf162 g = word(col);
+        bf162 v = g, fine = zero2();
+#pragma unroll
+        for (int r = 1; r <= rmax; ++r) {
+          v = __hadd2_rn(__hadd2_rn(v, word(col - r * Sb)), word(col + r * Sb));
+          if (p.scale_mask & (1 << r)) {
+            bf162 nb[2 * HMAX + 1];  // nb[k + HMAX]: the pair of lane + k
+#pragma unroll
+            for (int k = -HMAX; k <= HMAX; ++k)
+              if (2 * abs(k) <= r + 1) nb[k + HMAX] = __shfl_sync(0xffffffffu, v, lane + k);
+            bf162 sb = zero2(), part = sb;
+#pragma unroll
+            for (int dx = -MAXR; dx <= MAXR; ++dx)
+              if (dx >= -r && dx <= r) {
+                const int k = dx >> 1;  // floor(dx / 2)
+                chunk_add2((dx & 1) ? straddle(nb[k + HMAX], nb[k + 1 + HMAX]) : nb[k + HMAX],
+                           dx + r, 2 * r + 1, part, sb);
+              }
+            fine = __hadd2_rn(fine, __habs2(__hsub2_rn(g, __hmul2_rn(sb, inv_k2(r)))));
+          }
+        }
+        if (lane >= hl && lane < 32 - hl && x < W) {
+          const float f0 = __low2float(fine), f1 = __high2float(fine);
+          float* f = b1 + (size_t)y * S + C0 + x;
+          f[0] = f0;
+          local_max = fmaxf(local_max, f0);
+          if (x + 1 < W) {
+            f[1] = f1;
+            local_max = fmaxf(local_max, f1);
+          }
+        }
+      }
+    } else {
       const int span = 32 - 2 * rmax;  // output columns per warp task
       const int nseg = (W + span - 1) / span;
       for (int task = tid >> 5; task < n * nseg; task += CL_THREADS / 32) {
@@ -543,32 +792,14 @@ mask_cluster_kernel(const __grid_constant__ ClusterArgs p) {
         const float* col = b0 + (size_t)(y + rmax) * S + C0 + min(x, W + rmax - 1);
         const float g = col[0];
         float v = g, fine = 0.f;
-        if (BF16) {
-          const bf16_t gb = to_bf16(g), zero = to_bf16(0.f);
-          bf16_t vb = gb, fb = zero;
 #pragma unroll
-          for (int r = 1; r <= rmax; ++r) {
-            vb = __hadd_rn(__hadd_rn(vb, to_bf16(col[-r * S])), to_bf16(col[r * S]));
-            if (p.scale_mask & (1 << r)) {
-              const bf16_t inv_k2 = to_bf16(1.0f / (float)((2 * r + 1) * (2 * r + 1)));
-              bf16_t sb = zero, part = zero;
+        for (int r = 1; r <= rmax; ++r) {
+          v += col[-r * S] + col[r * S];
+          if (p.scale_mask & (1 << r)) {
+            float s = 0.f;
 #pragma unroll
-              for (int dx = -r; dx <= r; ++dx)
-                chunk_add(__shfl_sync(0xffffffffu, vb, lane + dx), dx + r, 2 * r + 1, part, sb);
-              fb = __hadd_rn(fb, __habs(__hsub_rn(gb, __hmul_rn(sb, inv_k2))));
-            }
-          }
-          fine = __bfloat162float(fb);
-        } else {
-#pragma unroll
-          for (int r = 1; r <= rmax; ++r) {
-            v += col[-r * S] + col[r * S];
-            if (p.scale_mask & (1 << r)) {
-              float s = 0.f;
-#pragma unroll
-              for (int dx = -r; dx <= r; ++dx) s += __shfl_sync(0xffffffffu, v, lane + dx);
-              fine += fabsf(g - s * (1.0f / (float)((2 * r + 1) * (2 * r + 1))));
-            }
+            for (int dx = -r; dx <= r; ++dx) s += __shfl_sync(0xffffffffu, v, lane + dx);
+            fine += fabsf(g - s * (1.0f / (float)((2 * r + 1) * (2 * r + 1))));
           }
         }
         if (lane >= rmax && lane < 32 - rmax && x < W) {
@@ -623,15 +854,18 @@ mask_cluster_kernel(const __grid_constant__ ClusterArgs p) {
   // blocks' buffer 1, K4's map from device memory as it is.
   const int rad = RAD_T > 0 ? RAD_T : p.radius;
   if (CONTEXTUAL) {
-    stage_rows(
-        b0 + C0, S, n + 2 * rad, -rad, W + rad, xt, yt, WT, YT,
-        [&](int j) {
-          const int yy = reflect101(r0 - rad + j, H);
-          const int o = yy / R;
-          return (o == rank ? b1 : cluster.map_shared_rank(b1, o)) + (size_t)(yy - o * R) * S + C0;
-        },
-        [&](int x) { return reflect101(x, W); },
-        [&](float v) { return BF16 ? bf(norm_max(v, m2)) : norm_max(v, m2); });
+    const auto comb_row = [&](int j) {
+      const int yy = reflect101(r0 - rad + j, H);
+      const int o = yy / R;
+      return (o == rank ? b1 : cluster.map_shared_rank(b1, o)) + (size_t)(yy - o * R) * S + C0;
+    };
+    const auto reflect_col = [&](int x) { return reflect101(x, W); };
+    if constexpr (BF16)
+      stage_rows(h0 + Cb, Sb, n + 2 * rad, -rad, W + rad, xt, yt, WT, YT, comb_row, reflect_col,
+                 [&](float v) { return __float2bfloat16_rn(norm_max(v, m2)); });
+    else
+      stage_rows(b0 + C0, S, n + 2 * rad, -rad, W + rad, xt, yt, WT, YT, comb_row, reflect_col,
+                 [&](float v) { return norm_max(v, m2); });
   } else {
     const float* img = p.in + (size_t)b * H * W;
     stage_rows(
@@ -640,62 +874,82 @@ mask_cluster_kernel(const __grid_constant__ ClusterArgs p) {
         [&](int x) { return reflect101(x, W); }, [](float v) { return v; });
   }
   __syncthreads();
-  // two vertically adjacent outputs per thread: the union of their disks is
-  // loaded once (58 loads for 98 taps at radius 4), and each output still
-  // takes its taps in the twin's (dy, dx) row-major order
+  // two vertically adjacent outputs per thread (a pair of columns on the
+  // bf16 route): the union of their disks is loaded once (58 loads for 98
+  // taps at radius 4), and each output still takes its taps in the twin's
+  // (dy, dx) row-major order
   const int r2max = rad * rad;
-  for (int y0 = yt * 2; y0 < n; y0 += YT * 2) {
-    const float* crow = b0 + (size_t)(y0 + rad) * S + C0;
-    for (int x = xt; x < W; x += WT) {
-      const float* c = crow + x;
-      const float center0 = c[0], center1 = c[S];
-      float num0 = 0.f, den0 = 0.f, num1 = 0.f, den1 = 0.f;
-      const bf16_t zero = to_bf16(0.f), cb0 = to_bf16(center0), cb1 = to_bf16(center1);
-      // the bf16 route's totals and open chunks
-      bf16_t bn0 = zero, bd0 = zero, bn1 = zero, bd1 = zero;
-      bf16_t pn0 = zero, pd0 = zero, pn1 = zero, pd1 = zero;
-      int t0 = 0, t1 = 0;
+  if constexpr (BF16) {
+    for (int y0 = yp * 2; y0 < n; y0 += YP * 2) {
+      const bf16_t* crow = h0 + (size_t)(y0 + rad) * Sb + Cb;
+      for (int x = 2 * xp; x < W; x += 2 * WP) {
+        const bf16_t* c = crow + x;
+        const bf162 center0 = word(c), center1 = word(c + Sb);
+        // the totals and open chunks of the two rows
+        bf162 num0 = zero2(), den0 = num0, num1 = num0, den1 = num0;
+        bf162 pn0 = num0, pd0 = num0, pn1 = num0, pd1 = num0;
+        int t0 = 0, t1 = 0;
 #pragma unroll
-      for (int dy = -rad; dy <= rad + 1; ++dy) {
+        for (int dy = -rad; dy <= rad + 1; ++dy) {
 #pragma unroll
-        for (int dx = -rad; dx <= rad; ++dx) {
-          const bool in0 = dy <= rad && dy * dy + dx * dx <= r2max;
-          const bool in1 = dy > -rad && (dy - 1) * (dy - 1) + dx * dx <= r2max;
-          if (!in0 && !in1) continue;
-          const float sh = c[dy * S + dx];
-          const bf16_t shb = to_bf16(sh);
-          if (in0) {
-            if (BF16) {
-              bilateral_tap(to_bf16(p.taps[2 * t0]), to_bf16(p.taps[2 * t0 + 1]), shb, cb0, t0,
-                            pn0, pd0, bn0, bd0);
-            } else {
+          for (int dx = -rad; dx <= rad; ++dx) {
+            const bool in0 = dy <= rad && dy * dy + dx * dx <= r2max;
+            const bool in1 = dy > -rad && (dy - 1) * (dy - 1) + dx * dx <= r2max;
+            if (!in0 && !in1) continue;
+            const bf16_t* q = c + dy * Sb + dx;
+            const bf162 sh = (dx & 1) ? odd_word(q) : word(q);
+            if (in0) {
+              bilateral_tap2(packed(p.taps[2 * t0]), packed(p.taps[2 * t0 + 1]), sh, center0, t0,
+                             pn0, pd0, num0, den0);
+              ++t0;
+            }
+            if (in1) {
+              bilateral_tap2(packed(p.taps[2 * t1]), packed(p.taps[2 * t1 + 1]), sh, center1, t1,
+                             pn1, pd1, num1, den1);
+              ++t1;
+            }
+          }
+        }
+        bilateral_flush2(t0, pn0, pd0, num0, den0);
+        bilateral_flush2(t1, pn1, pd1, num1, den1);
+        const float2 v0 = bilateral_ratio2(num0, den0), v1 = bilateral_ratio2(num1, den1);
+        bf16_t* o = h2 + (size_t)y0 * Sb + Cb + x;
+        store_pair(o, __floats2bfloat162_rn(v0.x, v0.y), x + 1 < W);
+        if (y0 + 1 < n) store_pair(o + Sb, __floats2bfloat162_rn(v1.x, v1.y), x + 1 < W);
+      }
+    }
+  } else {
+    for (int y0 = yt * 2; y0 < n; y0 += YT * 2) {
+      const float* crow = b0 + (size_t)(y0 + rad) * S + C0;
+      for (int x = xt; x < W; x += WT) {
+        const float* c = crow + x;
+        const float center0 = c[0], center1 = c[S];
+        float num0 = 0.f, den0 = 0.f, num1 = 0.f, den1 = 0.f;
+        int t0 = 0, t1 = 0;
+#pragma unroll
+        for (int dy = -rad; dy <= rad + 1; ++dy) {
+#pragma unroll
+          for (int dx = -rad; dx <= rad; ++dx) {
+            const bool in0 = dy <= rad && dy * dy + dx * dx <= r2max;
+            const bool in1 = dy > -rad && (dy - 1) * (dy - 1) + dx * dx <= r2max;
+            if (!in0 && !in1) continue;
+            const float sh = c[dy * S + dx];
+            if (in0) {
               const float diff = sh - center0;
               const float wgt = p.taps[2 * t0] + p.taps[2 * t0 + 1] * (diff * diff);
               num0 += wgt * sh;
               den0 += wgt;
+              ++t0;
             }
-            ++t0;
-          }
-          if (in1) {
-            if (BF16) {
-              bilateral_tap(to_bf16(p.taps[2 * t1]), to_bf16(p.taps[2 * t1 + 1]), shb, cb1, t1,
-                            pn1, pd1, bn1, bd1);
-            } else {
+            if (in1) {
               const float diff = sh - center1;
               const float wgt = p.taps[2 * t1] + p.taps[2 * t1 + 1] * (diff * diff);
               num1 += wgt * sh;
               den1 += wgt;
+              ++t1;
             }
-            ++t1;
           }
         }
-      }
-      if (BF16) {
-        bilateral_flush(t0, pn0, pd0, bn0, bd0);
-        bilateral_flush(t1, pn1, pd1, bn1, bd1);
-        b2[(size_t)y0 * S + C0 + x] = bilateral_ratio(bn0, bd0);
-        if (y0 + 1 < n) b2[(size_t)(y0 + 1) * S + C0 + x] = bilateral_ratio(bn1, bd1);
-      } else {
         b2[(size_t)y0 * S + C0 + x] = num0 / fmaxf(den0, 1e-20f);
         if (y0 + 1 < n) b2[(size_t)(y0 + 1) * S + C0 + x] = num1 / fmaxf(den1, 1e-20f);
       }
@@ -710,49 +964,85 @@ mask_cluster_kernel(const __grid_constant__ ClusterArgs p) {
   // buffer 1, with its pad reflected columns each side for stage 5.
   const int ks = KS_T > 0 ? KS_T : p.ksize;
   const int gpad = ks / 2;
-  stage_rows(
-      b0 + C0, S, n + 2 * gpad, 0, W, xt, yt, WT, YT,
-      [&](int j) {
-        const int yy = reflect101(r0 - gpad + j, H);
-        const int o = yy / R;
-        return (o == rank ? b2 : cluster.map_shared_rank(b2, o)) + (size_t)(yy - o * R) * S + C0;
-      },
-      [](int x) { return x; }, [](float v) { return v; });
+  if constexpr (BF16)  // whole words: the pairs of the even columns
+    stage_rows(
+        reinterpret_cast<unsigned*>(h0 + Cb), Sb / 2, n + 2 * gpad, 0, (W + 1) / 2, xp, yp, WP,
+        YP,
+        [&](int j) {
+          const int yy = reflect101(r0 - gpad + j, H);
+          const int o = yy / R;
+          return reinterpret_cast<const unsigned*>(
+              (o == rank ? h2 : cluster.map_shared_rank(h2, o)) + (size_t)(yy - o * R) * Sb + Cb);
+        },
+        [](int x) { return x; }, [](unsigned v) { return v; });
+  else
+    stage_rows(
+        b0 + C0, S, n + 2 * gpad, 0, W, xt, yt, WT, YT,
+        [&](int j) {
+          const int yy = reflect101(r0 - gpad + j, H);
+          const int o = yy / R;
+          return (o == rank ? b2 : cluster.map_shared_rank(b2, o)) + (size_t)(yy - o * R) * S + C0;
+        },
+        [](int x) { return x; }, [](float v) { return v; });
   __syncthreads();
-  // four consecutive rows of one column per thread: ks + 3 loads for four
-  // outputs (the last group may read up to 3 rows past the strip's, inside
-  // shared memory, for outputs it does not store)
-  for (int y0 = yt * BLOCK_OUT; y0 < n; y0 += YT * BLOCK_OUT) {
-    for (int x = xt; x < W; x += WT) {
-      const float* top = b0 + (size_t)y0 * S + C0 + x;
-      float acc[BLOCK_OUT] = {};
-      bf16_t bacc[BLOCK_OUT], part[BLOCK_OUT];  // the bf16 route's totals and open chunks
+  // four consecutive rows of one column (a pair of columns on the bf16
+  // route) per thread: ks + 3 loads for four outputs (the last group may
+  // read up to 3 rows past the strip's, inside shared memory, for outputs it
+  // does not store)
+  if constexpr (BF16) {
+    for (int y0 = yp * BLOCK_OUT; y0 < n; y0 += YP * BLOCK_OUT) {
+      for (int x = 2 * xp; x < W; x += 2 * WP) {
+        const bf16_t* top = h0 + (size_t)y0 * Sb + Cb + x;
+        bf162 acc[BLOCK_OUT], part[BLOCK_OUT];  // totals and open chunks
 #pragma unroll
-      for (int o = 0; o < BLOCK_OUT; ++o) bacc[o] = part[o] = to_bf16(0.f);
+        for (int o = 0; o < BLOCK_OUT; ++o) acc[o] = part[o] = zero2();
 #pragma unroll
-      for (int t = 0; t < ks + BLOCK_OUT - 1; ++t) {
-        const float v = top[t * S];
-        const bf16_t vb = to_bf16(v);
+        for (int t = 0; t < ks + BLOCK_OUT - 1; ++t) {
+          const bf162 v = word(top + t * Sb);
+#pragma unroll
+          for (int o = 0; o < BLOCK_OUT; ++o)
+            if (t - o >= 0 && t - o < ks)
+              chunk_add2(__hmul2_rn(packed(p.gk[t - o]), v), t - o, ks, part[o], acc[o]);
+        }
 #pragma unroll
         for (int o = 0; o < BLOCK_OUT; ++o)
-          if (t - o >= 0 && t - o < ks) {
-            if (BF16)
-              chunk_add(__hmul_rn(to_bf16(p.gk[t - o]), vb), t - o, ks,
-                        part[o], bacc[o]);
-            else
-              acc[o] += p.gk[t - o] * v;
-          }
+          if (y0 + o < n) store_pair(h1 + (size_t)(y0 + o) * Sb + Cb + x, acc[o], x + 1 < W);
       }
-      if (BF16) {
-#pragma unroll
-        for (int o = 0; o < BLOCK_OUT; ++o) acc[o] = __bfloat162float(bacc[o]);
-      }
-#pragma unroll
-      for (int o = 0; o < BLOCK_OUT; ++o)
-        if (y0 + o < n) b1[(size_t)(y0 + o) * S + C0 + x] = acc[o];
     }
-  }
-  if (gpad > 0) {
+    // the reflected columns in pairs (2 * gpad of them a row), computed from
+    // their source columns (so equal to them bit for bit) rather than copied
+    // after another barrier
+    for (int i = tid; i < n * gpad; i += CL_THREADS) {
+      const int y = i / gpad, k = 2 * (i - y * gpad);
+      const int xa = k < gpad ? k - gpad : W + k - gpad;
+      const int xb = k + 1 < gpad ? k + 1 - gpad : W + k + 1 - gpad;
+      const bf16_t* top = h0 + (size_t)y * Sb + Cb;
+      const int sa = reflect101(xa, W), sb = reflect101(xb, W);
+      bf162 acc = zero2(), part = acc;
+#pragma unroll
+      for (int t = 0; t < ks; ++t)
+        chunk_add2(__hmul2_rn(packed(p.gk[t]), any_pair(top + t * Sb + sa, top + t * Sb + sb)),
+                   t, ks, part, acc);
+      h1[(size_t)y * Sb + Cb + xa] = __low2bfloat16(acc);
+      h1[(size_t)y * Sb + Cb + xb] = __high2bfloat16(acc);
+    }
+  } else {
+    for (int y0 = yt * BLOCK_OUT; y0 < n; y0 += YT * BLOCK_OUT) {
+      for (int x = xt; x < W; x += WT) {
+        const float* top = b0 + (size_t)y0 * S + C0 + x;
+        float acc[BLOCK_OUT] = {};
+#pragma unroll
+        for (int t = 0; t < ks + BLOCK_OUT - 1; ++t) {
+          const float v = top[t * S];
+#pragma unroll
+          for (int o = 0; o < BLOCK_OUT; ++o)
+            if (t - o >= 0 && t - o < ks) acc[o] += p.gk[t - o] * v;
+        }
+#pragma unroll
+        for (int o = 0; o < BLOCK_OUT; ++o)
+          if (y0 + o < n) b1[(size_t)(y0 + o) * S + C0 + x] = acc[o];
+      }
+    }
     // the reflected columns, computed from their source columns (so equal
     // to them bit for bit) rather than copied after another barrier
     for (int i = tid; i < n * 2 * gpad; i += CL_THREADS) {
@@ -760,16 +1050,9 @@ mask_cluster_kernel(const __grid_constant__ ClusterArgs p) {
       const int x = k < gpad ? k - gpad : W + k - gpad;
       const float* top = b0 + (size_t)y * S + C0 + reflect101(x, W);
       float acc = 0.f;
-      bf16_t bacc = to_bf16(0.f), part = bacc;
 #pragma unroll
-      for (int t = 0; t < ks; ++t) {
-        if (BF16)
-          chunk_add(__hmul_rn(to_bf16(p.gk[t]), to_bf16(top[t * S])), t, ks,
-                    part, bacc);
-        else
-          acc += p.gk[t] * top[t * S];
-      }
-      b1[(size_t)y * S + C0 + x] = BF16 ? __bfloat162float(bacc) : acc;
+      for (int t = 0; t < ks; ++t) acc += p.gk[t] * top[t * S];
+      b1[(size_t)y * S + C0 + x] = acc;
     }
   }
   __syncthreads();
@@ -782,28 +1065,39 @@ mask_cluster_kernel(const __grid_constant__ ClusterArgs p) {
   const int ncg = (W + BLOCK_OUT - 1) / BLOCK_OUT;
   for (int i = tid; i < n * ncg; i += CL_THREADS) {
     const int y = i % n, x0 = (i / n) * BLOCK_OUT;
-    const float* row = b1 + (size_t)y * S + C0 - gpad + x0;
     float acc[BLOCK_OUT] = {};
-    bf16_t bacc[BLOCK_OUT], part[BLOCK_OUT];
+    if constexpr (BF16) {
+      // two pairs, (x0, x0 + 1) and (x0 + 2, x0 + 3): tap t of pair o is the
+      // pair of columns (row[t + 2o], row[t + 2o + 1]), an aligned word
+      // where row + t lies on an even column, else a straddle (x0 and Cb are
+      // even, so that is where t - gpad is even)
+      const bf16_t* row = h1 + (size_t)y * Sb + Cb - gpad + x0;
+      constexpr int NP = BLOCK_OUT / 2;
+      bf162 sum[NP], part[NP];
 #pragma unroll
-    for (int o = 0; o < BLOCK_OUT; ++o) bacc[o] = part[o] = to_bf16(0.f);
+      for (int o = 0; o < NP; ++o) sum[o] = part[o] = zero2();
 #pragma unroll
-    for (int t = 0; t < ks + BLOCK_OUT - 1; ++t) {
-      const float v = row[t];
-      const bf16_t vb = to_bf16(v);
+      for (int t = 0; t < ks + BLOCK_OUT - 2; ++t) {
+        const bf162 q = ((t - gpad) & 1) ? odd_word(row + t) : word(row + t);
 #pragma unroll
-      for (int o = 0; o < BLOCK_OUT; ++o)
-        if (t - o >= 0 && t - o < ks) {
-          if (BF16)
-            chunk_add(__hmul_rn(to_bf16(p.gk[t - o]), vb), t - o, ks, part[o],
-                      bacc[o]);
-          else
-            acc[o] += p.gk[t - o] * v;
-        }
-    }
-    if (BF16) {
+        for (int o = 0; o < NP; ++o)
+          if (t - 2 * o >= 0 && t - 2 * o < ks)
+            chunk_add2(__hmul2_rn(packed(p.gk[t - 2 * o]), q), t - 2 * o, ks, part[o], sum[o]);
+      }
 #pragma unroll
-      for (int o = 0; o < BLOCK_OUT; ++o) acc[o] = __bfloat162float(bacc[o]);
+      for (int o = 0; o < NP; ++o) {
+        acc[2 * o] = __low2float(sum[o]);
+        acc[2 * o + 1] = __high2float(sum[o]);
+      }
+    } else {
+      const float* row = b1 + (size_t)y * S + C0 - gpad + x0;
+#pragma unroll
+      for (int t = 0; t < ks + BLOCK_OUT - 1; ++t) {
+        const float v = row[t];
+#pragma unroll
+        for (int o = 0; o < BLOCK_OUT; ++o)
+          if (t - o >= 0 && t - o < ks) acc[o] += p.gk[t - o] * v;
+      }
     }
 #pragma unroll
     for (int o = 0; o < BLOCK_OUT; ++o) {
@@ -892,6 +1186,18 @@ cudaError_t launch_cluster(const ClusterArgs& a, int B, int cluster, size_t smem
   return cudaGetLastError();
 }
 
+// The bits of the bf16x2 pair {w, w} as a float slot of the kernel
+// arguments, for a bf16 value w held as a float (its low 16 bits are 0); the
+// bf16 route reads it back with `packed`.
+float splat_bits(float w) {
+  uint32_t u;
+  std::memcpy(&u, &w, sizeof u);
+  u = (u & 0xffff0000u) | (u >> 16);
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+
 // Checks the plan handed in against this file's layout, copies the filter
 // tables (host arrays) into the arguments and launches the instantiation for
 // the filter sizes. B == 0 only checks the cluster (and reports *max_clusters).
@@ -909,8 +1215,8 @@ cudaError_t run_cluster(bool contextual, ClusterArgs& a, int B, const float* tap
                   smem == 4 * cluster_smem_floats(a.rows, a.halo, a.stride) &&
                   smem <= CL_MAX_SMEM;
   if (!ok) return cudaErrorInvalidValue;
-  for (int i = 0; i < 2 * ntaps; ++i) a.taps[i] = taps[i];
-  for (int i = 0; i < a.ksize; ++i) a.gk[i] = gk[i];
+  for (int i = 0; i < 2 * ntaps; ++i) a.taps[i] = bf16 ? splat_bits(taps[i]) : taps[i];
+  for (int i = 0; i < a.ksize; ++i) a.gk[i] = bf16 ? splat_bits(gk[i]) : gk[i];
   const bool dflt = a.radius == 4 && a.ksize == 31;
   if (bf16) {
     if (!contextual) return cudaErrorInvalidValue;
@@ -940,13 +1246,26 @@ int contextual_mask_tiled(
   if (err != cudaSuccess) return (int)err;
   const dim3 block(TX, BY);
   const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
-  fine_kernel<BF16><<<grid, block, 0, st>>>(gray, H, W, scale_mask, rmax, scratch1, maxes);
-  combine_kernel<BF16><<<grid, block, 0, st>>>(scratch1, spec, H, W, RH, RW, idx_h, w_h, idx_w,
-                                               w_w, spectral_weight, fine_weight, scratch2, maxes);
-  bilateral_kernel<BF16><<<grid, block, 0, st>>>(scratch2, H, W, radius, taps, ntaps, maxes,
-                                                 /*normalize_input=*/1, scratch1);
-  gauss_rows_kernel<BF16><<<grid, block, 0, st>>>(scratch1, H, W, gk, ksize, scratch2);
-  gauss_cols_kernel<BF16><<<grid, block, 0, st>>>(scratch2, H, W, gk, ksize, out, maxes);
+  if constexpr (BF16) {
+    const dim3 pairs(PX, PY);
+    fine_bf16x2_kernel<<<grid, pairs, 0, st>>>(gray, H, W, scale_mask, rmax, scratch1, maxes);
+    combine_kernel<true><<<grid, block, 0, st>>>(scratch1, spec, H, W, RH, RW, idx_h, w_h, idx_w,
+                                                 w_w, spectral_weight, fine_weight, scratch2,
+                                                 maxes);
+    bilateral_bf16x2_kernel<<<grid, pairs, 0, st>>>(scratch2, H, W, radius, taps, ntaps, maxes,
+                                                    scratch1);
+    gauss_rows_bf16x2_kernel<<<grid, pairs, 0, st>>>(scratch1, H, W, gk, ksize, scratch2);
+    gauss_cols_bf16x2_kernel<<<grid, pairs, 0, st>>>(scratch2, H, W, gk, ksize, out, maxes);
+  } else {
+    fine_kernel<<<grid, block, 0, st>>>(gray, H, W, scale_mask, rmax, scratch1, maxes);
+    combine_kernel<false><<<grid, block, 0, st>>>(scratch1, spec, H, W, RH, RW, idx_h, w_h, idx_w,
+                                                  w_w, spectral_weight, fine_weight, scratch2,
+                                                  maxes);
+    bilateral_kernel<<<grid, block, 0, st>>>(scratch2, H, W, radius, taps, ntaps, maxes,
+                                             /*normalize_input=*/1, scratch1);
+    gauss_rows_kernel<<<grid, block, 0, st>>>(scratch1, H, W, gk, ksize, scratch2);
+    gauss_cols_kernel<<<grid, block, 0, st>>>(scratch2, H, W, gk, ksize, out, maxes);
+  }
   normalize_kernel<<<grid, block, 0, st>>>(out, H, W, maxes);
   return (int)cudaGetLastError();
 }
@@ -989,10 +1308,10 @@ extern "C" int cic_smooth_mask(
   if (err != cudaSuccess) return (int)err;
   const dim3 block(TX, BY);
   const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, B);
-  bilateral_kernel<false><<<grid, block, 0, st>>>(saliency, H, W, radius, taps, ntaps, maxes,
+  bilateral_kernel<<<grid, block, 0, st>>>(saliency, H, W, radius, taps, ntaps, maxes,
                                                   /*normalize_input=*/0, out);
-  gauss_rows_kernel<false><<<grid, block, 0, st>>>(out, H, W, gk, ksize, scratch);
-  gauss_cols_kernel<false><<<grid, block, 0, st>>>(scratch, H, W, gk, ksize, out, maxes);
+  gauss_rows_kernel<<<grid, block, 0, st>>>(out, H, W, gk, ksize, scratch);
+  gauss_cols_kernel<<<grid, block, 0, st>>>(scratch, H, W, gk, ksize, out, maxes);
   normalize_kernel<<<grid, block, 0, st>>>(out, H, W, maxes);
   return (int)cudaGetLastError();
 }

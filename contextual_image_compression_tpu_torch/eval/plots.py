@@ -22,7 +22,9 @@ from typing import Dict, List, Optional
 import numpy as np
 
 
-def _pyplot():
+def pyplot():
+    """matplotlib.pyplot on the Agg backend; RuntimeError naming matplotlib
+    where it does not import (callers whose work ends in a figure ask first)."""
     try:
         import matplotlib
     except ImportError as e:
@@ -35,7 +37,7 @@ def _pyplot():
 
 def plot_epoch_losses(history: Dict[str, List[float]], path: str) -> None:
     """4-panel loss plot of a training run's history."""
-    plt = _pyplot()
+    plt = pyplot()
     fig = plt.figure(figsize=(15, 12))
 
     plt.subplot(2, 2, 1)
@@ -79,7 +81,7 @@ _FINAL_METRICS = (
 
 def plot_final_losses(history: Dict[str, List[float]], path: str) -> None:
     """Final 8-panel loss plot."""
-    plt = _pyplot()
+    plt = pyplot()
     fig = plt.figure(figsize=(20, 15))
     for i, (key, title) in enumerate(_FINAL_METRICS):
         plt.subplot(4, 2, i + 1)
@@ -101,7 +103,7 @@ def visualize_results(
 ) -> None:
     """3-4 panel sample figure. Images in [-1, 1]; saliency and bit
     allocation in [0, 1]."""
-    plt = _pyplot()
+    plt = pyplot()
     orig = np.clip((original + 1) / 2, 0, 1)
     comp = np.clip((compressed + 1) / 2, 0, 1)
     num = 4 if bit_allocation is not None else 3
@@ -126,7 +128,7 @@ def visualize_bit_allocation_by_bpp(
 ) -> None:
     """The original and one bit-allocation panel per bpp (the codec runs in
     the caller, batched)."""
-    plt = _pyplot()
+    plt = pyplot()
     bpps = sorted(allocations)
     fig, axes = plt.subplots(1, len(bpps) + 1, figsize=(5 * (len(bpps) + 1), 5))
     axes[0].imshow(np.clip((image + 1) / 2, 0, 1))
@@ -163,7 +165,7 @@ def plot_rate_distortion_curve(
     """`rate_distortion_data.csv`, then the 4-panel RD curves
     `rate_distortion_curves.png`."""
     write_rate_distortion_csv(avg_metrics, results_dir)
-    plt = _pyplot()
+    plt = pyplot()
     bitrates = sorted(avg_metrics.keys())
     psnrs = [avg_metrics[b]["psnr"] for b in bitrates]
     ssims = [avg_metrics[b]["ssim"] for b in bitrates]
@@ -203,7 +205,7 @@ _COLORS = ["b", "r", "g", "c", "m", "y", "k"]
 def plot_rate_control_scatter(results: Dict[str, list], out_dir: str) -> None:
     """rate_control_accuracy.png and hq_ratio_by_bpp.png. results keys:
     target_bpp, actual_bpp, hq_ratio, image (a file name per point)."""
-    plt = _pyplot()
+    plt = pyplot()
     unique_images = sorted(set(results["image"]))
 
     for metric, fname, ylabel, title, identity in (

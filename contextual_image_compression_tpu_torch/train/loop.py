@@ -13,14 +13,24 @@ Adam states and the step) and `metadata_{tag}.json` (epoch, history).
 `init_state(resume=True)` loads them by the store's ladder; `fit` saves
 `epoch_N` every `checkpoint_every` epochs but the last, then `final`.
 
-Not in this slice of the port, and refused rather than skipped: per-epoch
-artifacts and plots (`fit(artifacts=True)`, a probe `save_path`), the
-fine-tune flow, and meshes.
+`fit(artifacts=True)` (the default, as in JAX) writes JAX's per-epoch
+artifacts under `results_dir`: sample figures in `training_samples/`, the
+probe's `rate_control_test.png` and `loss_history_epoch_{e}.png`, then
+`final_loss_history.png` after the final save. The figures need
+matplotlib; where it does not import, `fit(artifacts=True)` raises before
+its first step. `profile_dir` traces steps 1 .. profile_steps of the first
+epoch (utils/profiling.trace). `train_full_reference_flow` is JAX's main
+flow: the training epochs, then `fine_tune_epochs` at each bpp of
+`bpp_range`.
+
+Not in this slice of the port, and refused rather than skipped: meshes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 import threading
 import time
 from typing import Callable, Dict, List, Optional
@@ -31,6 +41,7 @@ from contextual_image_compression_tpu_torch import convert
 from contextual_image_compression_tpu_torch.checkpoint import CheckpointStore
 from contextual_image_compression_tpu_torch.config import TrainConfig, resolve_device
 from contextual_image_compression_tpu_torch.data.pipeline import CompressionDataset
+from contextual_image_compression_tpu_torch.eval import plots
 from contextual_image_compression_tpu_torch.models.adaptive import ALL_CODEC_COMPONENTS
 from contextual_image_compression_tpu_torch.models.vgg import load_vgg19_features
 from contextual_image_compression_tpu_torch.train.gan_trainer import (
@@ -38,6 +49,7 @@ from contextual_image_compression_tpu_torch.train.gan_trainer import (
     GANStepBuilder,
     GANTrainState,
 )
+from contextual_image_compression_tpu_torch.utils import profiling
 from contextual_image_compression_tpu_torch.utils.tree import find_nonfinite
 
 HISTORY_KEYS = (
@@ -51,7 +63,7 @@ HISTORY_KEYS = (
     "rd_loss",
 )
 
-_LATER = "training artifacts come with a later slice of the port"
+_MESHES = "meshes (sharded training) come with a later slice of the port"
 
 
 class GANTrainer:
@@ -128,63 +140,113 @@ class GANTrainer:
 
     # ------------------------------------------------------------------ train
     def fit(self, dataset: CompressionDataset, epochs: Optional[int] = None,
-            steps_per_epoch: Optional[int] = None, artifacts: bool = True) -> Dict[str, List[float]]:
+            steps_per_epoch: Optional[int] = None, artifacts: bool = True,
+            sample_batch: Optional[Batch] = None, profile_dir: Optional[str] = None,
+            profile_steps: int = 3) -> Dict[str, List[float]]:
         """Train `epochs` epochs of `steps_per_epoch` steps (the dataset's
         epoch length by default), restarting the dataset's epoch iterator
-        when it runs out; checkpoint as the module docstring says, and
-        return once the final checkpoint is written. Without a state it
-        calls init_state() (resume=True). artifacts=True raises: see the
-        module docstring."""
+        when it runs out; checkpoint and write artifacts as the module
+        docstring says, and return once the final checkpoint is written.
+        Without a state it calls init_state() (resume=True). sample_batch:
+        the artifacts' samples (default `dataset.first_samples(
+        cfg.sample_visualizations)`). profile_dir: a trace of steps 1 ..
+        profile_steps of the first epoch (step 0 is the warm-up)."""
         if artifacts:
-            raise NotImplementedError(f"artifacts=True: {_LATER}; pass artifacts=False")
+            plots.pyplot()  # before any step: no epoch is lost to a missing plot
         cfg = self.cfg
         epochs = epochs if epochs is not None else cfg.epochs
         steps_per_epoch = steps_per_epoch or dataset.steps_per_epoch
         if self.state is None:
             self.init_state()
-        for epoch in range(epochs):
-            t0 = time.time()
-            sums: Dict[str, torch.Tensor] = {}
-            counts = {k: 0 for k in HISTORY_KEYS}
-            step_iter = dataset.epoch()
-            n_images = 0
-            for step in range(steps_per_epoch):
-                try:
-                    batch = next(step_iter)
-                except StopIteration:
-                    step_iter = dataset.epoch()
-                    batch = next(step_iter)
-                do_d = step % cfg.d_every_n_steps == 0
-                self.state, metrics = self.builder.train_step(self.state, batch, do_d)
-                if self.nan_guard:
-                    self._check_finite(metrics)
-                n_images += int(batch.image.shape[0])
-                for k, v in metrics.items():
-                    if k in counts:
-                        sums[k] = v if k not in sums else sums[k] + v
-                        counts[k] += 1
-            means = {k: (sums[k].item() / counts[k] if counts[k] else float("nan"))
-                     for k in HISTORY_KEYS}
-            for k in HISTORY_KEYS:
-                self.history[k].append(means[k])
-            # the history includes restored epochs, so its length is the
-            # global epoch number
-            epoch_label = len(self.history["g_loss"])
-            dt = time.time() - t0
-            ips = n_images / dt if dt > 0 else float("nan")
-            self.log(
-                f"Epoch {epoch_label}: "
-                f"D {means['d_loss']:.4f}, G {means['g_loss']:.4f}, "
-                f"Recon {means['reconstruction_loss']:.4f}, RD {means['rd_loss']:.4f}, "
-                f"LS {means['latent_saliency_loss']:.4f} "
-                f"({dt:.2f}s, {ips:.1f} img/s)"
-            )
-            # the last epoch is covered by the 'final' save below
-            if (epoch + 1) % cfg.checkpoint_every == 0 and epoch + 1 != epochs:
-                self.save(f"epoch_{epoch_label}")
+        samples_dir = os.path.join(cfg.results_dir, "training_samples")
+        if artifacts:
+            os.makedirs(samples_dir, exist_ok=True)
+            if sample_batch is None:
+                sample_batch = dataset.first_samples(cfg.sample_visualizations)
+        with contextlib.ExitStack() as tracing:  # a trace still open on an error is closed
+            for epoch in range(epochs):
+                t0 = time.time()
+                sums: Dict[str, torch.Tensor] = {}
+                counts = {k: 0 for k in HISTORY_KEYS}
+                step_iter = dataset.epoch()
+                n_images = 0
+                for step in range(steps_per_epoch):
+                    if profile_dir and epoch == 0:
+                        if step == 1:
+                            tracing.enter_context(profiling.trace(profile_dir))
+                        elif step == 1 + profile_steps:
+                            tracing.close()
+                            self.log(f"profiler trace written to {profile_dir}")
+                    try:
+                        batch = next(step_iter)
+                    except StopIteration:
+                        step_iter = dataset.epoch()
+                        batch = next(step_iter)
+                    do_d = step % cfg.d_every_n_steps == 0
+                    self.state, metrics = self.builder.train_step(self.state, batch, do_d)
+                    if self.nan_guard:
+                        self._check_finite(metrics)
+                    n_images += int(batch.image.shape[0])
+                    for k, v in metrics.items():
+                        if k in counts:
+                            sums[k] = v if k not in sums else sums[k] + v
+                            counts[k] += 1
+                if profile_dir and epoch == 0 and 1 < steps_per_epoch <= 1 + profile_steps:
+                    tracing.close()  # the epoch ended before the stop step above
+                    self.log(f"profiler trace written to {profile_dir}")
+                means = {k: (sums[k].item() / counts[k] if counts[k] else float("nan"))
+                         for k in HISTORY_KEYS}
+                for k in HISTORY_KEYS:
+                    self.history[k].append(means[k])
+                # the history includes restored epochs, so its length is the
+                # global epoch number
+                epoch_label = len(self.history["g_loss"])
+                dt = time.time() - t0
+                ips = n_images / dt if dt > 0 else float("nan")
+                self.log(
+                    f"Epoch {epoch_label}: "
+                    f"D {means['d_loss']:.4f}, G {means['g_loss']:.4f}, "
+                    f"Recon {means['reconstruction_loss']:.4f}, RD {means['rd_loss']:.4f}, "
+                    f"LS {means['latent_saliency_loss']:.4f} "
+                    f"({dt:.2f}s, {ips:.1f} img/s)"
+                )
+                if artifacts:
+                    self._epoch_artifacts(epoch_label, sample_batch, samples_dir)
+                # the last epoch is covered by the 'final' save below
+                if (epoch + 1) % cfg.checkpoint_every == 0 and epoch + 1 != epochs:
+                    self.save(f"epoch_{epoch_label}")
         self.save("final")
         self._join_saver()  # the final checkpoint is on disk before fit returns
+        if artifacts:
+            plots.plot_final_losses(self.history,
+                                    os.path.join(cfg.results_dir, "final_loss_history.png"))
         return self.history
+
+    # -------------------------------------------------------------- artifacts
+    def _epoch_artifacts(self, epoch: int, sample_batch: Batch, samples_dir: str) -> None:
+        """The sample figures of one epoch (the codec forward in eval mode,
+        no gradients), the probe's figure and the epoch's loss plot."""
+        with torch.no_grad():
+            out = self.state.codec.apply(sample_batch.image.permute(0, 2, 3, 1),
+                                         sample_batch.mask.permute(0, 2, 3, 1),
+                                         sample_batch.bpp, train=False)
+
+        def host(t):
+            return t.detach().float().cpu().numpy()
+
+        imgs = host(sample_batch.image.permute(0, 2, 3, 1))
+        masks = host(sample_batch.mask[:, 0])
+        bpps = host(sample_batch.bpp)
+        comp, alloc = host(out.blended), host(out.dynamic_threshold)
+        for i in range(len(imgs)):
+            plots.visualize_results(
+                imgs[i], masks[i], comp[i],
+                os.path.join(samples_dir, f"sample_{i + 1}_epoch_{epoch}_bpp_{bpps[i, 0]:.2f}.png"),
+                alloc[i])
+        self.rate_control_probe(sample_batch,
+                                os.path.join(self.cfg.results_dir, "rate_control_test.png"))
+        plots.plot_epoch_losses(
+            self.history, os.path.join(self.cfg.results_dir, f"loss_history_epoch_{epoch}.png"))
 
     def _check_finite(self, metrics: Dict[str, torch.Tensor]) -> None:
         values = {k: float(v) for k, v in metrics.items()}
@@ -255,25 +317,45 @@ class GANTrainer:
 
     def rate_control_probe(self, sample_batch: Batch, save_path: Optional[str] = None):
         """[(bpp, mean HQ ratio, d ratio / d bpp)] for bpp in (0.1, 1.0, 2.0)
-        on the first sample, codec in eval mode. The ratio depends on the
-        bpp through the blend threshold only, so the backward reaches
-        neither the quantizer (K3b) nor the generators, in either package."""
-        if save_path:
-            raise NotImplementedError(f"save_path (the bit-allocation plot): {_LATER}")
+        on the first sample, codec in eval mode; with save_path, the three
+        bit allocations beside the image (`visualize_bit_allocation_by_bpp`).
+        The ratio depends on the bpp through the blend threshold only, so
+        the backward reaches neither the quantizer (K3b) nor the generators,
+        in either package."""
         codec = self.state.codec
         img = sample_batch.image[:1].permute(0, 2, 3, 1)
         mask = sample_batch.mask[:1].permute(0, 2, 3, 1)
         results = []
+        allocations = {}
         for bpp in (0.1, 1.0, 2.0):
             b = torch.tensor(bpp, dtype=torch.float32, device=img.device, requires_grad=True)
             out = codec.apply(img, mask, b.reshape(1, 1).expand(img.shape[0], 1), train=False)
             ratio = torch.mean(out.dynamic_threshold)
             (grad,) = torch.autograd.grad(ratio, b)
             results.append((bpp, ratio.item(), grad.item()))
+            allocations[bpp] = out.dynamic_threshold[0].detach().float().cpu().numpy()
         self.log("Rate Control Gradient Test:")
         for bpp, ratio, grad in results:
             self.log(f"  BPP: {bpp}, HQ Ratio: {ratio:.4f}, Gradient: {grad:.6f}")
+        if save_path:
+            plots.visualize_bit_allocation_by_bpp(
+                img[0].detach().float().cpu().numpy(), allocations, save_path)
         return results
+
+
+def train_full_reference_flow(cfg: TrainConfig, dataset: CompressionDataset, mesh=None,
+                              log: Callable[[str], None] = print, device="cuda") -> GANTrainer:
+    """The reference main() flow: train cfg.epochs, then fine-tune
+    cfg.fine_tune_epochs at each bpp of cfg.bpp_range."""
+    if mesh is not None:
+        raise NotImplementedError(_MESHES)
+    trainer = GANTrainer(cfg, log_fn=log, device=device)
+    trainer.init_state()
+    trainer.fit(dataset)
+    for target_bpp in cfg.bpp_range:
+        log(f"Fine-tuning for target bitrate: {target_bpp} bpp...")
+        trainer.fit(dataset.with_target_bpp(float(target_bpp)), epochs=cfg.fine_tune_epochs)
+    return trainer
 
 
 def _map_tensors(tree, fn):

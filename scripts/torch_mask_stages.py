@@ -6,8 +6,9 @@ Copies csrc/fused_mask.cu, inserts a clock64() read by thread 0 of every
 block at each stage boundary of mask_cluster_kernel, builds that copy with
 nvcc into its own library (the port's library is not touched), and runs K1
 on 16 structured 256^2 images and K4 on 64 random 256^2 maps with the plan
-`ops/fused_mask.py::_mask_plan` gives, and K1 once more with clusters of 8
-blocks (32 rows each) in place of the plan's 6. It prints for each run the
+`ops/fused_mask.py::_mask_plan` gives, K1 once more with clusters of 8
+blocks (32 rows each) in place of the plan's 6, and K1's bf16 route (its
+own instantiation of the same kernel, so the same stage boundaries). It prints for each run the
 clusters the card holds at once (cudaOccupancyMaxActiveClusters), the
 call's time (CUDA events over 30 back-to-back launches), its error against
 the twin, and per stage the mean cycles of a block:
@@ -38,13 +39,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # (source text, clock slot): the clock is read right after the text
 MARKS = [
     ("  float m2 = 0.f;\n", 0),
-    ("        [&](int x) { return reflect101(x, W); }, [](float v) { return v * (1.0f / 255.0f); });\n"
-     "    __syncthreads();\n", 1),
+    ("                 [](float v) { return v * (1.0f / 255.0f); });\n    __syncthreads();\n", 1),
     ("    const float m1 = cluster_max(local_max, slots, warp_max, 0, cluster);\n", 3),
     ("    m2 = cluster_max(local_max, slots, warp_max, 1, cluster);\n", 4),
-    ("  __syncthreads();\n  // two vertically adjacent outputs per thread: the union of their disks is\n", 5),
+    ("  __syncthreads();\n  // two vertically adjacent outputs per thread (a pair of columns on the\n", 5),
     ("  // by a neighbour is done\n  cluster.sync();\n", 6),
-    ("      [](int x) { return x; }, [](float v) { return v; });\n  __syncthreads();\n", 7),
+    ("        [](int x) { return x; }, [](float v) { return v; });\n  __syncthreads();\n", 7),
     ("      b1[(size_t)y * S + C0 + x] = acc;\n    }\n  }\n  __syncthreads();\n", 8),
     ("  const float m3 = cluster_max(local_max, slots, warp_max, 2, cluster);\n", 10),
     ("  // no block leaves while another still reads its slots\n  cluster.sync();\n", 11),
@@ -103,7 +103,8 @@ def main():
         print(res.stdout[-4000:], file=sys.stderr)
         return 1
     lib = ctypes.CDLL(str(so))
-    for name in ("cic_contextual_mask_cluster", "cic_smooth_mask_cluster"):
+    for name in ("cic_contextual_mask_cluster", "cic_contextual_mask_cluster_bf16",
+                 "cic_smooth_mask_cluster"):
         getattr(lib, name).argtypes = ck._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
 
@@ -114,6 +115,7 @@ def main():
     sal = torch.rand(64, 256, 256, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
     up = fm._upsample_tables(dev, 64, 64, 256, 256)
     tap_w, gk, n_taps = fm._host_filter_tables(9, 75.0, 75.0, 31)
+    tap_b, gk_b, _ = fm._host_filter_tables(9, 75.0, 75.0, 31, True)  # the bf16 route's
     stream = ck.stream_ptr(dev)
     k1_plan = fm._mask_plan(256, 256, 6, 4, 31)
     k4_plan = fm._mask_plan(256, 256, 0, 4, 31)
@@ -122,11 +124,13 @@ def main():
     fm.CLUSTER_SIZES = sizes
     k1_out, k4_out = torch.empty_like(gray), torch.empty_like(sal)
 
-    def k1(k1_plan=k1_plan):
-        ck.check(lib.cic_contextual_mask_cluster(
+    def k1(k1_plan=k1_plan, bf16=False):
+        launch = lib.cic_contextual_mask_cluster_bf16 if bf16 else lib.cic_contextual_mask_cluster
+        taps, g = (tap_b, gk_b) if bf16 else (tap_w, gk)
+        ck.check(launch(
             gray.data_ptr(), spec.data_ptr(), 16, 256, 256, 64, 64, up[0].data_ptr(),
             up[1].data_ptr(), up[2].data_ptr(), up[3].data_ptr(), sum(1 << r for r in range(1, 7)),
-            6, 0.6, 0.4, 4, tap_w.ctypes.data, n_taps, gk.ctypes.data, 31,
+            6, 0.6, 0.4, 4, taps.ctypes.data, n_taps, g.ctypes.data, 31,
             *fm._cluster_args(k1_plan), k1_out.data_ptr(), stream), "K1 (instrumented)")
 
     def k4():
@@ -137,11 +141,14 @@ def main():
     k1_want = fm.contextual_mask_plain(gray, spec)
     runs = [("K1", k1, k1_plan, 16, k1_out, k1_want, list(range(SLOTS))),
             ("K1", lambda: k1(k1_plan8), k1_plan8, 16, k1_out, k1_want, list(range(SLOTS))),
+            ("K1 bf16", lambda: k1(bf16=True), k1_plan, 16, k1_out,
+             fm.contextual_mask_plain(gray, spec, compute_dtype=torch.bfloat16),
+             list(range(SLOTS))),
             ("K4", k4, k4_plan, 64, k4_out, fm.smooth_mask_plain(sal), [0, 5, 6, 7, 8, 9, 10, 11])]
     for name, fn, plan, batch, got, want, slots in runs:
         held = ctypes.c_int(0)
         ck.check(ck.library().cic_mask_max_clusters(
-            int(name == "K1"), 256, 256, 6 if name == "K1" else 0, 4, 31, *fm._cluster_args(plan),
+            int(name != "K4"), 256, 256, 0 if name == "K4" else 6, 4, 31, *fm._cluster_args(plan),
             ctypes.addressof(held)), "cic_mask_max_clusters")
         for _ in range(3):
             fn()
@@ -160,7 +167,7 @@ def main():
         blocks = batch * plan.cluster
         c = clk[:blocks * SLOTS].reshape(blocks, SLOTS)[:, slots].astype(np.float64)
         cycles = np.diff(c, axis=1).mean(0)
-        labels = K1_STAGES if name == "K1" else K1_STAGES[4:]
+        labels = K1_STAGES[4:] if name == "K4" else K1_STAGES
         print(f"{name} B={batch} 256x256, {plan.cluster} blocks x {plan.rows} rows per image "
               f"({held.value} such clusters at once): "
               f"{ms:.4f} ms a call, max |kernel - twin| {err:.2e}; a block's mean cycles "

@@ -166,3 +166,251 @@ def test_compute_contextual_mask_bf16_engine(wire):
     np.testing.assert_array_equal(got, want)
     f32 = tmasks.compute_contextual_mask(images, SaliencyConfig()).numpy()
     assert np.abs(got - f32).max() <= 5e-2
+
+
+# --- the card's bf16 route: a numpy emulation of its paired walk -----------
+#
+# csrc/fused_mask.cu's cluster route computes two horizontally adjacent
+# outputs a thread as one bf16x2 register. Its lanes round as scalars do, so
+# what can go wrong is which strip values each lane reads: the halo lanes and
+# straddled pairs of the box sums, the masked lane of an odd width, the
+# reflected-column pairs, the Gaussian's pairs, the thread loops' coverage
+# and the halo rows from neighbouring blocks. `_emulate_k1_bf16_cluster`
+# walks the kernel's indices as written (threads, warp tasks, lanes) with
+# numpy float32 values rounded to bf16 after each bf16 operation, and must
+# give the bf16 twin's mask bit for bit.
+
+def _rb(x):
+    """float32 -> bf16 (nearest even) -> float32."""
+    u = np.array(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _add(a, b):
+    return _rb(np.float32(a) + np.float32(b))
+
+
+def _mul(a, b):
+    return _rb(np.float32(a) * np.float32(b))
+
+
+def _sub(a, b):
+    return _rb(np.float32(a) - np.float32(b))
+
+
+def _chunk_add(terms):
+    """chunk_add2 over terms 0 .. n - 1: the total starts at 0."""
+    total, part = np.zeros_like(terms[0]), None
+    for i, t in enumerate(terms):
+        part = t if i % CHUNK == 0 else _add(part, t)
+        if i % CHUNK == CHUNK - 1 or i == len(terms) - 1:
+            total = _add(total, part)
+    return total
+
+
+def _reflect(i, n):
+    i = abs(i)
+    i = 2 * n - 2 - i if i >= n else i
+    return min(max(i, 0), n - 1)
+
+
+def _norm(x, m):
+    return x / np.float32(max(m, np.float32(1e-12))) if m > 0 else x
+
+
+def _pair_threads(n, w, rows_per_thread):
+    """The (first row, first column) a thread of the kernel's pair stages
+    takes: WP pairs of columns x YP rows, striding as the loops do."""
+    wp = min(512, ((w + 1) // 2 + 31) & ~31)
+    yp_n = 512 // wp
+    out = []
+    for tid in range(512):
+        if tid // wp >= yp_n:
+            continue
+        for y0 in range((tid // wp) * rows_per_thread, n, yp_n * rows_per_thread):
+            for x in range(2 * (tid % wp), w, 2 * wp):
+                out.append((y0, x))
+    return out
+
+
+def _emulate_k1_bf16_cluster(gray, spec, scales=(1, 2, 3, 4, 5, 6)):
+    """One image (H, W) through the cluster route's bf16 walk."""
+    from contextual_image_compression_tpu_torch.ops.fused_mask import (
+        _halo_rows, _mask_plan, upsample_taps)
+
+    h, w = gray.shape
+    rmax, rad, ks = max(scales), 4, 31
+    gpad = ks // 2
+    plan = _mask_plan(h, w, rmax, rad, ks)
+    assert plan.route == "cluster"
+    taps = [(dy, dx, bf16_value(sw), bf16_value(swc))
+            for dy, dx, sw, swc in tiops.bilateral_taps(9, 75.0, 75.0)]
+    gk = [bf16_value(v) for v in tiops.gaussian_kernel_1d(ks, 0.0)]
+    ranks = [(r, r * plan.rows, min(plan.rows, h - r * plan.rows)) for r in range(plan.cluster)]
+    g = _rb(gray * np.float32(1.0 / 255.0))
+
+    def staged(strips, halo, x_lo, x_hi, rank, fix, col0=None):
+        """Buffer 0 of block `rank`: its rows and `halo` rows each side from
+        the owning blocks' strips, columns x_lo .. x_hi - 1 at index x + col0
+        (default halo; reflected), zero where the stage does not stage."""
+        col0 = halo if col0 is None else col0
+        rows = _halo_rows(plan, h, rank, halo)
+        buf = np.zeros((len(rows) + 3, w + 2 * col0 + 2), np.float32)
+        for j, (yy, owner, row) in enumerate(rows):
+            assert yy == owner * plan.rows + row
+            for x in range(x_lo, x_hi):
+                buf[j, x + col0] = fix(strips[owner][row, _reflect(x, w)])
+        return buf
+
+    # stage 1: warp tasks of 32 lanes, a pair of columns a lane, hl halo
+    # lanes; g staged in columns -hw .. w + hw, a lane's pair at its even
+    # column, clamped into them
+    gstrips = [g[r0:r0 + n] for _, r0, n in ranks]
+    hl = (rmax + 1) // 2
+    hw = 2 * hl
+    span = 2 * (32 - 2 * hl)
+    nseg = -(-w // span)
+    lane = np.arange(32)
+    x = np.arange(nseg)[:, None] * span + 2 * (lane - hl)  # (nseg, 32)
+    ca = np.clip(x, -hw, (w + hw - 1) & ~1) + hw
+    cb = ca + 1
+    fine = []
+    for rank, _, n in ranks:
+        b0 = staged(gstrips, rmax, -hw, w + hw + 1, rank, lambda v: v, col0=hw)
+
+        def at(dy):
+            rows = b0[np.arange(n) + rmax + dy]
+            return np.stack([rows[:, ca], rows[:, cb]], -1)  # (n, nseg, 32, 2)
+
+        gp = at(0)
+        v, f = gp, np.zeros_like(gp)
+        for r in range(1, rmax + 1):
+            v = _add(_add(v, at(-r)), at(r))
+            if r not in scales:
+                continue
+            nb = {k: v[:, :, (lane + k) % 32] for k in range(-4, 5) if 2 * abs(k) <= r + 1}
+            terms = [np.stack([nb[dx // 2][..., 1], nb[dx // 2 + 1][..., 0]], -1) if dx % 2
+                     else nb[dx // 2] for dx in range(-r, r + 1)]
+            inv = _rb(np.float32(1.0) / np.float32((2 * r + 1) ** 2))
+            f = _add(f, np.abs(_sub(gp, _mul(_chunk_add(terms), inv))))
+        out = np.full((n, w), np.nan, np.float32)
+        valid = (lane >= hl) & (lane < 32 - hl) & (x < w)
+        for e in (0, 1):
+            ok = valid & (x + e < w)
+            cols = np.broadcast_to(x + e, f.shape[:3])[:, ok]
+            assert np.isnan(out[:, cols[0]]).all()  # each column once
+            out[:, cols[0]] = f[:, ok, e]
+        assert not np.isnan(out).any()
+        fine.append(out)
+    m1 = max(float(s.max()) for s in fine)
+
+    # stage 2: float32 a lane
+    ih, wh = upsample_taps(spec.shape[0], h)
+    iw, ww = upsample_taps(spec.shape[1], w)
+    i1 = np.minimum(ih + 1, spec.shape[0] - 1)
+    j1 = np.minimum(iw + 1, spec.shape[1] - 1)
+    a0, a1 = wh[:, :1], wh[:, 1:]
+    t0 = a0 * spec[ih][:, iw] + a1 * spec[i1][:, iw]
+    t1 = a0 * spec[ih][:, j1] + a1 * spec[i1][:, j1]
+    up = t0 * ww[:, 0] + t1 * ww[:, 1]
+    comb = np.float32(0.6) * up + np.float32(0.4) * _norm(np.concatenate(fine), m1)
+    m2 = float(comb.max())
+    cstrips = [comb[r0:r0 + n] for _, r0, n in ranks]
+
+    # stage 3: two rows x a pair of columns a thread; the union of the two
+    # disks in (dy, dx) order gives each row the twin's tap order
+    t0 = t1 = 0
+    for dy in range(-rad, rad + 2):
+        for dx in range(-rad, rad + 1):
+            if dy <= rad and dy * dy + dx * dx <= rad * rad:
+                assert taps[t0][:2] == (dy, dx)
+                t0 += 1
+            if dy > -rad and (dy - 1) ** 2 + dx * dx <= rad * rad:
+                assert taps[t1][:2] == (dy - 1, dx)
+                t1 += 1
+    bil = []
+    for rank, _, n in ranks:
+        b0 = staged(cstrips, rad, -rad, w + rad, rank, lambda v: _rb(_norm(v, m2)))
+        out = np.full((n, w), np.nan, np.float32)
+        for y0, x in _pair_threads(n, w, 2):
+            for y in (y0, y0 + 1)[:2 if y0 + 1 < n else 1]:
+                c = b0[y + rad, [x + rad, x + 1 + rad]]
+                pn = pd = num = den = None
+                sums = []
+                for t, (dy, dx, sw, swc) in enumerate(taps):
+                    sh = b0[y + rad + dy, [x + dx + rad, x + dx + 1 + rad]]
+                    diff = _sub(sh, c)
+                    wgt = _add(np.float32(sw), _mul(np.float32(swc), _mul(diff, diff)))
+                    sums.append((_mul(wgt, sh), wgt))
+                num = _chunk_add([s[0] for s in sums])
+                den = _chunk_add([s[1] for s in sums])
+                ratio = _rb(num / np.maximum(den, np.float32(1e-20)))
+                for e in (0, 1):
+                    if x + e < w:
+                        assert np.isnan(out[y, x + e])
+                        out[y, x + e] = ratio[e]
+        assert not np.isnan(out).any()
+        bil.append(out)
+
+    # stage 4: four rows x a pair a thread, then the reflected-column pairs
+    rstrips = []
+    for rank, _, n in ranks:
+        b0 = staged(bil, gpad, 0, w, rank, lambda v: v)
+        # column x at x + gpad; the last group of stage 5 reads past the
+        # reflected columns (the kernel, into the next row) for outputs it
+        # does not store
+        out = np.full((n, w + 2 * gpad + 8), np.nan, np.float32)
+        for y0, x in _pair_threads(n, w, 4):
+            for o in range(4):
+                if y0 + o < n:
+                    terms = [_mul(np.float32(gk[i]), b0[y0 + o + i, [x + gpad, x + 1 + gpad]])
+                             for i in range(ks)]
+                    s = _chunk_add(terms)
+                    for e in (0, 1):
+                        if x + e < w:
+                            assert np.isnan(out[y0 + o, x + e + gpad])
+                            out[y0 + o, x + e + gpad] = s[e]
+        for i in range(n * gpad):
+            y, k = i // gpad, 2 * (i % gpad)
+            xa = k - gpad if k < gpad else w + k - gpad
+            xb = k + 1 - gpad if k + 1 < gpad else w + k + 1 - gpad
+            src = [_reflect(xa, w) + gpad, _reflect(xb, w) + gpad]
+            s = _chunk_add([_mul(np.float32(gk[t]), b0[y + t, src]) for t in range(ks)])
+            for xx, val in ((xa, s[0]), (xb, s[1])):
+                assert np.isnan(out[y, xx + gpad])
+                out[y, xx + gpad] = val
+        assert not np.isnan(out[:, :w + 2 * gpad]).any()
+        rstrips.append(np.nan_to_num(out))
+
+    # stage 5: four columns a thread as two pairs; pair o's tap t is the pair
+    # (row[t + 2o], row[t + 2o + 1])
+    final = []
+    for (rank, _, n), b1 in zip(ranks, rstrips):
+        out = np.full((n, w), np.nan, np.float32)
+        for x0 in range(0, w, 4):
+            q = [b1[:, [x0 + t, x0 + t + 1]] for t in range(ks + 2)]  # row[t] = b1[x0 - gpad + t]
+            for o in range(2):
+                s = _chunk_add([_mul(np.float32(gk[t]), q[t + 2 * o]) for t in range(ks)])
+                for e in (0, 1):
+                    if x0 + 2 * o + e < w:
+                        out[:, x0 + 2 * o + e] = s[:, e]
+        final.append(out)
+    out = np.concatenate(final)
+    assert not np.isnan(out).any()
+    return _norm(out, float(out.max()))
+
+
+@pytest.mark.parametrize("shape", [(40, 61), (36, 64)])
+def test_card_bf16_pair_walk_is_the_twin(shape):
+    """The cluster route's paired bf16 walk, emulated lane by lane (odd
+    width 61: the last pair's right lane masked, two box-sum warp tasks a
+    row; 36 rows: blocks of 6 rows whose halos span several blocks), equals
+    the bf16 twin bit for bit."""
+    h, w = shape
+    rng = np.random.RandomState(h * w)
+    gray = (rng.rand(h, w) * 255).astype(np.float32)
+    spec = rng.rand(16, 16).astype(np.float32)
+    got = _emulate_k1_bf16_cluster(gray, spec)
+    want = _twin(gray[None], spec[None])[0]
+    np.testing.assert_array_equal(got, want)

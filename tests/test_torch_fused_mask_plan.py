@@ -103,6 +103,31 @@ def test_kernel_checks_the_plans_layout():
     assert "CL_MAX_CLUSTER = 8" in src
 
 
+@pytest.mark.parametrize("hw", [(256, 256), (255, 255), (40, 61), (48, 63), (300, 300),
+                                (20, 17)])
+@pytest.mark.parametrize("filters", [K1_FILTERS, (3, 2, 15)], ids=["default", "small"])
+def test_bf16_strips_fit_the_float32_plan(hw, filters):
+    """K1's bf16 route keeps its bilateral and Gaussian strips in bf16 inside
+    the float32 route's buffers, so one plan serves both routes: a bf16 row
+    of Sb values (Sb / 2 odd, column x at the even Cb + x) fits in a float32
+    row, with the reflected columns, g's even halo columns and the Gaussian
+    columns' reads past the last column inside it. The kernel's formulas, read from its source."""
+    src = (cuda_kernels.CSRC_DIR / "fused_mask.cu").read_text()
+    assert "const int Cb = (C0 + 1) & ~1;" in src
+    assert "const int Sb = 2 * (((W + 2 * Cb + 6) / 2) | 1);" in src
+    h, w = hw
+    plan = _mask_plan(h, w, *filters)
+    assert plan.route == "cluster"
+    gpad = filters[2] // 2
+    cb = (plan.halo + 1) & ~1
+    sb = 2 * (((w + 2 * cb + 6) // 2) | 1)
+    assert (sb // 2) % 2 == 1 and cb % 2 == 0 and cb >= plan.halo
+    assert 2 * sb <= 4 * plan.stride
+    assert cb + w + gpad + 3 <= sb  # the last group's reads of stage 5, in its row
+    hw = (filters[0] + 1) & ~1  # g's halo columns on the bf16 route
+    assert cb >= hw and cb + w + hw + 1 <= sb
+
+
 def _quant_inputs(dtype, shape_1d=False, seed=5):
     rng = np.random.RandomState(seed)
     z = torch.from_numpy((rng.randn(16, 512) * 2).astype(np.float32)).to(dtype)

@@ -2,7 +2,8 @@
 the cases chip_smoke.py does not run: ragged sizes, B = 1, K1 and K4 on the
 cluster route with halos that span several blocks, a height that is not a
 multiple of the cluster, other filter sizes, and on the tiled route, K1's
-bf16 route at B = 1, 4 and 16 on 64^2, 256^2 and 336^2 (tiled), K3 and
+bf16 route at B = 1, 4 and 16 on 64^2, 256^2 and 336^2 (tiled) and at odd
+widths on both routes, K3 and
 K3b with score and strength in bf16 (B, 1) and float32 (B,), K2's backward,
 K2 and K6 in bf16 at every key width (DK 4..64) and value width, N from 1 to
 1024 at B = 1 and 3, on unaligned inputs and with every row's max in the last
@@ -175,6 +176,36 @@ def test_k1_bf16_matches_twin(dev, b, size):
     assert torch.equal(got, want)
     assert torch.equal(got, call())
     assert (got - contextual_mask(gray, spec)).abs().max().item() <= 5e-2
+
+
+@pytest.mark.parametrize("shape,route", [
+    ((2, 255, 255), "cluster_bf16"), ((3, 40, 61), "cluster_bf16"), ((1, 48, 64), "cluster_bf16"),
+    ((2, 337, 341), "tiled_bf16"), ((1, 360, 365), "tiled_bf16")],
+    ids=["odd-255", "odd-40x61", "halo-spans-ranks-48x64", "tiled-odd-337x341",
+         "tiled-odd-360x365"])
+def test_k1_bf16_pairs_at_odd_widths_match_twin(dev, shape, route):
+    """K1's bf16 route computes two adjacent columns a thread: at an odd
+    width the last pair's right lane is masked (computed, never written),
+    on the cluster route (warp tasks of 52 box-sum columns, so 255 and 61
+    end inside a task; 48 rows: halos from blocks up to 2 away) and on the
+    tiled route (the last 32-wide tile ragged and odd). Bit-identical to the
+    bf16 twin."""
+    gray, spec = _k1_inputs(dev, *shape)
+    call = lambda: contextual_mask(gray, spec, compute_dtype=torch.bfloat16)  # noqa: E731
+    got, taken = _route_of(contextual_mask, call)
+    assert taken == route
+    assert torch.equal(got, contextual_mask_plain(gray, spec, compute_dtype=torch.bfloat16))
+
+
+def test_k1_bf16_other_filter_sizes_match_twin(dev):
+    """The bf16 cluster kernel's generic instantiation (scales (1, 3),
+    d = 5, ksize 15: runtime loops, odd radius 3 so the box's halo lanes
+    cover 2 pairs) at an odd width: bit-identical to the bf16 twin."""
+    kw = dict(scales=(1, 3), d=5, gauss_ksize=15, compute_dtype=torch.bfloat16)
+    gray, spec = _k1_inputs(dev, 2, 48, 63)
+    got, route = _route_of(contextual_mask, lambda: contextual_mask(gray, spec, **kw))
+    assert route == "cluster_bf16"
+    assert torch.equal(got, contextual_mask_plain(gray, spec, **kw))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -42,7 +42,7 @@ from contextual_image_compression_tpu_torch.ops.quantize import (
     adaptive_quantize_bwd,
 )
 from contextual_image_compression_tpu_torch.train.gan_trainer import Batch, GANStepBuilder
-from contextual_image_compression_tpu_torch.train.loop import GANTrainer
+from contextual_image_compression_tpu_torch.train.loop import GANTrainer, train_full_reference_flow
 
 TINY_KW = dict(
     img_size=(32, 32), base_latent_dim=16, encoder_channels=(8, 16, 24, 32),
@@ -312,8 +312,9 @@ def test_rate_control_probe_matches_jax(tmp_path):
 
 def test_fit_runs_and_refuses_what_waits(tmp_path):
     """fit alternates the D / no-D steps, fills the history and writes the
-    final checkpoint; artifacts raise instead of being skipped quietly.
-    init_state() with nothing in model_dir starts fresh."""
+    final checkpoint; meshes raise instead of being skipped quietly; the
+    probe writes its figure at save_path. init_state() with nothing in
+    model_dir starts fresh."""
     cfg = TrainConfig(model=TTINY, batch_size=4, use_perceptual=False, epochs=1,
                       model_dir=str(tmp_path))
     imgs = timages.synthetic_images(8, (32, 32), seed=1)
@@ -323,11 +324,11 @@ def test_fit_runs_and_refuses_what_waits(tmp_path):
     trainer = GANTrainer(cfg, device="cpu", log_fn=logs.append)
     assert trainer.init_state().step == 0 and trainer.start_epoch == 0
     with pytest.raises(NotImplementedError):
-        trainer.fit(ds)
+        train_full_reference_flow(cfg, ds, mesh=object(), device="cpu")
     hist = trainer.fit(ds, steps_per_epoch=3, artifacts=False)
     assert trainer.state.step == 3
     assert all(len(hist[k]) == 1 and np.isfinite(hist[k][0]) for k in hist)
     assert logs[-1].startswith("Epoch 1:")
     assert (tmp_path / "optimizers_final.msgpack").exists()
-    with pytest.raises(NotImplementedError):
-        trainer.rate_control_probe(ds.first_samples(), save_path="probe.png")
+    trainer.rate_control_probe(ds.first_samples(), save_path=str(tmp_path / "probe.png"))
+    assert (tmp_path / "probe.png").stat().st_size > 0
