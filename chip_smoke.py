@@ -182,6 +182,40 @@ The user entry points add two phases at the end:
    must be finite, and without matplotlib the shootout's plot raises after
    its JSON is written.
 
+The options slice adds phase (g) after (f), each part's launches counted
+from 0 (its columns of the kernels line):
+
+(g1) bf16 parameters: TrainConfig() with ModelConfig(dtype='bfloat16',
+   param_dtype='bfloat16'), B = 16, random VGG19: masks of 32 images (K1
+   +1), an inference forward, a step with D and one without (K2 +3 on
+   "wgmma", K3 +6, K3b +4); parameters and Adam moments bf16, BatchNorm
+   statistics float32 (JAX's dtypes), moved and finite; the 'final' save
+   resumed bitwise by a fresh trainer; step times;
+(g2) dense_w8 in training: TrainConfig() float32 with dense_w8 and
+   bn_mode 'frozen' (the JAX codec quantizes the projections at trace time
+   outside batch statistics), from the CPU tests' draws of BatchNorm
+   statistics, scales, biases and gamma (at the seeded init every quantized
+   latent is 0, measured by an inference forward before and after the
+   draws), two steps (K1 +1, K2 +4 on "tf32x3", K3 +8, K3b +4 with the two
+   forwards); each w8 kernel's gradient only at its rows' arg-max entries,
+   and each kernel moved, only there;
+(g3) the use_pallas=False routes, each beside its kernel route on the same
+   inputs and timed with it: serving at B = 16 with attention_use_pallas and
+   QuantizerConfig.use_pallas False (K1 +1 a call, no K2 or K3; decoded
+   PSNR >= 40 dB against the kernel route, symbols within +-1 and >= 95%
+   identical), masks of 128 images with mask_use_pallas=False for the three
+   methods (no K1 or K4; within 1e-4 of K1 / K4) and the DCT round trip at
+   B = 128 with use_pallas=False (no K5; symbols within +-1 and >= 99.99%
+   identical, reconstruction within 1e-4);
+(g4) the slice's CLIs: scripts/torch_profile_codec.py --batch 16 (K1, K2
+   on "wgmma" and K3 at exact counts: none in its attention_xla row),
+   torch_layer_microbench.py --batch 16 (no kernel of the port),
+   torch_compare_rd.py on evaluation phase (c)'s RD CSV against itself
+   (deltas +0.00 dB; --plot raises naming matplotlib where it does not
+   import) and torch_convert_vgg_weights.py on a synthetic VGG19 state dict
+   (the .npz loaded back by load_vgg19_features; an .h5 raises naming h5py
+   where it does not import).
+
 K1's bf16 launches are counted apart (`launch_counts()`: 'K1' float32,
 'K1bf16' bf16) and K1bf16 has its own line in the kernels JSON.
 
@@ -195,10 +229,13 @@ printed. Without CUDA, or without the port package beside it, it exits 1.
 """
 
 import copy
+import dataclasses
+import itertools
 import json
 import math
 import os
 import pathlib
+import re
 import runpy
 import shutil
 import sys
@@ -2531,7 +2568,7 @@ def run_evaluation(dev, card):
     says), each call timed; the launch counts (K1 bf16 +1, per codec forward
     K2 +1 on "tf32x3" and K3 +2). Then the JAX-trained tiny GAN through the
     same evaluator at 1.0 bpp, card against the CPU port within EVAL_BARS.
-    Returns the launch counts of the full-width run."""
+    Returns the launch counts of the full-width run and its RD CSV's text."""
     from contextual_image_compression_tpu_torch import convert, ops
     from contextual_image_compression_tpu_torch.checkpoint import CheckpointStore
     from contextual_image_compression_tpu_torch.config import (
@@ -2593,6 +2630,7 @@ def run_evaluation(dev, card):
             plots.write_rate_distortion_csv(results["avg_metrics"], results_dir)
         files = sorted(os.path.relpath(os.path.join(d, f), results_dir)
                        for d, _, fs in os.walk(results_dir) for f in fs)
+        rd_csv = pathlib.Path(results_dir, "rate_distortion_data.csv").read_text()
     forwards = len(cfg.bpp_values) + cfg.rate_control_bpps
     if sorted(provenance.values()) != ["final"] * 7:
         raise AssertionError(f"provenance {provenance}")
@@ -2648,7 +2686,7 @@ def run_evaluation(dev, card):
         f"{float(rows[str(dev)]['psnr'].mean()):.4f} dB")
     if not all(diffs[k] <= bar for k, bar in EVAL_BARS.items()):
         raise AssertionError(f"tiny GAN evaluation, card vs CPU: {diffs}")
-    return counts
+    return counts, rd_csv
 
 
 def run_autoencoder_evaluation(dev, card):
@@ -2907,6 +2945,482 @@ def run_cli_paths(dev, card, model_dir):
     return paths
 
 
+# ----------------------------------------------------------------- phase (g)
+# The JAX package's options (use_pallas=False, bf16 parameters, dense_w8 in
+# training) and the tool CLIs (the module docstring, "The options slice").
+
+BF16_PARAMS = dict(dtype="bfloat16", param_dtype="bfloat16")
+W8_LAYERS = ("hq_encoder.latent_dense.weight", "lq_encoder.latent_dense.weight",
+             "hq_generator.fc.weight", "lq_generator.fc.weight")
+
+
+def _two_steps(trainer, ds):
+    """A step with D, then one without, on the dataset's first two batches;
+    returns their metrics as floats."""
+    it = ds.epoch()
+    metrics = []
+    for do_d in (True, False):
+        _, m = trainer.builder.train_step(trainer.state, next(it), do_d)
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    return metrics
+
+
+def _training_data(cfg, dev, seed):
+    from contextual_image_compression_tpu_torch.data.images import synthetic_images
+    from contextual_image_compression_tpu_torch.data.pipeline import (
+        CompressionDataset, prepare_masks)
+
+    imgs = synthetic_images(32, cfg.model.img_size, seed=seed)
+    masks = prepare_masks(imgs, cfg.saliency, device=dev)
+    return CompressionDataset(imgs, masks, batch_size=cfg.batch_size, seed=cfg.seed,
+                              device_resident=True, device=dev)
+
+
+def run_bf16_param_training(dev, card, model_dir):
+    """Phase (g1): ModelConfig(dtype='bfloat16', param_dtype='bfloat16') at
+    B = 16 with random VGG19: masks of 32 images through K1, an inference
+    forward, a step with D and one without, then a 'final' save resumed
+    bitwise by a fresh trainer. Fails unless the parameters and Adam moments
+    are bf16 and the BatchNorm statistics float32 (as the JAX trainer keeps
+    them), the parameters and statistics moved, every metric is finite, and
+    the launches are K1 +1, K2 +3 ("wgmma"), K3 +6, K3b +4. Then times steps
+    with and without D. Returns the path's launch counts."""
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.config import ModelConfig, TrainConfig
+    from contextual_image_compression_tpu_torch.train.loop import GANTrainer
+    from contextual_image_compression_tpu_torch.utils.tree import param_bytes
+
+    cfg = TrainConfig(model=ModelConfig(**BF16_PARAMS), vgg_weights_path="random:0",
+                      model_dir=model_dir)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ds = _training_data(cfg, dev, seed=4)
+    trainer = GANTrainer(cfg, device=dev, log_fn=log)
+    state = trainer.init_state(resume=False)
+    params = [p for m in (state.codec, state.disc) for p in m.parameters()]
+    stats = [b for b in state.codec.buffers() if b.is_floating_point()]
+    if {p.dtype for p in params} != {torch.bfloat16} or {b.dtype for b in stats} != {
+            torch.float32}:
+        raise AssertionError("bf16-parameter codec: parameters or BN statistics of other dtypes")
+    before = [p.detach().clone() for p in params]
+    stats_before = state.codec.hq_generator.bn0.running_mean.clone()
+    batch = next(ds.epoch())
+    with torch.no_grad():
+        out = state.codec.apply(batch.image.permute(0, 2, 3, 1), batch.mask.permute(0, 2, 3, 1),
+                                batch.bpp)
+    if out.blended.dtype != torch.bfloat16 or not bool(torch.isfinite(out.blended).all()):
+        raise AssertionError("bf16-parameter forward: blended image not finite bf16")
+    t0 = time.perf_counter()
+    metrics = _two_steps(trainer, ds)
+    t_steps = time.perf_counter() - t0
+    counts = launch_counts()
+    want = expect(K1=1, K2=3, K3=6, K3b=4)
+    if counts != want:
+        raise AssertionError(f"bf16-parameter training launches {counts}, want {want}")
+    check_cluster_route("bf16-parameter training")
+    check_attention_route("bf16-parameter training", "wgmma")
+    moments = [v for o in (state.g_opt, state.ls_opt, state.rd_opt, state.d_opt)
+               for st in o.adam.state.values() for k, v in st.items() if k != "step"]
+    moved = sum(not torch.equal(a, p) for a, p in zip(before, params))
+    bad = [k for m in metrics for k, v in m.items() if not math.isfinite(v)]
+    if ({t.dtype for t in moments} != {torch.bfloat16} or moved < 0.5 * len(params)
+            or torch.equal(stats_before, state.codec.hq_generator.bn0.running_mean) or bad
+            or not all(bool(torch.isfinite(p).all()) for p in params)):
+        raise AssertionError(f"bf16-parameter training: moment dtypes {set(t.dtype for t in moments)}, "
+                             f"{moved} of {len(params)} parameter tensors moved, non-finite {bad}")
+    need = param_bytes(state.codec) + param_bytes(state.disc) * 3 + 2 * param_bytes(state.codec)
+    if shutil.disk_usage(model_dir).free < 2 * need:
+        raise AssertionError(f"the bf16 train state needs ~{need / 1e9:.2f} GB")
+    t0 = time.perf_counter()
+    trainer.save("final", blocking=True)
+    t_save = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(model_dir, f)) for f in os.listdir(model_dir))
+    t0 = time.perf_counter()
+    restored = GANTrainer(cfg, device=dev, log_fn=lambda msg: None).init_state(resume=True)
+    torch.cuda.synchronize()
+    t_resume = time.perf_counter() - t0
+    differ = _states_equal(state, restored)
+    if differ:
+        raise AssertionError(f"the resumed bf16 train state differs: {differ[:10]}")
+    del restored
+    peak = torch.cuda.max_memory_allocated()
+    md, mnd = _step_ms(trainer, ds, steps=4)
+    log(f"bf16-parameter GAN training on {card} (TrainConfig() with ModelConfig(dtype="
+        f"'bfloat16', param_dtype='bfloat16'), B = {cfg.batch_size}, random VGG19): parameters "
+        f"and Adam moments bf16, BN statistics float32; the two counted steps {t_steps:.2f} s "
+        f"(cuDNN's autotuning in the first); 'final' {nbytes / 1e9:.2f} GB saved in {t_save:.2f} "
+        f"s and resumed bitwise in {t_resume:.2f} s; step with D {md * 1e3:.2f} ms, without D "
+        f"{mnd * 1e3:.2f} ms (median of 2 each, CUDA-synchronized host clock); peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; metrics {metrics}; launches {counts}")
+    return counts
+
+
+def _perturb_codec(codec, gen):
+    """Draw the codec's BatchNorm statistics and scales, every bias and the
+    SAGAN gammas as the CPU tests' `perturb_variables` draws them (means
+    0.1 N(0, 1), variances and scales U(0.75, 1.25), biases 0.05 N(0, 1),
+    gamma 0.5), in place, so the optimizers keep their parameters."""
+    from contextual_image_compression_tpu_torch.models.layers import KBatchNorm
+
+    def draw(t, kind):
+        if kind == "normal":
+            return torch.randn(t.shape, generator=gen, device=t.device, dtype=t.dtype)
+        return torch.rand(t.shape, generator=gen, device=t.device, dtype=t.dtype)
+
+    with torch.no_grad():
+        for mod in codec.modules():
+            if isinstance(mod, KBatchNorm):
+                mod.weight.copy_(draw(mod.weight, "uniform") * 0.5 + 0.75)
+                mod.running_mean.copy_(draw(mod.running_mean, "normal") * 0.1)
+                mod.running_var.copy_(draw(mod.running_var, "uniform") * 0.5 + 0.75)
+        for name, p in codec.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "gamma":
+                p.fill_(0.5)
+            elif leaf == "bias":
+                p.copy_(draw(p, "normal") * 0.05)
+
+
+def _nonzero_symbols(codec, batch):
+    """The share of nonzero quantized latents (HQ, LQ) of an inference
+    forward on the batch: where all are 0, the quantizer's scale path gives
+    no gradient and the generators' fc layers see a zero input."""
+    with torch.no_grad():
+        out = codec.apply(batch.image.permute(0, 2, 3, 1), batch.mask.permute(0, 2, 3, 1),
+                          batch.bpp)
+    return tuple(float((z != 0).float().mean()) for z in (out.hq_latent_q, out.lq_latent_q))
+
+
+def run_dense_w8_training(dev, card):
+    """Phase (g2): TrainConfig() in float32 with dense_w8 and BatchNorm on its
+    running statistics (bn_mode 'frozen': the JAX codec quantizes the latent
+    and fc projections at trace time only outside batch statistics),
+    random VGG19: masks through K1, a step with D and one without. At the
+    seeded init every quantized latent is 0 (the share is measured and
+    logged, an inference forward before the draws and one after), which
+    gives the w8 kernels no gradient, so the codec starts from
+    `_perturb_codec`'s draws, as the CPU tests' codecs do. Fails unless
+    the launches are K1 +1, K2 +4 ("tf32x3"), K3 +8, K3b +4, every
+    metric is finite, some latent is nonzero, in each step each w8 kernel's
+    gradient is nonzero only at the arg-max |w| entries of its rows (it
+    reaches them through the scale row alone), and every w8 kernel moved,
+    only at entries that were a row's arg-max at the start of a step.
+    Returns the launch counts of the steps."""
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.config import ModelConfig, TrainConfig
+    from contextual_image_compression_tpu_torch.train.loop import GANTrainer
+
+    cfg = TrainConfig(model=ModelConfig(dense_w8=True), vgg_weights_path="random:0")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ds = _training_data(cfg, dev, seed=5)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = GANTrainer(dataclasses.replace(cfg, model_dir=tmp), bn_mode="frozen",
+                             device=dev, log_fn=log)
+    state = trainer.init_state(resume=False)
+    layers = {k: state.codec.get_submodule(k.rsplit(".", 1)[0]) for k in W8_LAYERS}
+    batches = list(itertools.islice(ds.epoch(), 2))
+    at_init = _nonzero_symbols(state.codec, batches[0])
+    _perturb_codec(state.codec, torch.Generator(device=dev).manual_seed(11))
+    perturbed = _nonzero_symbols(state.codec, batches[0])
+    if not max(perturbed) > 0:
+        raise AssertionError(f"dense_w8 training: every latent symbol is 0 after the draws")
+
+    def arg_max(layer):
+        w = layer.weight.detach().abs()
+        return w == w.amax(dim=1, keepdim=True)
+
+    def support(name, layer, where):
+        nonzero = layer.weight.grad != 0
+        if bool((nonzero & ~where).any()):
+            raise AssertionError(f"{name}: a w8 kernel's gradient off its rows' arg-max entries")
+        return int(nonzero.sum()), float(layer.weight.grad.abs().max())
+
+    start = {k: layer.weight.detach().clone() for k, layer in layers.items()}
+    allowed = {k: torch.zeros_like(w, dtype=torch.bool) for k, w in start.items()}
+    metrics, grads = [], []
+    t0 = time.perf_counter()
+    for do_d, batch in zip((True, False), batches):
+        where = {k: arg_max(layer) for k, layer in layers.items()}
+        _, m = trainer.builder.train_step(state, batch, do_d)
+        metrics.append({k: float(v) for k, v in m.items()})
+        grads.append({k.split(".")[0]: support(k, layer, where[k]) for k, layer in layers.items()})
+        for k in W8_LAYERS:
+            allowed[k] |= where[k]
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0
+    counts = launch_counts()
+    want = expect(K1=1, K2=4, K3=8, K3b=4)
+    if counts != want:
+        raise AssertionError(f"dense_w8 training launches {counts}, want {want}")
+    check_cluster_route("dense_w8 training")
+    check_attention_route("dense_w8 training", "tf32x3")
+    moved = {}
+    for k, layer in layers.items():
+        changed = layer.weight.detach() != start[k]
+        if bool((changed & ~allowed[k]).any()):
+            raise AssertionError(f"{k}: a w8 kernel moved off its rows' arg-max entries")
+        moved[k.split(".")[0]] = (int(changed.any(dim=1).sum()), int(changed.shape[0]))
+    if not all(rows > 0 for rows, _ in moved.values()):
+        raise AssertionError(f"dense_w8 training: a w8 kernel did not move: rows moved {moved}, "
+                             f"(entries, max |g|) per step {grads}")
+    bad = [k for m in metrics for k, v in m.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"dense_w8 training: non-finite metrics {bad}")
+    log(f"dense_w8 GAN training on {card} (TrainConfig() float32, dense_w8, bn_mode 'frozen', "
+        f"random VGG19): nonzero quantized latents (HQ, LQ) {at_init} at the seeded init, "
+        f"{perturbed} from the tests' draws of BN statistics, scales, biases and gamma; two "
+        f"steps {t_steps:.2f} s; the w8 kernels' gradients only at their rows' arg-max "
+        f"entries, (entries, max |g|) per step {grads}; (rows moved, rows) {moved}, only at "
+        f"arg-max entries; metrics {metrics}; launches {counts}")
+    return counts
+
+
+def _psnr_u8(a, b):
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+
+def run_use_pallas_false(dev, card):
+    """Phase (g3): the use_pallas=False routes at full width, each run first
+    with the launch counts at 0 (its column of the kernels line), then its
+    kernel route on the same inputs for the bars and the times (not
+    counted): serving at B = 16 with attention_use_pallas=False and
+    QuantizerConfig(use_pallas=False) (K1 +1 a call, no K2 or K3; decoded
+    PSNR >= 40 dB against the kernel route, symbols within +-1 and >= 95%
+    identical), masks of 128 images with mask_use_pallas=False for the
+    three methods (no K1 or K4; within 1e-4 of the kernel routes) and the
+    DCT round trip at B = 128 with use_pallas=False (no K5; symbols within
+    +-1 and >= 99.99% identical, reconstruction within 1e-4). Returns the
+    three routes' launch counts."""
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.config import (
+        DCTCodecConfig, ModelConfig, QuantizerConfig, SaliencyConfig)
+    from contextual_image_compression_tpu_torch.data.images import (
+        rich_synthetic_images, synthetic_images)
+    from contextual_image_compression_tpu_torch.data.pipeline import prepare_masks
+    from contextual_image_compression_tpu_torch.measure import randomize_stats, structured_images
+    from contextual_image_compression_tpu_torch.ops.dct import DCTCodec
+    from contextual_image_compression_tpu_torch.serve import CompressionPipeline
+
+    paths = {}
+    u8 = structured_images(np.random.RandomState(2), 16, 256)
+    routes = {}
+    for name, mcfg in (("jnp", ModelConfig(attention_use_pallas=False,
+                                           quantizer=QuantizerConfig(use_pallas=False))),
+                       ("kernels", ModelConfig())):
+        pipe = CompressionPipeline(model_config=mcfg, device=dev, seed=0)
+        randomize_stats(pipe.codec, 0)
+        pipe(u8, target_bpp=1.0)  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        dec, info = pipe(u8, target_bpp=1.0)
+        if name == "jnp":
+            paths["no_pallas_serving"] = launch_counts()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pipe(u8, target_bpp=1.0)
+            times.append(time.perf_counter() - t0)
+        routes[name] = (dec, info["hq_symbols"].cpu().numpy(), info["lq_symbols"].cpu().numpy(),
+                        float(np.median(times)))
+        del pipe
+    if paths["no_pallas_serving"] != expect(K1=1):
+        raise AssertionError(f"use_pallas=False serving launches {paths['no_pallas_serving']}")
+    psnr = _psnr_u8(routes["jnp"][0], routes["kernels"][0])
+    sym = [np.abs(routes["jnp"][i] - routes["kernels"][i]) for i in (1, 2)]
+    same = float(np.mean(np.concatenate([s.ravel() for s in sym]) == 0))
+    log(f"use_pallas=False serving at full width on {card} (B = 16, bf16, w8, int8 tail; the "
+        f"attention block and the quantizer by JAX's jnp formulas): {routes['jnp'][3] * 1e3:.2f} "
+        f"ms/call against the kernel route's {routes['kernels'][3] * 1e3:.2f} (median of 3, host "
+        f"clock, u8 in / out); decoded PSNR against the kernel route {psnr:.2f} dB (bar 40), "
+        f"symbols within {max(float(s.max()) for s in sym):.0f} (bar 1), {same * 100:.3f}% "
+        f"identical (bar 95%); launches {paths['no_pallas_serving']}")
+    if not (psnr >= 40 and max(float(s.max()) for s in sym) <= 1 and same >= 0.95):
+        raise AssertionError("use_pallas=False serving misses the kernel route's bars")
+
+    n, batch = 128, 64
+    imgs = rich_synthetic_images(n, (256, 256), seed=61)
+    mask_counts = {k: 0 for k in expect()}
+    for method in ("combined", "spectral_residual", "fine_grained"):
+        outs, secs = {}, {}
+        for name, flag in (("jnp", False), ("kernels", True)):
+            cfg = SaliencyConfig(method=method, mask_use_pallas=flag)
+            prepare_masks(imgs[:batch], cfg, device_batch=batch, device=dev)  # warm-up
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs[name] = prepare_masks(imgs, cfg, device_batch=batch, device=dev)
+            secs[name] = time.perf_counter() - t0
+            if name == "jnp":
+                mask_counts = {k: mask_counts[k] + v for k, v in launch_counts().items()}
+        err = float(np.abs(outs["jnp"] - outs["kernels"]).max())
+        log(f"mask_use_pallas=False masks ({method}) of {n} images at 256^2 on {card}: "
+            f"{secs['jnp'] * 1e3 / n:.4f} ms/image against the kernel route's "
+            f"{secs['kernels'] * 1e3 / n:.4f} (host clock, batches of {batch}, numpy in / out); "
+            f"max |jnp - kernel| {err:.3e} (bar 1e-4)")
+        if not (err <= 1e-4 and outs["jnp"].shape == (n, 256, 256, 1)):
+            raise AssertionError(f"mask_use_pallas=False {method} masks: {err}")
+    paths["no_pallas_masks"] = mask_counts
+    if mask_counts != expect():
+        raise AssertionError(f"mask_use_pallas=False launches {mask_counts}")
+
+    x = torch.from_numpy(synthetic_images(128, (256, 256), seed=71)).to(dev)
+    res, secs = {}, {}
+    for name, flag in (("jnp", False), ("kernels", True)):
+        codec = DCTCodec(DCTCodecConfig(use_pallas=flag), device=dev)
+        codec.roundtrip(x)  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        res[name] = codec.roundtrip(x)
+        torch.cuda.synchronize()
+        if name == "jnp":
+            paths["no_pallas_dct"] = launch_counts()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            codec.roundtrip(x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        secs[name] = float(np.median(times))
+    dsym = (res["jnp"][1] - res["kernels"][1]).abs()
+    drec = float((res["jnp"][0] - res["kernels"][0]).abs().max())
+    same = float((dsym == 0).double().mean())
+    log(f"DCTCodecConfig(use_pallas=False) round trip B = 128, 256^2, quality 75 on {card}: "
+        f"{secs['jnp'] * 1e3:.3f} ms/call against K5's {secs['kernels'] * 1e3:.3f} (median of 5, "
+        f"CUDA-synchronized host clock); symbols within {float(dsym.max()):.0f} (bar 1), "
+        f"{same * 100:.4f}% identical (bar 99.99%), reconstruction within {drec:.3e} (bar 1e-4); "
+        f"launches {paths['no_pallas_dct']}")
+    if paths["no_pallas_dct"] != expect() or not (float(dsym.max()) <= 1 and same >= 0.9999
+                                                  and drec <= 1e-4):
+        raise AssertionError("DCTCodecConfig(use_pallas=False) misses K5's bars")
+    return paths
+
+
+def run_tool_clis(dev, card, rd_csv):
+    """Phase (g4): the four CLIs of the slice on the card.
+    torch_profile_codec.py --batch 16 --iters 5 --trace (K1 once a
+    saliency_mask call; K2 once a codec_full, encoder_hq and attention_pallas
+    call, none in attention_xla's; K3 twice a codec_full and glue call),
+    torch_layer_microbench.py --batch 16 --iters 5 (cuDNN and cuBLAS only:
+    no kernel of the port), torch_compare_rd.py on evaluation phase (c)'s
+    RD CSV against itself (PSNR deltas +0.00 dB; --plot raises naming
+    matplotlib where it does not import), torch_convert_vgg_weights.py on a
+    synthetic VGG19 state dict (the port's load_vgg19_features reads the
+    .npz back; an .h5 raises naming h5py where it does not import). Returns
+    each CLI's launch counts."""
+    import contextlib
+    import io
+
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.models.vgg import (
+        VGG19_LAYOUT, load_vgg19_features)
+
+    paths = {}
+    iters, warmup = 5, 3  # measure.event_ms's warm-up calls
+    with tempfile.TemporaryDirectory() as tmp:
+        ops.reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            _script_main("torch_profile_codec.py")(
+                ["--batch", "16", "--iters", str(iters), "--trace", f"{tmp}/trace"], device="cuda")
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+        paths["profile_codec_cli"] = counts = launch_counts()
+        calls = iters + warmup
+        want = expect(K1=calls, K2=3 * calls + 1 + 5, K3=4 * calls + 10)
+        if counts != want:
+            raise AssertionError(f"profile_codec CLI launches {counts}, want {want} (K2 in "
+                                 "attention_xla would add one a call)")
+        check_cluster_route("profile_codec CLI")
+        check_attention_route("profile_codec CLI", "wgmma")
+        row = json.loads(buf.getvalue().strip().splitlines()[-1])
+        traces = os.listdir(f"{tmp}/trace")
+        log(f"torch_profile_codec.py --batch 16 on {card} ({t_prof:.2f} s, img/s per row, CUDA "
+            f"events): {json.dumps(row)}; trace files {traces}; launches {counts}")
+        if len(traces) != 1 or not all(v > 0 for k, v in row.items() if k not in ("batch",
+                                                                                  "backend")):
+            raise AssertionError(f"profile_codec CLI: {row}, {traces}")
+
+        ops.reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            _script_main("torch_layer_microbench.py")(["--batch", "16", "--iters", str(iters)],
+                                                      device="cuda")
+        t_layers = time.perf_counter() - t0
+        paths["layer_microbench_cli"] = counts = launch_counts()
+        layers = json.loads(buf.getvalue().strip().splitlines()[-1])
+        log(f"torch_layer_microbench.py --batch 16 on {card} ({t_layers:.2f} s, bf16, CUDA events): "
+            f"{json.dumps(layers)}; launches {counts}")
+        if counts != expect() or len(layers) != 20:
+            raise AssertionError(f"layer_microbench CLI: {len(layers)} rows, launches {counts}")
+
+        ops.reset_launch_counts()
+        csv_path = pathlib.Path(tmp, "rate_distortion_data.csv")
+        csv_path.write_text(rd_csv)
+        compare = _script_main("torch_compare_rd.py")
+        runs = [f"card={csv_path}", f"again={csv_path}"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            compare(runs, device="cuda")
+        table = buf.getvalue()
+        deltas = table.strip().splitlines()[-1]
+        if CARD_FIGURES:
+            compare(runs + ["--plot", f"{tmp}/rd.png"], device="cuda")
+            plotted = "the overlay written"
+        else:
+            with contextlib.redirect_stdout(io.StringIO()):
+                _raises_naming_matplotlib("torch_compare_rd.py --plot", lambda: compare(
+                    runs + ["--plot", f"{tmp}/rd.png"], device="cuda"))
+            plotted = "no --plot: matplotlib does not import here"
+        log(f"torch_compare_rd.py on evaluation phase (c)'s RD CSV against itself: {deltas!r}; "
+            f"{plotted}")
+        if set(re.findall(r"[+-]\d+\.\d+ dB", deltas)) != {"+0.00 dB"}:
+            raise AssertionError(f"compare_rd CLI: {table}")
+        paths["compare_rd_cli"] = launch_counts()
+
+        ops.reset_launch_counts()
+        gen = torch.Generator().manual_seed(7)
+        state, idx, cin = {}, 0, 3
+        for width, n_convs in VGG19_LAYOUT:
+            for _ in range(n_convs):
+                state[f"features.{idx}.weight"] = torch.randn(width, cin, 3, 3, generator=gen) * 0.05
+                state[f"features.{idx}.bias"] = torch.randn(width, generator=gen) * 0.01
+                cin, idx = width, idx + 2
+            idx += 1
+        src, npz = os.path.join(tmp, "vgg19_synthetic.pth"), os.path.join(tmp, "vgg19.npz")
+        torch.save(state, src)
+        convert_vgg = _script_main("torch_convert_vgg_weights.py")
+        with contextlib.redirect_stdout(io.StringIO()):
+            convert_vgg([src, npz], device="cuda")
+        tower = load_vgg19_features(npz, device=dev)
+        try:
+            import h5py  # noqa: F401
+            h5 = "h5py imports here: the .h5 route was not exercised"
+        except ImportError:
+            pathlib.Path(tmp, "vgg19.h5").write_bytes(b"")
+            try:
+                convert_vgg([os.path.join(tmp, "vgg19.h5"), os.path.join(tmp, "x.npz")],
+                            device="cuda")
+            except RuntimeError as exc:
+                if "h5py" not in str(exc):
+                    raise
+                h5 = f"an .h5 raised: {exc}"
+            else:
+                raise AssertionError("an .h5 converted where h5py does not import")
+        paths["convert_vgg_cli"] = counts = launch_counts()
+        log(f"torch_convert_vgg_weights.py on a synthetic VGG19 .pth: {os.path.getsize(npz)} "
+            f"bytes written, loaded back by load_vgg19_features (fingerprint verified): "
+            f"{tower is not None}; {h5}; launches {counts}")
+        if tower is None or counts != expect():
+            raise AssertionError("convert_vgg_weights CLI: the .npz did not load back")
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2989,23 +3503,31 @@ def main():
     codec_path = run_codec_path(dev, card)
     run_autoencoder(dev, card)
     records.append(check_k1_bf16(dev, rng, B))
-    evaluation = run_evaluation(dev, card)
+    evaluation, rd_csv = run_evaluation(dev, card)
     run_autoencoder_evaluation(dev, card)
     training_flow = run_training_flow(dev, card)
     with codec_dir:
         clis = run_cli_paths(dev, card, codec_dir.name)
+    with tempfile.TemporaryDirectory() as model_dir:
+        bf16_params = run_bf16_param_training(dev, card, model_dir)
+    dense_w8 = run_dense_w8_training(dev, card)
+    no_pallas = run_use_pallas_false(dev, card)
+    tools = run_tool_clis(dev, card, rd_csv)
     paths = {"serving": serving, "jax_trained_serving": jax_trained,
              "checkpoint_serving": from_checkpoint, "w8a8_serving": w8a8_serving,
              "training": training, "mixed_training": mixed_training, "masks": mask_path,
              "fft_core_masks": fft_masks, "dct": dct_path, "entry_points": entry_points,
              "storable_codec": codec_path, "evaluation": evaluation,
-             "training_flow": training_flow, **clis}
+             "training_flow": training_flow, **clis, "bf16_param_training": bf16_params,
+             "dense_w8_training": dense_w8, **no_pallas, **tools}
     serving_paths = ("serving", "jax_trained_serving", "checkpoint_serving", "w8a8_serving",
                      "training", "mixed_training", "storable_codec", "training_flow",
                      "eval_bitstream_cli", "shootout_cli")
-    runs_it = {"K1": serving_paths + ("fft_core_masks",), "K2": serving_paths + ("evaluation",),
-               "K3": serving_paths + ("evaluation",),
-               "K3b": ("training", "mixed_training", "training_flow"),
+    options = ("bf16_param_training", "dense_w8_training", "profile_codec_cli")
+    runs_it = {"K1": serving_paths + ("fft_core_masks", "profile_codec_cli"),
+               "K2": serving_paths + ("evaluation",) + options,
+               "K3": serving_paths + ("evaluation",) + options,
+               "K3b": ("training", "mixed_training", "training_flow") + options[:2],
                "K4": ("masks", "fft_core_masks"), "K5": ("dct", "compress_cli", "shootout_cli"),
                "K6": ("entry_points",), "K7a": ("entry_points",), "K7b": ("entry_points",),
                "K8": ("entry_points",), "K1bf16": ("evaluation",)}

@@ -31,7 +31,13 @@ These paths run here with hand-written Hopper kernels:
     ops/generator_tail.py).
 
 Entry points run on the card unless the caller passes device="cpu", where
-each kernel's plain PyTorch twin runs instead.
+each kernel's plain PyTorch twin runs instead. The JAX package's options run
+too: `use_pallas=False` (ModelConfig.attention_use_pallas,
+QuantizerConfig, SaliencyConfig.mask_use_pallas, DCTCodecConfig) computes
+JAX's jnp formula with library calls and launches no kernel,
+`ModelConfig(param_dtype="bfloat16")` builds and trains bf16 parameters,
+`dense_w8` trains, `generator_polyphase` takes the polyphase deconvolution,
+and `models.SpectralNormDense` is there as in JAX.
 """
 
 from contextual_image_compression_tpu_torch.config import (
@@ -44,6 +50,7 @@ from contextual_image_compression_tpu_torch.config import (
     SaliencyConfig,
     TrainConfig,
 )
+from contextual_image_compression_tpu_torch.version import __version__
 
 __all__ = ["AutoencoderConfig", "DCTCodecConfig", "EvalConfig", "LossConfig", "ModelConfig", "QuantizerConfig",
-           "SaliencyConfig", "TrainConfig"]
+           "SaliencyConfig", "TrainConfig", "__version__"]

@@ -49,8 +49,9 @@ class SaliencyConfig:
     mask_bilateral_sigma_color: float = 75.0
     mask_bilateral_sigma_space: float = 75.0
     mask_gaussian_ksize: int = 31  # sigma derived per the OpenCV rule => 5.0
-    # Kept so configs round-trip; the port always runs kernels K1 / K4 on the
-    # card and raises when this is False.
+    # False runs JAX's off-TPU formulas instead of kernels K1 / K4:
+    # compute_saliency_map, then bilateral -> Gaussian -> max-normalize in
+    # image_ops, plain PyTorch on either device.
     mask_use_pallas: bool = True
     # 'bfloat16' runs K1's bf16 route ('combined' with mask_smooth only; the
     # other paths never read it)
@@ -71,7 +72,8 @@ class QuantizerConfig:
 
     grad_mode: str = "auto"  # 'auto' | 'reference' | 'ste'
     scale_coeff: float = 3.0
-    use_pallas: bool = True  # False raises: the port always runs K3 on the card
+    # False: JAX's jnp formula through autograd (no K3 / K3b), in the latent's dtype
+    use_pallas: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +99,7 @@ class ModelConfig:
     dense_w8: bool = False
     leaky_slope: float = 0.2
     hq_attention: bool = True
-    attention_use_pallas: bool = True  # False raises: the port always runs K2
+    attention_use_pallas: bool = True  # False: JAX's jnp formula (einsum, softmax), no K2
     disc_base_filters: int = 16
     disc_max_filters: int = 128
     disc_max_stages: int = 4
@@ -119,7 +121,7 @@ class ModelConfig:
     quant_bypass: bool = False
     quantizer: QuantizerConfig = QuantizerConfig()
     dtype: str = "float32"  # compute dtype; 'bfloat16' for serving
-    param_dtype: str = "float32"  # anything else raises in AdaptiveCodec: not ported
+    param_dtype: str = "float32"  # 'bfloat16': parameters and Adam moments in bf16
 
     @property
     def img_shape(self) -> Tuple[int, int, int]:
@@ -131,6 +133,11 @@ class ModelConfig:
 
     def compute_dtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
+
+    def parameter_dtype(self) -> torch.dtype:
+        """The torch dtype of `param_dtype` (the codec's and D's parameters;
+        BatchNorm statistics stay float32, as flax keeps them)."""
+        return torch_dtype(self.param_dtype)
 
     def resolved_quantizer(self) -> QuantizerConfig:
         """QuantizerConfig with grad_mode='auto' resolved by skip topology:
@@ -240,7 +247,7 @@ class DCTCodecConfig:
 
     quality: int = 75
     block: int = 8
-    use_pallas: bool = True  # False raises: the port always runs K5 on the card
+    use_pallas: bool = True  # False: JAX's einsum formula in float32 (TF32 off), no K5
 
 
 def analytic_bpp(hq_ratio, base_latent_dim: int = BASE_LATENT_DIM,

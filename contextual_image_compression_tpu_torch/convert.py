@@ -23,7 +23,7 @@ states of the four keras-Adam optimizers. Rules:
     permutation gives the same numbers.
 
 Port -> JAX (`codec_variables`, `discriminator_variables`,
-`autoencoder_variables`, `optimizer_variables`): the inverse of every rule,
+`layer_variables`, `optimizer_variables`): the inverse of every rule,
 each a permutation, flip or transpose, so a round trip is exact; keys come
 out sorted at every level, the order in which the JAX package's
 checkpoints hold them (`jax.tree.map` sorts dict keys), so a tree read from
@@ -35,6 +35,16 @@ adam)`, whose flax state dict is {"0": {}, "1": {"0": {"count", "mu",
 torch Adam's `exp_avg` / `exp_avg_sq` through the layout map of their
 parameter; the int32 `count` is each parameter's Adam `step`. The
 `optimizers` component holds the four states and the train step.
+
+bfloat16 trees (ModelConfig.param_dtype 'bfloat16'). JAX -> port takes bf16
+leaves as numpy (ml_dtypes) or torch tensors (what checkpoint/flax_msgpack.py
+reads) and widens them to float32 exactly; `load_state_dict` and
+`load_optimizer_variables` round them back into the bf16 modules and
+moments. Port -> JAX gives a bf16 leaf as a CPU torch tensor (numpy has no
+bfloat16), which the msgpack writer stores under JAX's dtype name.
+
+`SpectralNormDense` (models/spectral_norm.py): flax's `kernel` / `bias` at
+the layer's own level and `spectral_stats` / `u`, both ways.
 
 The mask engine (K1, K4) and the DCT baseline codec (K5) have no
 parameters, so nothing here covers them.
@@ -61,9 +71,13 @@ from contextual_image_compression_tpu_torch.models.layers import (
     KConvT,
     KDense,
 )
+from contextual_image_compression_tpu_torch.models.spectral_norm import SpectralNormDense
 
 
 def _t(a) -> torch.Tensor:
+    """A leaf as a new float32 tensor (bfloat16 widens exactly)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device="cpu", dtype=torch.float32, copy=True)
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
@@ -90,6 +104,10 @@ def _component_state(tree: Dict) -> Dict[str, torch.Tensor]:
                 sd[join(prefix, "bias")] = _t(val["bias"])
             elif key == "gamma":
                 sd[join(prefix, "gamma")] = _t(val).reshape(1)
+            elif key == "kernel":  # a SpectralNormDense's own kernel (in, out)
+                sd[join(prefix, "weight")] = _t(val).T.contiguous()
+            elif key == "bias":
+                sd[join(prefix, "bias")] = _t(val)
             elif isinstance(val, dict):
                 walk_params(val, join(prefix, key))
             else:
@@ -103,8 +121,16 @@ def _component_state(tree: Dict) -> Dict[str, torch.Tensor]:
             elif isinstance(val, dict):
                 walk_stats(val, join(prefix, key))
 
+    def walk_spectral(d, prefix):
+        for key, val in d.items():
+            if isinstance(val, dict):
+                walk_spectral(val, join(prefix, key))
+            elif key == "u":
+                sd[join(prefix, "u")] = _t(val)
+
     walk_params(tree["params"], "")
     walk_stats(tree.get("batch_stats", {}), "")
+    walk_spectral(tree.get("spectral_stats", {}), "")
     return sd
 
 
@@ -169,10 +195,13 @@ def convert_vgg_variables(variables: Dict) -> Dict[str, torch.Tensor]:
     }
 
 
-def convert_autoencoder_variables(variables: Dict) -> Dict[str, torch.Tensor]:
-    """JAX Autoencoder variables {"params": {name: {"Conv_0": ...}}} -> state
-    dict of the port's Autoencoder."""
+def convert_layer_variables(variables: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX variables of a module with no NHWC flatten -> its port
+    module's state dict: the Autoencoder's {"params": {name: {"Conv_0":
+    ...}}}, or a single layer's, such as SpectralNormDense's `params` and
+    `spectral_stats`."""
     return _component_state(variables)
+
 
 
 # ------------------------------------------------------------- port -> JAX
@@ -180,14 +209,19 @@ def convert_autoencoder_variables(variables: Dict) -> Dict[str, torch.Tensor]:
 Leaf = Callable[[torch.Tensor], object]
 
 
-def to_host(t: torch.Tensor) -> np.ndarray:
-    """A JAX-layout leaf as a C-contiguous numpy array (a copy on the host)."""
-    return t.detach().contiguous().cpu().numpy()
+def to_host(t: torch.Tensor):
+    """A JAX-layout leaf as a C-contiguous numpy array (a copy on the host);
+    a bfloat16 leaf as a contiguous CPU tensor."""
+    t = t.detach().contiguous().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
 
 
-def placeholder(t: torch.Tensor) -> np.ndarray:
-    """A leaf's shape and dtype and nothing else (a zero-stride numpy view):
-    enough for a load template, whose values the ladder never reads."""
+def placeholder(t: torch.Tensor):
+    """A leaf's shape and dtype and nothing else (a zero-stride numpy view,
+    or tensor for bfloat16): enough for a load template, whose values the
+    ladder never reads."""
+    if t.dtype == torch.bfloat16:
+        return torch.zeros((), dtype=t.dtype).expand(tuple(t.shape))
     dtype = torch.empty((), dtype=t.dtype).numpy().dtype
     return np.broadcast_to(np.zeros((), dtype), tuple(t.shape))
 
@@ -225,7 +259,14 @@ def _jax_tree(module: torch.nn.Module, tensors: Dict[str, torch.Tensor], leaf: L
         def have(key):
             return pre + key in tensors
 
-        if type(mod) in _KERNEL_RULES:
+        if isinstance(mod, SpectralNormDense):
+            if have("weight"):
+                put("params", path, "kernel", tensors[pre + "weight"].t())
+            if have("bias"):
+                put("params", path, "bias", tensors[pre + "bias"])
+            if have("u"):
+                put("spectral_stats", path, "u", tensors[pre + "u"])
+        elif type(mod) in _KERNEL_RULES:
             inner, rule = _KERNEL_RULES[type(mod)]
             if have("weight"):
                 put("params", path + [inner], "kernel", rule(tensors[pre + "weight"]))
@@ -307,10 +348,11 @@ def discriminator_variables(disc: torch.nn.Module, cfg: ModelConfig,
     return _jax_tree(disc, sd, leaf)
 
 
-def autoencoder_variables(model: torch.nn.Module, leaf: Leaf = to_host,
-                          tensors: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
-    """Inverse of `convert_autoencoder_variables`."""
-    return _jax_tree(model, _port_tensors(model, tensors, leaf), leaf)
+def layer_variables(module: torch.nn.Module, leaf: Leaf = to_host,
+                    tensors: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
+    """Inverse of `convert_layer_variables` (the Autoencoder, a single layer)."""
+    return _jax_tree(module, _port_tensors(module, tensors, leaf), leaf)
+
 
 
 # -------------------------------------------------------- optimizer states
@@ -407,7 +449,7 @@ def load_optimizer_variables(state, tree: Dict) -> None:
                 adam.state[p] = {
                     # torch keeps a non-capturable Adam's step on the host, float32
                     "step": torch.tensor(float(count), dtype=torch.float32),
-                    "exp_avg": mu[key].to(p.device),
-                    "exp_avg_sq": nu[key].to(p.device),
+                    "exp_avg": mu[key].to(device=p.device, dtype=p.dtype),
+                    "exp_avg_sq": nu[key].to(device=p.device, dtype=p.dtype),
                 }
     state.step = int(np.asarray(tree["step"]))

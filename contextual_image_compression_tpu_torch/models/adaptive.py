@@ -2,17 +2,20 @@
 
 Counterpart of `contextual_image_compression_tpu/models/adaptive.py`, for
 inference (`apply(train=False)`) and training (`apply(train=True,
-detach_for_training=True)`) in float32 or mixed precision (ModelConfig
+detach_for_training=True)`) in float32, in mixed precision (ModelConfig
 dtype 'bfloat16' with param_dtype 'float32': bfloat16 activations, the
-parameters float32 and cast at use):
+parameters float32 and cast at use) or with bfloat16 parameters
+(param_dtype 'bfloat16'; BatchNorm statistics stay float32, as in flax):
 
-    hq_latent, hq_skips = hq_encoder(img)        # with self-attention (K2)
+    hq_latent, hq_skips = hq_encoder(img)        # with self-attention (K2; jnp formula
+                                                 # with attention_use_pallas=False)
     lq_latent, lq_skips = lq_encoder(img)
     s_hq, s_lq = latent saliency MLPs
     rd_params = rd_optimizer(mask, bpp)          # reported, not applied
     b = clip(bpp / 5, 0, 1); thr = 0.9 - 0.85 b; qs = schedule(b)
     dyn_thr = sigmoid(20 * (mask^0.7 - thr))     # or the hard threshold
-    zq = quantize(latent, s, qs)                 # K3 (backward K3b), both branches
+    zq = quantize(latent, s, qs)                 # K3 (backward K3b), both branches;
+                                                 # jnp formula with quantizer.use_pallas=False
     out = hq_gen(zq_hq, skips) * dyn_thr + lq_gen(zq_lq, skips) * (1 - dyn_thr)
 
 The components are submodules named like the JAX codec's components, so a
@@ -34,7 +37,7 @@ from contextual_image_compression_tpu_torch.config import ModelConfig
 from contextual_image_compression_tpu_torch.models.encoder import Encoder
 from contextual_image_compression_tpu_torch.models.generator import Generator
 from contextual_image_compression_tpu_torch.models.latent_saliency import LatentSaliency
-from contextual_image_compression_tpu_torch.models.layers import const
+from contextual_image_compression_tpu_torch.models.layers import cast_floats, const
 from contextual_image_compression_tpu_torch.models.rd_optimizer import RDOptimizer
 from contextual_image_compression_tpu_torch.ops.quantize import adaptive_quantize
 from contextual_image_compression_tpu_torch.ops.saliency import (
@@ -82,22 +85,13 @@ def _with_detached_params(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
 class AdaptiveCodec(nn.Module):
     def __init__(self, cfg: ModelConfig = ModelConfig()):
         super().__init__()
-        if not (cfg.attention_use_pallas and cfg.quantizer.use_pallas):
-            raise NotImplementedError(
-                "attention_use_pallas / quantizer.use_pallas = False: the port has no "
-                "separate plain path on the card; it always launches K2 and K3 there"
-            )
-        if cfg.param_dtype != "float32":
-            raise NotImplementedError(
-                f"param_dtype={cfg.param_dtype!r}: the port builds its parameters in float32 "
-                "only (bf16 activations on float32 parameters: dtype='bfloat16')"
-            )
         self.cfg = cfg
         h, w = cfg.img_size
         enc = dict(img_size=cfg.img_size, in_channels=cfg.channels,
                    channels=cfg.encoder_channels, leaky_slope=cfg.leaky_slope,
                    dense_w8=cfg.dense_w8, dense_int8=cfg.dense_int8)
-        self.hq_encoder = Encoder(cfg.hq_latent_dim, add_attention=cfg.hq_attention, **enc)
+        self.hq_encoder = Encoder(cfg.hq_latent_dim, add_attention=cfg.hq_attention,
+                                  attention_use_pallas=cfg.attention_use_pallas, **enc)
         self.lq_encoder = Encoder(cfg.base_latent_dim, add_attention=False, **enc)
         if cfg.generator_base_hw * 16 != h or h != w:
             raise ValueError("the generator upsamples base_hw by 16 to a square img_size")
@@ -106,16 +100,18 @@ class AdaptiveCodec(nn.Module):
                    base_hw=cfg.generator_base_hw, base_ch=cfg.generator_base_ch,
                    leaky_slope=cfg.leaky_slope, packed_tail=cfg.generator_packed_tail,
                    packed_tail_int8=cfg.packed_tail_int8, dense_w8=cfg.dense_w8,
-                   dense_int8=cfg.dense_int8)
+                   dense_int8=cfg.dense_int8, polyphase=cfg.generator_polyphase)
         self.hq_generator = Generator(cfg.hq_latent_dim, **gen)
         self.lq_generator = Generator(cfg.base_latent_dim, **gen)
         self.latent_saliency_hq = LatentSaliency(cfg.hq_latent_dim)
         self.latent_saliency_lq = LatentSaliency(cfg.base_latent_dim)
         self.rd_optimizer = RDOptimizer(cfg.bpp_norm_divisor, cfg.leaky_slope)
+        cast_floats(self, cfg.parameter_dtype(), buffers=False)
 
     def reset_parameters(self, seed: int = 0) -> None:
         """Keras-style init (glorot-uniform kernels, zero biases, BN identity,
-        attention gamma 0) from one seeded generator on the parameters' device."""
+        attention gamma 0) from one seeded generator on the parameters' device,
+        drawn in float32 and rounded to the parameters' dtype."""
         dev = next(self.parameters()).device
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -214,11 +210,6 @@ class AdaptiveCodec(nn.Module):
         LS-loss score from the detached latent."""
         cfg = self.cfg
         ct = cfg.compute_dtype()
-        if train and cfg.dense_w8:
-            raise NotImplementedError(
-                "dense_w8 is a serving lowering (int8 weights installed by prepare_w8); "
-                "train with dense_w8=False"
-            )
         x = img.to(ct).permute(0, 3, 1, 2)
         m = mask.to(ct).permute(0, 3, 1, 2)
         target_bpp = target_bpp.to(ct)

@@ -3,7 +3,8 @@
 Counterpart of `contextual_image_compression_tpu/models/attention.py`. The
 1x1 Q/K/V projections run as matrix products over the (B, HW, C) view of the
 input (the parameters keep the 1x1 conv layout); gamma starts at zero, so a
-fresh init never shows the attention term.
+fresh init never shows the attention term. use_pallas=False computes the
+block by the JAX package's jnp formula (`attention_block_jnp`): no K2.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ from contextual_image_compression_tpu_torch.ops.attention import attention_block
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, use_pallas: bool = True):
         super().__init__()
+        self.use_pallas = use_pallas
         inner = channels // 8
         self.query_conv = KConv(channels, inner, 1, 1)
         self.key_conv = KConv(channels, inner, 1, 1)
@@ -41,5 +43,6 @@ class SelfAttention(nn.Module):
             return F.linear(xf, wm) + conv.bias.to(dt)
 
         q, k, v = proj(self.query_conv), proj(self.key_conv), proj(self.value_conv)
-        out = attention_block(q, k, v, xf.contiguous(), self.gamma.to(dt)[0])
+        out = attention_block(q, k, v, xf.contiguous(), self.gamma.to(dt)[0],
+                              use_pallas=self.use_pallas)
         return out.transpose(1, 2).reshape(b, c, h, w)

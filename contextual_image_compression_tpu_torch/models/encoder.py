@@ -6,7 +6,9 @@ Counterpart of `contextual_image_compression_tpu/models/encoder.py`:
     conv k4 s2 -> BN -> LeakyReLU            -> skip3 (taken before attention)
     [SelfAttention, HQ only]
     conv k4 s2 -> BN -> LeakyReLU -> flatten -> Dense(latent_dim)
-(the latent Dense W8A8 at inference under dense_int8, as in the JAX encoder)
+(the latent Dense W8A8 at inference under dense_int8, weight-only int8 at
+inference under dense_w8, as in the JAX encoder; attention_use_pallas=False
+runs the attention block by JAX's jnp formula)
 The flatten is in NCHW order; `convert.py` permutes the JAX (NHWC-order)
 latent_dense rows to match, so no permute runs here.
 """
@@ -38,6 +40,7 @@ class Encoder(nn.Module):
         leaky_slope: float = 0.2,
         dense_w8: bool = False,
         dense_int8: bool = False,
+        attention_use_pallas: bool = True,
     ):
         super().__init__()
         c1, c2, c3, c4 = channels
@@ -47,7 +50,7 @@ class Encoder(nn.Module):
         self.bn2 = KBatchNorm(c2)
         self.conv3 = KConv(c2, c3, 4, 2)
         self.bn3 = KBatchNorm(c3)
-        self.attention = SelfAttention(c3) if add_attention else None
+        self.attention = SelfAttention(c3, attention_use_pallas) if add_attention else None
         self.conv4 = KConv(c3, c4, 4, 2)
         self.bn4 = KBatchNorm(c4)
         flat = c4 * (img_size[0] // 16) * (img_size[1] // 16)

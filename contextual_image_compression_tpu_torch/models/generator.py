@@ -6,7 +6,8 @@ Counterpart of `contextual_image_compression_tpu/models/generator.py`:
     ConvT k4 s2 -> BN -> LReLU -> Conv k4 s1 -> tanh       (native tail)
 or, at inference with packed_tail, the folded tail of models/packed_tail.py
 (train-mode calls take the native tail, as the JAX generator does: batch
-statistics cannot be folded).
+statistics cannot be folded). polyphase=True lowers the deconvolutions as
+the JAX generator's `generator_polyphase` does (layers.KConvT).
 The fc output is reshaped in NCHW order; `convert.py` permutes the JAX
 (NHWC-order) fc columns and bias to match.
 """
@@ -42,6 +43,7 @@ class Generator(nn.Module):
         packed_tail_int8: bool = False,
         dense_w8: bool = False,
         dense_int8: bool = False,
+        polyphase: bool = False,
     ):
         super().__init__()
         if len(channels) != 4:
@@ -56,7 +58,7 @@ class Generator(nn.Module):
         concat = (skip_channels[2], skip_channels[1], skip_channels[0], 0)
         cin = base_ch
         for i, (ch, extra) in enumerate(zip(channels, concat)):
-            setattr(self, f"deconv{i + 1}", KConvT(cin, ch))
+            setattr(self, f"deconv{i + 1}", KConvT(cin, ch, polyphase=polyphase))
             setattr(self, f"bn{i + 1}", KBatchNorm(ch))
             cin = ch + extra
         self.out_conv = KConv(channels[3], out_channels, 4, 1)

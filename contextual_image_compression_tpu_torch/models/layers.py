@@ -26,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from contextual_image_compression_tpu_torch.ops.image_ops import true_div
+from contextual_image_compression_tpu_torch.utils.tree import cast_floats  # noqa: F401 (re-export)
 
 
 @functools.lru_cache(maxsize=256)
@@ -48,9 +49,13 @@ def same_pads(size: int, kernel: int, stride: int):
 
 
 def glorot_uniform_(t: torch.Tensor, fan_in: int, fan_out: int, gen: torch.Generator):
+    """Glorot-uniform values drawn in float32 and rounded to t's dtype. (JAX
+    draws a bf16 parameter in bf16 directly, so a bf16 init has the same
+    distribution and other numbers; tests carry JAX's weights across.)"""
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     with torch.no_grad():
-        t.uniform_(-limit, limit, generator=gen)
+        draw = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+        t.copy_(draw.uniform_(-limit, limit, generator=gen))
     return t
 
 
@@ -80,12 +85,20 @@ class KConv(nn.Module):
 
 
 class KConvT(nn.Module):
-    """ConvTranspose 4x4/s2 SAME; weight (Cin, Cout, 4, 4), flipped from flax."""
+    """ConvTranspose 4x4/s2 SAME; weight (Cin, Cout, 4, 4), flipped from flax.
 
-    def __init__(self, cin: int, features: int, kernel: int = 4, stride: int = 2):
+    polyphase=True lowers it as the JAX package's `_PolyphaseConvT4x4s2`
+    does: one stride-1 2x2 convolution with 4 * Cout outputs over the
+    1-padded input, each output phase (a, b) taking kernel rows and columns
+    {a, a + 2} x {b, b + 2}, then the four phases interleaved. Same function
+    (to float32 noise), same parameters, so checkpoints are interchangeable."""
+
+    def __init__(self, cin: int, features: int, kernel: int = 4, stride: int = 2,
+                 polyphase: bool = False):
         super().__init__()
         if (kernel, stride) != (4, 2):
             raise ValueError("KConvT supports the codec's 4x4 stride-2 SAME deconv only")
+        self.polyphase = polyphase
         self.weight = nn.Parameter(torch.zeros(cin, features, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -95,18 +108,50 @@ class KConvT(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose2d(x, self.weight.to(x.dtype), stride=2, padding=1)
+        w = self.weight.to(x.dtype)
+        if self.polyphase:
+            y = _polyphase_deconv(x, w)
+        else:
+            y = F.conv_transpose2d(x, w, stride=2, padding=1)
         return y + self.bias.to(x.dtype)[:, None, None]
+
+
+def _polyphase_deconv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The 4x4/s2 SAME transposed convolution of x (B, Cin, H, W) by the
+    port's weight w (Cin, Cout, 4, 4) as four phase convolutions in one."""
+    b, _, h, wd = x.shape
+    cout = w.shape[1]
+    k = w.permute(2, 3, 0, 1).flip(0, 1)  # flax's (4, 4, Cin, Cout)
+    taps = ((0, 2), (1, 3))
+    subs = [k[list(taps[a])][:, list(taps[c])] for a in (0, 1) for c in (0, 1)]
+    wbig = torch.cat(subs, dim=-1).permute(3, 2, 0, 1)  # (4 Cout, Cin, 2, 2)
+    yall = F.conv2d(F.pad(x, (1, 1, 1, 1)), wbig)  # (B, 4 Cout, H + 1, W + 1)
+    phases = [yall[:, i * cout:(i + 1) * cout, a:h + a, c:wd + c]
+              for i, (a, c) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1)))]
+    ph = torch.stack(phases, dim=-1).reshape(b, cout, h, wd, 2, 2)
+    return ph.permute(0, 1, 2, 4, 3, 5).reshape(b, cout, 2 * h, 2 * wd)
+
+
+class PolyphaseConvT4x4s2(KConvT):
+    """The JAX package's `_PolyphaseConvT4x4s2`: `KConvT(polyphase=True)`."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__(cin, features, polyphase=True)
 
 
 class KDense(nn.Module):
     """Dense layer; weight (out, in).
 
-    w8=True is the weight-only int8 serving form y = x @ (q * s).T + b with a
-    per-output int8 row `weight_q` and its float32 scale `w8_scale` (out, 1).
-    `prepare_w8` fills them: from the float32 weight for the giant
-    projections (`quantize_dense_w8`), from the compute-dtype weight for the
-    rest, which is what the JAX layer computes at trace time.
+    w8=True is the weight-only int8 form y = x @ (q * s).T + b, at inference
+    only (train=True takes the float path, as the JAX codec builds the
+    layer with `w8=dense_w8 and not train`). Serving installs a per-output
+    int8 row `weight_q` and its float32 scale `w8_scale` (out, 1) with
+    `prepare_w8`: from the float32 weight for the giant projections
+    (`quantize_dense_w8`), from the compute-dtype weight for the rest. A
+    layer that still holds its float weight quantizes it at every call, as
+    the JAX layer does at trace time: s = max|w| / 127 per output, q =
+    rint(w / max(s, 1e-12)) cast to int8, so a gradient reaches the weight
+    through s alone (the arg-max entries of each row, ties sharing it).
 
     int8=True is the W8A8 form (`dense_int8`), at inference only: a forward
     with train=True takes the float path, as the JAX codec builds the layer
@@ -133,13 +178,16 @@ class KDense(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         cd = x.dtype
-        if self.w8:
-            if self.weight_q is None:
-                raise ValueError("KDense(w8=True): call prepare_w8 before the forward")
-            w = self.weight_q.to(cd) * self.w8_scale.to(cd)
+        if self.w8 and not train:
+            if self.weight_q is not None:
+                w = self.weight_q.to(cd) * self.w8_scale.to(cd)
+            else:
+                q, s = w8_quantize(self.weight)
+                w = q.to(cd) * s.to(cd)
         else:
             if self.weight is None:
-                raise TypeError("KDense(w8=False) holds an int8 weight: build it with w8=True")
+                raise TypeError("KDense holds int8 rows only (prepare_w8): its float path "
+                                "(train=True, or w8=False) has no weight")
             if self.int8 and not train:
                 return dense_w8a8(x, self.weight, self.bias)
             w = self.weight.to(cd)
@@ -275,16 +323,3 @@ def commit_batch_stats(module: nn.Module) -> None:
     for mod in module.modules():
         if isinstance(mod, KBatchNorm):
             mod.commit_batch_stats()
-
-
-def cast_floats(module: nn.Module, dtype: torch.dtype, skip=("w8_scale",)) -> nn.Module:
-    """Cast floating parameters and buffers to `dtype` in place, leaving the
-    named buffers (the float32 w8 scale rows) as they are."""
-    for mod in module.modules():
-        for name, p in list(mod.named_parameters(recurse=False)):
-            if p.is_floating_point() and name not in skip:
-                p.data = p.data.to(dtype)
-        for name, b in list(mod.named_buffers(recurse=False)):
-            if b is not None and b.is_floating_point() and name not in skip:
-                setattr(mod, name, b.to(dtype))
-    return module

@@ -31,6 +31,11 @@ explicit choice. The backward of K6 and K7 is autograd over the `*_jnp`
 formula, as the JAX custom VJPs differentiate theirs; K2's is autograd over
 its twin. Where no input needs a gradient, K2 and K6 launch outside the
 autograd Function, which would cost more host time than their kernel.
+The `*_jnp` formulas and every backward here run their float32 products
+with TF32 off on the card, whatever the caller set: the backward of the
+`use_pallas=False` routes goes through the same autograd Function as the
+kernels', since autograd would otherwise run it after the forward's
+setting has been restored.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from contextual_image_compression_tpu_torch.ops import cuda_kernels as ck
+from contextual_image_compression_tpu_torch.ops.saliency import _full_fp32_matmul
 
 TF32_KEY_TILE = 32  # keys a tile of the float32 route (csrc/attention.cu tf::KEYS)
 TF32_SEG_TILES = 8  # key tiles a segment of K7's float32 e.V (csrc/attention.cuh)
@@ -46,10 +52,17 @@ TF32_SEG_TILES = 8  # key tiles a segment of K7's float32 e.V (csrc/attention.cu
 
 def attention_core_jnp(q, k, v):
     """softmax(Q K^T) V, unscaled, in the inputs' dtype (the JAX package's
-    `attention_core_jnp`)."""
-    scores = torch.einsum("bnd,bmd->bnm", q, k)
-    p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bnm,bmd->bnd", p, v)
+    `attention_core_jnp`); float32 products without TF32 on the card."""
+    with _full_fp32_matmul(q.device):
+        scores = torch.einsum("bnd,bmd->bnm", q, k)
+        p = torch.softmax(scores, dim=-1)
+        return torch.einsum("bnm,bmd->bnd", p, v)
+
+
+def attention_block_jnp(q, k, v, residual, gamma):
+    """gamma * softmax(Q K^T) V + residual in the inputs' dtype (the JAX
+    package's `attention_block_jnp`)."""
+    return gamma * attention_core_jnp(q, k, v) + residual
 
 
 def _ctx_and_recip(q, k, v):
@@ -160,9 +173,9 @@ def _attention_block_kernel(q, k, v, residual, gamma):
 
 
 class _Kernel(torch.autograd.Function):
-    """forward: `fwd(*inputs)` (a kernel, or its twin on the CPU); backward:
-    autograd over the formula `ref(*inputs)`, as the JAX custom VJPs
-    differentiate theirs."""
+    """forward: `fwd(*inputs)` (a kernel, its twin on the CPU, or the formula
+    itself); backward: autograd over the formula `ref(*inputs)`, as the JAX
+    custom VJPs differentiate theirs, with TF32 off on the card."""
 
     @staticmethod
     def forward(ctx, fwd, ref, *inputs):
@@ -173,7 +186,7 @@ class _Kernel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         needs = ctx.needs_input_grad[2:]
-        with torch.enable_grad():
+        with torch.enable_grad(), _full_fp32_matmul(grad.device):
             inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
             out = ctx.ref(*inputs)
             wanted = [t for t, n in zip(inputs, needs) if n]
@@ -181,8 +194,28 @@ class _Kernel(torch.autograd.Function):
         return (None, None) + tuple(next(grads) if n else None for n in needs)
 
 
-def attention_block(q, k, v, residual, gamma):
-    """gamma * softmax(Q K^T) V + residual. gamma: 0-dim tensor or float."""
+def _jnp_route(ref, *args):
+    """ref(*args) for a `use_pallas=False` route, through `_Kernel` when
+    autograd records it, so that its backward too runs without TF32. The
+    last argument, gamma, may be a Python float."""
+    if not ck.needs_grad(*(a for a in args if torch.is_tensor(a))):
+        return ref(*args)
+    if torch.is_tensor(args[-1]):
+        return _Kernel.apply(ref, ref, *args)
+    gamma = args[-1]
+
+    def bound(*tensors):
+        return ref(*tensors, gamma)
+
+    return _Kernel.apply(bound, bound, *args[:-1])
+
+
+def attention_block(q, k, v, residual, gamma, use_pallas: bool = True):
+    """gamma * softmax(Q K^T) V + residual. gamma: 0-dim tensor or float.
+    use_pallas=True: K2 on the card, its twin on the CPU; False: the jnp
+    formula."""
+    if not use_pallas:
+        return _jnp_route(attention_block_jnp, q, k, v, residual, gamma)
     if q.device.type == "cpu":
         return attention_block_plain(q, k, v, residual, gamma)
     if not torch.is_tensor(gamma):
@@ -202,7 +235,7 @@ def attention_core(q, k, v, use_pallas: bool = True):
     """softmax(Q K^T) V, unscaled. use_pallas=True: K6 on the card, its twin
     on the CPU; False: the jnp formula."""
     if not use_pallas:
-        return attention_core_jnp(q, k, v)
+        return _jnp_route(attention_core_jnp, q, k, v)
     fwd = attention_core_plain if q.device.type == "cpu" else _attention_core_kernel
     if not ck.needs_grad(q, k, v):
         return fwd(q, k, v)
@@ -220,9 +253,10 @@ def sagan_block_jnp(xf, wq, bq, wk, bk, wv, bv, gamma):
     dtype, then gamma * softmax(Q K^T) V + x. xf (B, N, C); wq, wk (C, C/8)
     and wv (C, Dv) in (in, out) layout."""
     dt = xf.dtype
-    q = torch.einsum("bnc,cf->bnf", xf, wq.to(dt)) + bq.to(dt)
-    k = torch.einsum("bnc,cf->bnf", xf, wk.to(dt)) + bk.to(dt)
-    v = torch.einsum("bnc,cf->bnf", xf, wv.to(dt)) + bv.to(dt)
+    with _full_fp32_matmul(xf.device):
+        q = torch.einsum("bnc,cf->bnf", xf, wq.to(dt)) + bq.to(dt)
+        k = torch.einsum("bnc,cf->bnf", xf, wk.to(dt)) + bk.to(dt)
+        v = torch.einsum("bnc,cf->bnf", xf, wv.to(dt)) + bv.to(dt)
     return gamma * attention_core_jnp(q, k, v) + xf
 
 
@@ -365,7 +399,7 @@ def sagan_block(xf, wq, bq, wk, bk, wv, bv, gamma, use_pallas: bool = True):
     (B, N, C) view. use_pallas=True: K7a on the card, its twin on the CPU;
     False: the jnp formula."""
     if not use_pallas:
-        return sagan_block_jnp(xf, wq, bq, wk, bk, wv, bv, gamma)
+        return _jnp_route(sagan_block_jnp, xf, wq, bq, wk, bk, wv, bv, gamma)
     if xf.device.type == "cpu":
         fwd = sagan_block_plain
     else:
@@ -380,7 +414,7 @@ def sagan_block_spatial(x, wq, bq, wk, bk, wv, bv, gamma, use_pallas: bool = Tru
     layout. use_pallas=True: K7b on the card, its twin on the CPU; False:
     the jnp formula."""
     if not use_pallas:
-        return sagan_block_spatial_jnp(x, wq, bq, wk, bk, wv, bv, gamma)
+        return _jnp_route(sagan_block_spatial_jnp, x, wq, bq, wk, bk, wv, bv, gamma)
     if x.device.type == "cpu":
         fwd = _sagan_plain_spatial
     else:

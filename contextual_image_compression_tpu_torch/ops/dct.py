@@ -13,8 +13,10 @@ Counterpart of `contextual_image_compression_tpu/ops/dct.py`:
 
 K5 replaces `_dct_strips_pallas`. On a CPU tensor `dct_strips` runs
 `dct_strips_plain`, the JAX package's `_dct_strips_jnp` formula, which is
-also what the card's result is held against. The decoder's inverse transform
-is plain float32 matrix products, as in the JAX package.
+also what the card's result is held against. `DCTCodecConfig(use_pallas=
+False)` is the caller's choice of that formula on either device (float32
+products with TF32 off on the card), so no K5 launches. The decoder's
+inverse transform is plain float32 matrix products, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -150,11 +152,11 @@ def _device_dct_matrix(dev) -> torch.Tensor:
     return torch.from_numpy(_dct_matrix()).to(dev)
 
 
-def dct_strips(planes: torch.Tensor, tables: torch.Tensor):
+def dct_strips(planes: torch.Tensor, tables: torch.Tensor, use_pallas: bool = True):
     """(rec, sym) of level-shifted planes (B, C, H, W) float32 under tables
     (C, 8, 8). Launches K5 for CUDA tensors; the plain twin runs only for
-    CPU tensors."""
-    if planes.device.type == "cpu":
+    CPU tensors. use_pallas=False: `dct_strips_plain` on either device."""
+    if not use_pallas or planes.device.type == "cpu":
         return dct_strips_plain(planes, tables)
     if planes.device.type != "cuda":
         raise ValueError(f"dct_strips: unsupported device {planes.device}")
@@ -197,14 +199,13 @@ def _entropy_bits_per_symbol(sym: torch.Tensor, max_abs: int = 1024) -> torch.Te
 
 class DCTCodec:
     """Batched JPEG-style codec on `device` (the card unless the caller asks
-    for the CPU): encode and decode in one K5 launch per batch."""
+    for the CPU): encode and decode in one K5 launch per batch, or by
+    `dct_strips_plain` with `DCTCodecConfig(use_pallas=False)`."""
 
     _STREAM_HEADER = "<BBBHH"  # version, coder (0 zlib, 1 range coder), quality, h, w
     _STREAM_VERSION = 2
 
     def __init__(self, cfg: DCTCodecConfig = DCTCodecConfig(), device="cuda"):
-        if not cfg.use_pallas:
-            raise NotImplementedError("DCTCodecConfig.use_pallas=False: the port always runs K5")
         if cfg.block != 8:
             raise ValueError(f"DCTCodec: block must be 8, got {cfg.block}")
         self.cfg = cfg
@@ -218,7 +219,7 @@ class DCTCodec:
         b = images.shape[0]
         ycc = rgb_to_ycbcr((images + 1.0) * 127.5) - 128.0
         planes = ycc.permute(0, 3, 1, 2).contiguous()
-        rec_planes, sym = dct_strips(planes, self._tables)
+        rec_planes, sym = dct_strips(planes, self._tables, self.cfg.use_pallas)
         rec_rgb = ycbcr_to_rgb(rec_planes.permute(0, 2, 3, 1) + 128.0)
         rec = torch.clamp(rec_rgb / 127.5 - 1.0, -1.0, 1.0)
         return rec, sym.reshape(b, -1)

@@ -244,3 +244,41 @@ def normalize_max(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Divide by the per-image max over the last two axes where it is positive."""
     mx = torch.amax(x, dim=(-2, -1), keepdim=True)
     return torch.where(mx > 0, x / torch.clamp(mx, min=eps), x)
+
+
+def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize of the last two axes, or of (..., H, W, C) images
+    with C in (1, 3, 4), as `jax.image.resize(..., "bilinear")` computes it:
+    half-pixel centers, and a triangle filter widened by the scale when
+    downsampling (antialias), which `F.interpolate(antialias=True)` is."""
+    channels_last = img.ndim >= 3 and img.shape[-1] in (1, 3, 4)
+    x = img.movedim(-1, -3) if channels_last else img.unsqueeze(-3)
+    lead = x.shape[:-3]
+    x4 = x.reshape((-1,) + tuple(x.shape[-3:]))
+    y = F.interpolate(x4, size=(out_h, out_w), mode="bilinear", align_corners=False,
+                      antialias=True)
+    y = y.reshape(lead + tuple(y.shape[-3:]))
+    return y.movedim(-3, -1) if channels_last else y.squeeze(-3)
+
+
+# Normalization conventions of the reference (the JAX package's image_ops).
+
+
+def to_gan_range(img_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 [0, 255] -> float32 [-1, 1]."""
+    return true_div(img_u8.to(torch.float32) - 127.5, 127.5)
+
+
+def from_gan_range(img: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] float -> uint8 [0, 255], rounded half to even."""
+    return torch.clamp(torch.round((img + 1.0) * 127.5), 0, 255).to(torch.uint8)
+
+
+def to_unit_range(img_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 -> float32 [0, 1]."""
+    return true_div(img_u8.to(torch.float32), 255.0)
+
+
+def from_unit_range(img: torch.Tensor) -> torch.Tensor:
+    """[0, 1] float -> uint8 [0, 255], rounded half to even."""
+    return torch.clamp(torch.round(img * 255.0), 0, 255).to(torch.uint8)

@@ -14,7 +14,12 @@ Counterpart of `contextual_image_compression_tpu/ops/masks.py`:
     on gray255 and the 64^2 spectral map, in float32 or, with
     mask_engine_dtype 'bfloat16', on K1's bf16 route; every other method,
     and the binary mask, runs compute_saliency_map -> create_saliency_mask,
-    which never read the engine dtype (nor does the JAX package there).
+    which never read the engine dtype (nor does the JAX package there);
+  * mask_use_pallas=False: every method and both mask kinds run
+    compute_saliency_map -> create_saliency_mask, and the smooth mask is
+    JAX's off-TPU formula, image_ops' bilateral filter (Taylor range weight
+    of a [0, 1] map) -> Gaussian 31 -> normalize_max in plain PyTorch, so
+    neither K1 nor K4 launches.
 
 The thresholds are discrete, so they reproduce the JAX package's float32
 arithmetic step by step: the same bin-index expression (truncation, then
@@ -98,13 +103,17 @@ def create_saliency_mask(
     config: SaliencyConfig | None = None,
 ) -> torch.Tensor:
     """smooth=True: the continuous mask max-normalize(Gaussian31(bilateral(
-    saliency))) through K4 on the card; the threshold is not consulted.
-    smooth=False: the binary mask saliency > threshold, with the adaptive
-    threshold when None. saliency_map: (..., H, W) float32 in [0, 1]."""
+    saliency))) through K4 on the card (with mask_use_pallas=False, by
+    image_ops); the threshold is not consulted. smooth=False: the binary
+    mask saliency > threshold, with the adaptive threshold when None.
+    saliency_map: (..., H, W) float32 in [0, 1]."""
     cfg = config or SaliencyConfig()
     if smooth:
         if not cfg.mask_use_pallas:
-            raise NotImplementedError("mask_use_pallas=False: the port always runs K4")
+            mask = iops.bilateral_filter(
+                saliency_map, d=cfg.mask_bilateral_d, sigma_color=cfg.mask_bilateral_sigma_color,
+                sigma_space=cfg.mask_bilateral_sigma_space, unit_range=True)
+            return iops.normalize_max(iops.gaussian_blur(mask, cfg.mask_gaussian_ksize, 0.0))
         return smooth_mask(
             saliency_map.contiguous(),
             d=cfg.mask_bilateral_d,
@@ -120,8 +129,6 @@ def create_saliency_mask(
 def _check_config(cfg: SaliencyConfig) -> None:
     if cfg.mask_engine_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"mask_engine_dtype {cfg.mask_engine_dtype!r}: 'float32' or 'bfloat16'")
-    if not cfg.mask_use_pallas:
-        raise NotImplementedError("mask_use_pallas=False: the port always runs K1 / K4")
 
 
 def compute_contextual_mask(
@@ -131,14 +138,15 @@ def compute_contextual_mask(
     image without the batch axis also works). Returns (B, H, W) float32 masks
     in [0, 1]: through K1 for the 'combined' smooth mask (in the
     mask_engine_dtype), through compute_saliency_map and K4 for the other
-    methods' smooth masks."""
+    methods' smooth masks; with mask_use_pallas=False through
+    compute_saliency_map and image_ops for every method."""
     cfg = config or SaliencyConfig()
     _check_config(cfg)
     if images.dtype == torch.uint8:
         gray255 = iops.rgb_to_gray(images.to(torch.float32))
     else:
         gray255 = saliency_ops._as_gray(images)
-    if cfg.method != "combined" or not cfg.mask_smooth:
+    if cfg.method != "combined" or not cfg.mask_smooth or not cfg.mask_use_pallas:
         sal = saliency_ops.compute_saliency_map(gray255, cfg.method, cfg)
         return create_saliency_mask(sal, smooth=cfg.mask_smooth, config=cfg)
     batched = gray255.ndim == 3

@@ -13,6 +13,11 @@ scale^2), dsigma = g_s * c * scale * (-q), dq = g_s * c * scale * (1 - sigma).
 The 'ste' mode passes the gradient straight to the latent and gives score and
 strength none, so it needs no kernel.
 
+`QuantizerConfig(use_pallas=False)` is the caller's choice of the JAX
+package's jnp formula (`adaptive_quantize_reference_jnp` / `_ste_jnp`)
+instead: plain PyTorch through autograd in the dtypes of its inputs (no
+float32 upcast, unlike K3 and its twin), so neither K3 nor K3b launches.
+
 `adaptive_quantize` launches K3 directly when no input needs a gradient (as
 serving calls it, under `torch.no_grad()`), and otherwise runs both through
 one autograd Function: on CUDA tensors it launches the kernels, on CPU
@@ -53,6 +58,27 @@ def adaptive_quantize_bwd_plain(latent, saliency_score, quant_strength, g,
     g_eff = g_scale * scale_coeff * scale
     return ((g_eff * (-q)).to(saliency_score.dtype).reshape(saliency_score.shape),
             (g_eff * (1.0 - sigma)).to(quant_strength.dtype).reshape(quant_strength.shape))
+
+
+def adaptive_quantize_reference_jnp(latent, saliency_score, quant_strength,
+                                    scale_coeff: float = DEFAULT_SCALE_COEFF):
+    """The JAX package's `adaptive_quantize_reference_jnp`: round(latent *
+    scale) / scale with score and strength (B, 1). torch.round has a zero
+    derivative, as jnp.round does, so autograd gives the 'reference' mode's
+    gradients: none to the latent, the scale path's to score and strength.
+    The scale is computed in the dtype of score and strength (Python scalars
+    take the tensor's dtype in both frameworks)."""
+    scale = torch.exp(scale_coeff * (quant_strength * (1.0 - saliency_score)))
+    return torch.round(latent * scale) / scale
+
+
+def adaptive_quantize_ste_jnp(latent, saliency_score, quant_strength,
+                              scale_coeff: float = DEFAULT_SCALE_COEFF):
+    """The JAX package's `adaptive_quantize_ste_jnp`: the same forward, the
+    gradient straight through to the latent and none to score and strength."""
+    q = adaptive_quantize_reference_jnp(latent.detach(), saliency_score.detach(),
+                                        quant_strength.detach(), scale_coeff)
+    return latent + (q - latent).detach()
 
 
 def _rows(name, latent, saliency_score, quant_strength):
@@ -143,13 +169,9 @@ def adaptive_quantize(latent, saliency_score, quant_strength,
                       config: QuantizerConfig | None = None):
     """Quantize (B, D) latents with (B, 1) saliency scores and strengths.
     Launches K3 for CUDA tensors and, in the backward of the 'reference'
-    mode, K3b; the plain twins run for CPU tensors."""
+    mode, K3b; the plain twins run for CPU tensors. use_pallas=False runs
+    the jnp formula of the grad mode on either device."""
     cfg = config or QuantizerConfig()
-    if not cfg.use_pallas:
-        raise NotImplementedError(
-            "use_pallas=False: the port has no separate plain path on the card; "
-            "it always launches K3 there"
-        )
     if cfg.grad_mode == "auto":
         raise ValueError(
             "grad_mode='auto' is a topology-level default; resolve it first via "
@@ -157,6 +179,9 @@ def adaptive_quantize(latent, saliency_score, quant_strength,
         )
     if cfg.grad_mode not in ("reference", "ste"):
         raise ValueError(f"unknown grad_mode {cfg.grad_mode!r}")
+    if not cfg.use_pallas:
+        fn = adaptive_quantize_ste_jnp if cfg.grad_mode == "ste" else adaptive_quantize_reference_jnp
+        return fn(latent, saliency_score, quant_strength, float(cfg.scale_coeff))
     if not ck.needs_grad(latent, saliency_score, quant_strength):
         # no autograd Function: one kernel launch (or the twin on the CPU)
         if latent.device.type == "cpu":

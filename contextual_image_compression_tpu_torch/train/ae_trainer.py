@@ -110,13 +110,13 @@ class AETrainer:
     # ---------------------------------------------------------------- persist
     def save(self, directory: str, tag: str = "final") -> str:
         return CheckpointStore(directory).save_component(
-            "autoencoder", convert.autoencoder_variables(self.model), tag)
+            "autoencoder", convert.layer_variables(self.model), tag)
 
     def load(self, directory: str, tag: str = "final") -> Autoencoder:
         """Load the `autoencoder` component at `tag` (no ladder, as in JAX)
         and start a fresh Adam."""
-        template = convert.autoencoder_variables(self.model, leaf=convert.placeholder)
+        template = convert.layer_variables(self.model, leaf=convert.placeholder)
         tree = CheckpointStore(directory).load_component("autoencoder", template, tag)
-        self.model.load_state_dict(convert.convert_autoencoder_variables(tree))
+        self.model.load_state_dict(convert.convert_layer_variables(tree))
         self._fresh_optimizer()
         return self.model

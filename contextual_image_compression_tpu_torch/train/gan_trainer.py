@@ -24,6 +24,10 @@ BatchNorm runs on its running statistics (disc_bn_mode 'frozen', the
 default) or on batch statistics ('train'), where the D phase keeps those of
 its fake pass, as the JAX step does.
 
+With ModelConfig.param_dtype 'bfloat16' the codec's and D's parameters,
+gradients and Adam moments are bf16 (optax's order, train/optimizers.py) and
+the BatchNorm statistics float32, as in the JAX trainer.
+
 Images and masks are NCHW here; `Batch` carries them so.
 """
 
@@ -44,7 +48,7 @@ from contextual_image_compression_tpu_torch.models.adaptive import (
     CodecOutput,
 )
 from contextual_image_compression_tpu_torch.models.discriminator import Discriminator
-from contextual_image_compression_tpu_torch.models.layers import commit_batch_stats
+from contextual_image_compression_tpu_torch.models.layers import cast_floats, commit_batch_stats
 from contextual_image_compression_tpu_torch.models.vgg import VGG19Features, preprocess_caffe
 from contextual_image_compression_tpu_torch.train import losses as L
 from contextual_image_compression_tpu_torch.train.optimizers import KerasAdam
@@ -105,6 +109,7 @@ class GANStepBuilder:
                                  mcfg.disc_max_filters, mcfg.disc_max_stages,
                                  mcfg.disc_dense_units, mcfg.leaky_slope,
                                  dtype=mcfg.compute_dtype())
+            cast_floats(disc, mcfg.parameter_dtype(), buffers=False)  # JAX builds D with the codec's dtypes
         codec.reset_parameters(seed)
         disc.reset_parameters(torch.Generator(device=self.device).manual_seed(seed + 1))
 

@@ -63,7 +63,7 @@ HISTORY_KEYS = (
     "rd_loss",
 )
 
-_MESHES = "meshes (sharded training) come with a later slice of the port"
+_MESHES = "meshes (sharded training) wait for the multi-device slice of the port"
 
 
 class GANTrainer:

@@ -95,7 +95,7 @@ def test_fit_matches_jax_for_three_steps(tmp_path):
     batch = imgs[:16]
     jgrad = jax.grad(lambda p: jnp.mean((jt.model.apply(p, jnp.asarray(batch)) - batch) ** 2))(
         jt.params)
-    jgrad = convert.convert_autoencoder_variables(jax.tree.map(np.asarray, jgrad))
+    jgrad = convert.convert_layer_variables(jax.tree.map(np.asarray, jgrad))
     tt._loss(torch.from_numpy(batch).permute(0, 3, 1, 2)).backward()
     for k, p in tt.model.named_parameters():
         assert float((p.grad - jgrad[k]).norm() / jgrad[k].norm()) <= 1e-5, k
@@ -105,7 +105,7 @@ def test_fit_matches_jax_for_three_steps(tmp_path):
     assert len(tt.opt.state) == 14 and all(float(s["step"]) == 3 for s in tt.opt.state.values())
     for key in ("loss", "val_loss"):
         np.testing.assert_allclose(th[key], jh[key], rtol=1e-5, err_msg=key)
-    want = convert.convert_autoencoder_variables(jax.tree.map(np.asarray, jt.params))
+    want = convert.convert_layer_variables(jax.tree.map(np.asarray, jt.params))
     got = tt.model.state_dict()
     assert set(got) == set(want)
     err = torch.cat([(got[k] - want[k]).abs().reshape(-1) for k in want])
@@ -168,7 +168,7 @@ def test_save_load_round_trip(tmp_path):
         assert torch.equal(a, b), k
     jt = _jax()
     jt.load(str(tmp_path))
-    want = convert.autoencoder_variables(tt.model)
+    want = convert.layer_variables(tt.model)
     got = jax.tree.map(np.asarray, jt.params)
     assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
     for x, y in zip(jax.tree.leaves(got), jax.tree.leaves(want)):

@@ -223,8 +223,15 @@ def test_range_coder_byte_identical_to_jax(kind):
 
 
 def test_codec_options_and_device_guards(monkeypatch):
-    with pytest.raises(NotImplementedError):
-        tdct.DCTCodec(DCTCodecConfig(use_pallas=False), device="cpu")
+    # use_pallas=False (it raised before the port had the route) runs
+    # `dct_strips_plain`, JAX's `_dct_strips_jnp` formula: the round trip equals JAX's with that flag
+    # (symbols equal, images within 1e-6; tests/test_torch_options.py holds
+    # more)
+    imgs = synthetic_images(2, (32, 32), seed=4)
+    rec, sym = tdct.DCTCodec(DCTCodecConfig(use_pallas=False), device="cpu").roundtrip(imgs)
+    jrec, jsym = jdct.DCTCodec(JDCTCodecConfig(use_pallas=False)).roundtrip(jnp.asarray(imgs))
+    np.testing.assert_array_equal(sym.numpy(), np.asarray(jsym))
+    np.testing.assert_allclose(rec.numpy(), np.asarray(jrec), atol=1e-6)
     with pytest.raises(ValueError):
         tdct.dct_strips(torch.zeros(1, 3, 12, 16), torch.zeros(3, 8, 8))
     with pytest.raises(ValueError):  # a meta tensor is neither CPU nor CUDA

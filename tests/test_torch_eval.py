@@ -80,12 +80,25 @@ def test_eval_config_and_analytic_bpp_match_jax():
 
 
 def test_codec_refuses_other_param_dtypes():
-    """ModelConfig.param_dtype other than float32 raises (JAX builds its
-    parameters in it; the port builds float32 only), where it used to be
-    accepted and ignored."""
-    with pytest.raises(NotImplementedError, match="param_dtype"):
-        AdaptiveCodec(ModelConfig(**TINY_KW, param_dtype="bfloat16"))
-    AdaptiveCodec(ModelConfig(**TINY_KW, dtype="bfloat16", param_dtype="float32"))
+    """ModelConfig.param_dtype 'bfloat16' builds the codec's parameters in
+    bf16 as the JAX codec does (it raised here before the port had bf16
+    parameters; the name is kept): every leaf of the port's variables in
+    JAX's layout has the dtype of JAX's leaf at that path (parameters bf16,
+    BatchNorm statistics float32), for bf16 and for mixed precision."""
+    from contextual_image_compression_tpu.models.adaptive import AdaptiveCodec as JCodec
+    from contextual_image_compression_tpu_torch.convert import codec_variables, placeholder
+
+    for dt in (dict(dtype="bfloat16", param_dtype="bfloat16"),
+               dict(dtype="bfloat16", param_dtype="float32")):
+        want = jax.eval_shape(lambda: JCodec(JModelConfig(**TINY_KW, **dt)).init(
+            jax.random.PRNGKey(0)))
+        got = codec_variables(AdaptiveCodec(ModelConfig(**TINY_KW, **dt)), leaf=placeholder)
+        flat_want = jax.tree_util.tree_flatten_with_path(want)[0]
+        flat_got = dict(jax.tree_util.tree_flatten_with_path(
+            got, is_leaf=lambda x: not isinstance(x, dict))[0])
+        assert len(flat_got) == len(flat_want)
+        for path, leaf in flat_want:
+            assert str(flat_got[path].dtype).replace("torch.", "") == str(leaf.dtype), path
 
 
 @pytest.fixture(scope="module")

@@ -859,3 +859,30 @@ def test_k8_matches_twin(dev, b, h, cin, cmid, dtype):
     else:
         assert err.max().item() <= 1.6e-2
         assert (err == 0).float().mean().item() >= 0.99
+
+
+def test_attention_jnp_routes_ignore_the_callers_tf32(dev):
+    """The use_pallas=False attention routes run every float32 product, the
+    backward's included, with TF32 off whatever the caller set: their
+    outputs and gradients with allow_tf32 on equal those with it off, bit
+    for bit (N = 1024, K2's serving shape at B = 2)."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    q, k = (torch.randn(2, 1024, 32, device=dev, generator=gen) for _ in range(2))
+    v, r = (torch.randn(2, 1024, 256, device=dev, generator=gen) for _ in range(2))
+    params, g7 = _sagan_params(dev, 64, 3)
+    x = torch.randn(2, 256, 64, device=dev, generator=gen)
+    calls = {"block": (attention_block, [q, k, v, r, torch.tensor(0.7, device=dev)]),
+             "sagan": (sagan_block, [x, *params, g7])}
+    try:
+        for name, (fn, inputs) in calls.items():
+            runs = []
+            for tf32 in (False, True):
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                leaves = [t.clone().requires_grad_(True) for t in inputs]
+                out = fn(*leaves, use_pallas=False)
+                out.pow(2).sum().backward()
+                runs.append([out.detach()] + [t.grad for t in leaves])
+            for a, b in zip(*runs):
+                assert torch.equal(a, b), name
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False

@@ -210,8 +210,9 @@ def test_enhance_saliency_map_matches_jax():
     dict(mask_use_pallas=False, method="fine_grained"),
 ], ids=["fft-core", "fft-core-spectral", "bf16-engine", "bf16-engine-fine", "no-pallas-fine"])
 def test_unported_mask_options_raise(change):
-    """The port has no plain path on the card: mask_use_pallas=False raises.
-    The FFT spectral core (spectral_dft_matmul=False) is ported: its cases
+    """mask_use_pallas=False runs the JAX package's off-TPU formula, as JAX
+    does (the port raised before it had the route; the name is kept),
+    within 1e-6 of JAX's. The FFT spectral core (spectral_dft_matmul=False) is ported: its cases
     compute the mask, within 1e-4 of the JAX package's
     (tests/test_torch_w8a8_fft.py holds the FFT core's maps, thresholds and
     binary masks). The bf16 mask engine is ported: with 'combined' it runs
@@ -246,8 +247,13 @@ def test_unported_mask_options_raise(change):
             np.testing.assert_allclose(
                 got, np.asarray(jmasks.compute_contextual_mask(jnp.asarray(u8), jcfg)), atol=1e-4)
         return
-    with pytest.raises(NotImplementedError):
-        tmasks.compute_contextual_mask(torch.zeros((1, 32, 32, 3), dtype=torch.uint8), cfg)
+    # mask_use_pallas=False (it raised before the port had the route) runs
+    # JAX's off-TPU formula: compute_saliency_map, then image_ops' bilateral,
+    # Gaussian and normalize_max, within 1e-6 of JAX's (measured 1.8e-7)
+    got = tmasks.compute_contextual_mask(torch.from_numpy(u8), cfg).numpy()
+    want = jmasks.compute_contextual_mask(jnp.asarray(u8), jcfg)
+    assert got.shape == (2, 32, 32) and got.dtype == np.float32
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-6)
 
 
 @pytest.mark.parametrize("change", [

@@ -269,15 +269,26 @@ def test_convert_keeps_every_parameter(small_codec_variables):
 
 
 def test_codec_rejects_training_mode():
-    """Train mode refuses the w8 serving lowering (its int8 weights are
-    installed for inference). The bf16 compute dtype trains: mixed precision
+    """Train mode with dense_w8 trains the float projections, as the JAX codec
+    builds them (`w8=dense_w8 and not train`; it raised here before, the
+    name is kept): the train-mode forward equals the dense_w8=False codec's
+    on the same weights, gradients included
+    (tests/test_torch_w8_polyphase.py holds the inference-mode quantization
+    and a step against JAX). The bf16 compute dtype trains: mixed precision
     runs the train-mode forward in bf16 on the float32 parameters, and the
     backward lands float32 gradients on them
     (tests/test_torch_mixed_precision.py holds the step against JAX)."""
     img, mask, bpp = _codec_inputs()
-    with pytest.raises(NotImplementedError):
-        AdaptiveCodec(ModelConfig(**SMALL_KW, dense_w8=True)).apply(
-            torch.from_numpy(img), torch.from_numpy(mask), torch.from_numpy(bpp), train=True)
+    outs, grads = [], []
+    for w8 in (True, False):
+        codec = AdaptiveCodec(ModelConfig(**SMALL_KW, dense_w8=w8))
+        codec.reset_parameters(0)
+        out = codec.apply(torch.from_numpy(img), torch.from_numpy(mask), torch.from_numpy(bpp),
+                          train=True)
+        out.blended.square().mean().backward()
+        outs.append(out.blended.detach())
+        grads.append(codec.hq_generator.fc.weight.grad)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(grads[0], grads[1])
     codec = AdaptiveCodec(ModelConfig(**SMALL_KW, dtype="bfloat16", param_dtype="float32"))
     codec.reset_parameters(0)
     out = codec.apply(torch.from_numpy(img), torch.from_numpy(mask), torch.from_numpy(bpp),
@@ -291,16 +302,46 @@ def test_codec_rejects_training_mode():
     assert dataclasses.replace(cfg, skip_mode="zero").resolved_quantizer().grad_mode == "ste"
 
 
-@pytest.mark.parametrize("build", [
-    lambda: AdaptiveCodec(ModelConfig(**SMALL_KW, attention_use_pallas=False)),
-    lambda: AdaptiveCodec(ModelConfig(**SMALL_KW, quantizer=QuantizerConfig(use_pallas=False))),
-    lambda: adaptive_quantize(torch.zeros(2, 8), torch.zeros(2, 1), torch.zeros(2, 1),
-                              QuantizerConfig(grad_mode="ste", use_pallas=False)),
-    lambda: compute_contextual_mask(torch.zeros((1, 64, 64, 3), dtype=torch.uint8),
-                                    SaliencyConfig(mask_use_pallas=False)),
-], ids=["codec-attention", "codec-quantizer", "quantizer", "mask"])
-def test_use_pallas_false_raises(build):
-    """The port has no separate plain path on the card, so a use_pallas knob
-    set to False raises instead of silently running the kernel."""
-    with pytest.raises(NotImplementedError):
-        build()
+@pytest.mark.parametrize("case", ["codec-attention", "codec-quantizer", "quantizer", "mask"])
+def test_use_pallas_false_raises(case, small_codec_variables):
+    """A use_pallas flag set to False runs the JAX package's jnp formula, as
+    JAX does (the port raised here before it had these routes; the name is
+    kept): the codec with either flag off against JAX's with the same flag
+    (float32, gamma 0.5, random BN statistics: every output within this
+    file's codec bar 1e-4, the symbols equal), the 'ste' quantizer alone
+    (within 1e-6) and the contextual mask (within 1e-6)."""
+    rng = np.random.RandomState(8)
+    if case.startswith("codec"):
+        attn, quant = case != "codec-attention", case != "codec-quantizer"
+        jcfg = JModelConfig(**SMALL_KW, attention_use_pallas=attn,
+                            quantizer=JQuantizerConfig(use_pallas=quant))
+        tcfg = ModelConfig(**SMALL_KW, attention_use_pallas=attn,
+                           quantizer=QuantizerConfig(use_pallas=quant))
+        img, mask, bpp = _codec_inputs()
+        jout, _ = JCodec(jcfg).apply(small_codec_variables, jnp.asarray(img), jnp.asarray(mask),
+                                     jnp.asarray(bpp), train=False)
+        codec = AdaptiveCodec(tcfg)
+        codec.load_state_dict(convert_codec_variables(small_codec_variables, tcfg))
+        with torch.no_grad():
+            tout = codec.apply(torch.from_numpy(img), torch.from_numpy(mask), torch.from_numpy(bpp))
+        for field in ("blended", "hq_latent", "lq_latent", "hq_latent_q", "lq_latent_q"):
+            np.testing.assert_allclose(getattr(tout, field).numpy(),
+                                       np.asarray(getattr(jout, field)), atol=1e-4, err_msg=field)
+        for got, want in zip(_symbols(tout), _symbols(jout)):
+            np.testing.assert_array_equal(got, want)
+    elif case == "quantizer":
+        lat = rng.randn(2, 8).astype(np.float32) * 3
+        score, strength = rng.rand(2, 1).astype(np.float32), rng.rand(2, 1).astype(np.float32)
+        got = adaptive_quantize(*map(torch.from_numpy, (lat, score, strength)),
+                                QuantizerConfig(grad_mode="ste", use_pallas=False))
+        from contextual_image_compression_tpu.ops.quantize import adaptive_quantize as jq
+        want = jq(*map(jnp.asarray, (lat, score, strength)),
+                  JQuantizerConfig(grad_mode="ste", use_pallas=False))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    else:
+        from contextual_image_compression_tpu.config import SaliencyConfig as JSaliencyConfig
+        from contextual_image_compression_tpu.ops.masks import compute_contextual_mask as jmask
+        u8 = rng.randint(0, 256, (1, 64, 64, 3)).astype(np.uint8)
+        got = compute_contextual_mask(torch.from_numpy(u8), SaliencyConfig(mask_use_pallas=False))
+        want = jmask(jnp.asarray(u8), JSaliencyConfig(mask_use_pallas=False))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
