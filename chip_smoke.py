@@ -216,6 +216,32 @@ from 0 (its columns of the kernels line):
    (the .npz loaded back by load_vgg19_features; an .h5 raises naming h5py
    where it does not import).
 
+The multi-device slice adds phase (h) at the end, at full width
+(ModelConfig(), TrainConfig() with a random VGG19, global B = 16), its
+launches in the kernels line's `launches_mesh`:
+
+(h1) NCCL at world size 1: a (1, 1) mesh GANTrainer and one without take a
+   step with D from the same seeded state (losses within 1e-5 relative),
+   and a (1, 1) mesh CompressionPipeline call gives the bytes of the
+   pipeline without one (K1, K2, K3 and K3b launched on the mesh's side);
+(h2) two ranks that share cuda:0 over gloo (NCCL refuses two ranks on one
+   card), started by this script as `chip_smoke.py --mesh-rank R 2 DIR`
+   after the kernels are built and the one-device reference has run and
+   been freed: __graft_entry__.py's dryrun_multichip lifecycle: four steps
+   of the D-every-other schedule on a (1, 2) mesh (the model axis splits
+   the four projections, conv4, deconv1 / 2 and D's dense), four on a
+   (2, 1) mesh and a rank-0 save, a restore on a fresh (1, 2) mesh and two
+   more steps, each step's metrics against the one-device run of the
+   schedule (MESH_BARS; the one-device run is also held against itself),
+   the two ranks' metrics within MESH_RANK_BAR, the gathered state after
+   step 0 against the one-device run's (MESH_PARAM_BAR); then mesh serving
+   of a 3-image request (padded to 4, two a rank) and the storable round
+   trip, the same bytes, symbols and streams as the one-device pipeline
+   (cuDNN deterministic in both). It prints the
+   agreement, each rank's peak memory and stage times, the phase's wall
+   time (two processes sharing one card through gloo: a cost, not a
+   scaling figure) and the ranks' launches; a failing rank fails the run.
+
 K1's bf16 launches are counted apart (`launch_counts()`: 'K1' float32,
 'K1bf16' bf16) and K1bf16 has its own line in the kernels JSON.
 
@@ -3421,6 +3447,382 @@ def run_tool_clis(dev, card, rd_csv):
     return paths
 
 
+# ----------------------------------------------------------------- phase (h)
+# The multi-device slice: the (data, model) mesh over torch.distributed at
+# full width (the module docstring, "The multi-device slice").
+
+MESH_BATCH = 16
+MESH_SCHEDULE = (True, False) * 3  # D every other step, as dryrun_multichip's
+# |mesh - one device| <= a + r |one device|: dryrun_multichip's bar for step 0; after
+# an update 1e-3 + 1e-4 |ref|, since Adam's first step moves every parameter by
+# +-lr whatever its gradient's size, so a gradient within rounding of zero (cuDNN's
+# atomics, 8 against 16 images a call, the row-parallel order of sums) puts its
+# parameter 2 lr = 2e-4 from the one-device run's. Measured after an update: up to
+# 4.65e-4 from one device, and one device up to 3.5e-4 from itself (PERF.md)
+MESH_BARS = ((2e-4, 1e-4),) + ((1e-3, 1e-4),) * 5
+# The two ranks' metrics: on (2, 1) equal; on (1, 2) both ranks of the model group
+# compute the replicated layers, and cuDNN's per-process choices put their metrics
+# up to 6e-8 apart (measured; the parameters stay equal: reduce_gradients
+# broadcasts the first rank's gradients of the replicated leaves)
+MESH_RANK_BAR = 1e-5
+# The parameters and BatchNorm statistics after step 0, gathered from the mesh, against
+# the one-device run's. Step 0's metrics are taken before the update, so this is what
+# holds the mesh's gradients (their sum over the data group, the synchronized
+# BatchNorm's and the perceptual z-scores' backward) to one device's. Adam's first
+# step moves an element by lr g / (|g| + eps). Where one device's update is saturated,
+# |update| >= 0.99 lr (|g| >= 99 eps), any gradient of the same sign lands within
+# 0.01 lr <= 1e-6 of it, whatever its rounding: there at least MESH_PARAM_BAR[1] of
+# the elements must lie within 1e-6 (a test of the gradient's sign), and everywhere
+# within 2 lr. The share within 1e-6 over all elements (tests/test_torch_sharded_train.py's
+# rule on the CPU) is printed, not held: at full width the clip puts most elements of
+# the four projections near eps, where the update follows the gradient's rounding, and
+# one device lies 99.81-99.95% within 1e-6 of itself (PERF.md).
+MESH_PARAM_BAR = (1e-6, 0.9999)
+MESH_UPDATE_EDGES = (0.01, 0.4, 0.99)  # buckets of |one device's update| / lr
+
+
+def _mesh_data(cfg, dev):
+    """The global batch of phase (h): 16 synthetic 256^2 images, their masks
+    (K1 +1) and seeded bpps; and 3 uint8 images for the ragged serving call."""
+    from contextual_image_compression_tpu_torch.data.images import synthetic_images
+    from contextual_image_compression_tpu_torch.data.pipeline import (
+        CompressionDataset, prepare_masks)
+
+    imgs = synthetic_images(MESH_BATCH, cfg.model.img_size, seed=3)
+    masks = prepare_masks(imgs, cfg.saliency, device=dev)
+    ds = CompressionDataset(imgs, masks, batch_size=MESH_BATCH, seed=cfg.seed, device=dev)
+    u8 = np.clip(np.round((imgs[:3] + 1.0) * 127.5), 0, 255).astype(np.uint8)
+    return next(ds.epoch(shuffle=False)), u8
+
+
+def _mesh_steps(trainer, batch, schedule):
+    out = []
+    for do_d in schedule:
+        _, m = trainer.builder.train_step(trainer.state, trainer.builder.place_batch(batch), do_d)
+        out.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    return out
+
+
+def _full_state(state):
+    """The codec's and D's parameters and BatchNorm statistics, whole (the
+    split leaves gathered: a collective on a mesh), on the host."""
+    from contextual_image_compression_tpu_torch.parallel import sharding
+
+    return {f"{part}.{k}": v.detach().cpu() for part, mod in (("codec", state.codec),
+                                                              ("disc", state.disc))
+            for k, v in sharding.full_state_dict(mod).items()}
+
+
+def _step_lr(cfg, name):
+    """The learning rate of the optimizer of state entry `name` (the
+    trainer's optimizer groups; BatchNorm statistics take the base rate)."""
+    from contextual_image_compression_tpu_torch.models.adaptive import (
+        LATENT_SALIENCY_COMPONENTS, RD_COMPONENTS)
+
+    comp = name.split(".")[1]
+    scale = (cfg.ls_lr_scale if comp in LATENT_SALIENCY_COMPONENTS else
+             cfg.rd_lr_scale if comp in RD_COMPONENTS else 1.0)
+    return cfg.learning_rate * scale
+
+
+def _param_agreement(got, want, init, cfg, dev):
+    """got / want: states after step 0 from one init. Returns {"share": of
+    elements within MESH_PARAM_BAR's 1e-6, "saturated": that share where
+    want's update is saturated, "worst": largest |got - want|, "buckets":
+    [(elements, within 1e-6, same sign of the update)] by |want - init| /
+    lr (MESH_UPDATE_EDGES), "tensors": the 6 with most elements outside
+    1e-6 (name, elements, outside)}."""
+    edges = torch.tensor((0.0,) + MESH_UPDATE_EDGES + (float("inf"),), device=dev)
+    buckets = torch.zeros(len(edges) - 1, 3, dtype=torch.float64, device=dev)
+    worst, tensors = 0.0, []
+    for k, w in want.items():
+        w, g, p0 = (t.to(dev).float().reshape(-1) for t in (w, got[k], init[k]))
+        err = (g - w).abs()
+        dw, dg = w - p0, g - p0
+        which = torch.bucketize(dw.abs() / _step_lr(cfg, k), edges, right=True) - 1
+        stats = torch.stack([torch.ones_like(err), (err <= MESH_PARAM_BAR[0]).float(),
+                             (torch.sign(dw) == torch.sign(dg)).float()], 1).double()
+        buckets.index_add_(0, which, stats)
+        worst = max(worst, float(err.max()))
+        tensors.append((k, err.numel(), int((err > MESH_PARAM_BAR[0]).sum())))
+    b = buckets.cpu().tolist()
+    return {"share": sum(r[1] for r in b) / sum(r[0] for r in b),
+            "saturated": b[-1][1] / max(b[-1][0], 1), "worst": worst,
+            "buckets": [tuple(int(v) for v in r) for r in b],
+            "tensors": sorted(tensors, key=lambda t: -t[2])[:6]}
+
+
+def _mesh_pipeline(dev, mesh=None):
+    from contextual_image_compression_tpu_torch.config import ModelConfig
+    from contextual_image_compression_tpu_torch.serve import CompressionPipeline
+
+    return CompressionPipeline(model_config=ModelConfig(skip_mode="zero"), device=dev, seed=0,
+                               mesh=mesh)
+
+
+def _metric_gap(got, want, first=0):
+    """The largest |got - want| - bar over the metrics of steps first, ...
+    (MESH_BARS; <= 0 passes), and the largest relative difference."""
+    gap = max(abs(g[k] - w[k]) - (a + r * abs(w[k]))
+              for g, w, (a, r) in zip(got, want, MESH_BARS[first:]) for k in w)
+    rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30) for g, w in zip(got, want) for k in w)
+    return gap, rel
+
+
+def run_mesh_nccl(dev, card):
+    """Phase (h1): NCCL at world size 1. A (1, 1) mesh trainer and one without
+    take one step with D from the same seeded full-width state on the same
+    batch (losses within 1e-5 relative: cuDNN's backward may use atomics);
+    a (1, 1) mesh pipeline gives the bytes of the pipeline without one
+    (cuDNN deterministic). Returns the launch counts of the mesh's half."""
+    import torch.distributed as dist
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.config import TrainConfig
+    from contextual_image_compression_tpu_torch.parallel import create_mesh, initialize_multihost
+    from contextual_image_compression_tpu_torch.train.loop import GANTrainer
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        assert initialize_multihost(f"file://{tmp}/rdzv", 1, 0, local_rank=0,
+                                    backend="nccl") == (0, 1)
+        mesh = create_mesh(1, device=dev)
+        cfg = TrainConfig(vgg_weights_path="random:0", model_dir=tmp)
+        batch, u8 = _mesh_data(cfg, dev)
+        plain = GANTrainer(cfg, device=dev, log_fn=lambda msg: None)
+        plain.init_state(resume=False)
+        m_plain = _mesh_steps(plain, batch, (True,))
+        del plain
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+            ref, ref_info = _mesh_pipeline(dev)(u8)
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        meshed = GANTrainer(cfg, mesh=mesh, log_fn=lambda msg: None)
+        meshed.init_state(resume=False)
+        m_mesh = _mesh_steps(meshed, batch, (True,))
+        del meshed
+        torch.cuda.empty_cache()
+        rel = _metric_gap(m_mesh, m_plain)[1]
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+            got, got_info = _mesh_pipeline(dev, mesh)(u8)
+        counts = launch_counts()
+        dist.destroy_process_group()
+    same = np.array_equal(ref, got) and all(torch.equal(ref_info[k], got_info[k])
+                                            for k in ref_info)
+    log(f"mesh (h1) NCCL world size 1 on {card}: (1, 1) mesh step vs no mesh, losses within "
+        f"{rel:.2e} relative (bar 1e-5); (1, 1) mesh pipeline bytes equal to no mesh: {same}; "
+        f"launches {counts}; {time.perf_counter() - t_phase:.1f} s")
+    if not rel <= 1e-5 or not same:
+        raise AssertionError(f"the (1, 1) NCCL mesh differs from one device: {rel}, {same}")
+    if not all(counts[k] for k in ("K1", "K2", "K3", "K3b")):
+        raise AssertionError(f"phase (h1) launches {counts}")
+    return counts
+
+
+def _mesh_rank_main(rank, world, directory):
+    """One rank of phase (h2), on cuda:0 beside the other, over gloo: the
+    lifecycle of __graft_entry__.py's dryrun_multichip at full width."""
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.config import TrainConfig
+    from contextual_image_compression_tpu_torch.parallel import (
+        create_mesh, initialize_multihost, sharding)
+    from contextual_image_compression_tpu_torch.train.loop import GANTrainer
+
+    directory = pathlib.Path(directory)
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_multihost(f"file://{directory}/rdzv", world, rank, local_rank=0, backend="gloo")
+    ops.reset_launch_counts()
+    cfg = TrainConfig(vgg_weights_path="random:0", model_dir=str(directory / "ckpt"))
+    batch, u8 = _mesh_data(cfg, dev)
+    times, legs, split, params = {}, {}, {}, {}
+    step0_ref = torch.load(directory / "step0_ref.pt", mmap=True)
+    init_ref = torch.load(directory / "init_ref.pt", mmap=True)
+
+    def leg(label, model_parallel, resume, first, n, save=False):
+        t0 = time.perf_counter()
+        mesh = create_mesh(model_parallel, device=dev)
+        trainer = GANTrainer(cfg, mesh=mesh, log_fn=lambda msg: None)
+        trainer.init_state(resume=resume)
+        if trainer.state.step != first:
+            raise AssertionError(f"{label}: step {trainer.state.step}, want {first}")
+        split[label] = sorted(sharding.sharded_shapes(trainer.state.codec)) + [
+            f"disc.{k}" for k in sharding.sharded_shapes(trainer.state.disc)]
+        legs[label] = (first, _mesh_steps(trainer, batch, MESH_SCHEDULE[first:first + 1]))
+        if first == 0:  # the parameters after step 0 against the one-device run's
+            t_cmp = time.perf_counter()
+            params[label] = _param_agreement(_full_state(trainer.state), step0_ref, init_ref,
+                                             cfg, dev)
+            t0 += time.perf_counter() - t_cmp
+            times[f"{label}: step-0 gather and comparison"] = time.perf_counter() - t_cmp
+        legs[label][1].extend(_mesh_steps(trainer, batch, MESH_SCHEDULE[first + 1:first + n]))
+        times[f"{label}: build{', restore' if resume else ''} and {n} steps"] = \
+            time.perf_counter() - t0
+        if save:
+            t0 = time.perf_counter()
+            trainer.save("final", blocking=True)
+            times["rank-0 save"] = time.perf_counter() - t0
+        del trainer
+        torch.cuda.empty_cache()
+        return mesh
+
+    leg("(1, 2)", 2, False, 0, 4)                   # the model axis splits the big leaves
+    mesh = leg("(2, 1)", 1, False, 0, 4, save=True)  # data parallel, B = 8 a rank
+    leg("(1, 2) restored", 2, True, 4, 2)            # a fresh mesh of another shape
+    train_counts = launch_counts()
+    streams = [bytes(s) for s in np.load(directory / "streams_ref.npy", allow_pickle=True)]
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+        pipe = _mesh_pipeline(dev, mesh)
+        dec3, info3 = pipe(u8, target_bpp=1.0)
+        own_streams = pipe.encode_to_bitstream(u8, target_bpp=1.0)
+        from_streams = pipe.decode_from_bitstream(streams)
+    torch.cuda.synchronize()
+    times["serving (ragged call, encode, decode)"] = time.perf_counter() - t0
+    torch.save({"legs": legs, "params": params, "split": split, "train_counts": train_counts,
+                "counts": launch_counts(), "peak": torch.cuda.max_memory_allocated(),
+                "times": times, "dec3": dec3, "symbols": info3["hq_symbols"].cpu().numpy(),
+                "own_streams": own_streams, "from_streams": from_streams},
+               directory / f"rank{rank}.pt")
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def _identical_share(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float((a == b).mean()), int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+
+
+def run_mesh_shared_card(dev, card):
+    """Phase (h2): two ranks on cuda:0 over gloo (NCCL refuses two ranks on
+    one card). The one-device reference runs first, twice (the run against
+    itself), and is freed: six steps of the D-every-other schedule at global
+    B = 16, and the ragged serving call with its storable round trip. Then
+    the two ranks: four steps on a (1, 2) mesh (the model axis splits the
+    projections, conv4, deconv1 / 2 and D's dense), four on a (2, 1) mesh
+    and a rank-0 save, a restore on a fresh (1, 2) mesh and steps 5 and 6,
+    each step's metrics within MESH_BARS of the reference's and the ranks'
+    within MESH_RANK_BAR, the gathered state after step 0 within
+    MESH_PARAM_BAR of the reference's; then mesh serving of the 3-image
+    request (padded to 4, two a rank) and the storable round trip, the
+    same bytes, symbols and streams as one device. Returns the ranks'
+    summed launch counts."""
+    import subprocess
+
+    from contextual_image_compression_tpu_torch.config import TrainConfig
+    from contextual_image_compression_tpu_torch.train.loop import GANTrainer
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = TrainConfig(vgg_weights_path="random:0", model_dir=tmp)
+        batch, u8 = _mesh_data(cfg, dev)
+        torch.cuda.reset_peak_memory_stats()
+        m_refs, step0 = [], []
+        for _ in range(2):  # twice: the one-device run against itself
+            ref = GANTrainer(cfg, device=dev, log_fn=lambda msg: None)
+            ref.init_state(resume=False)
+            if not step0:
+                init = _full_state(ref.state)
+            m_refs.append(_mesh_steps(ref, batch, MESH_SCHEDULE[:1]))
+            step0.append(_full_state(ref.state))
+            m_refs[-1].extend(_mesh_steps(ref, batch, MESH_SCHEDULE[1:]))
+            del ref
+            torch.cuda.empty_cache()
+        m_ref = m_refs[0]
+        params_self = _param_agreement(step0[1], step0[0], init, cfg, dev)
+        torch.save(step0[0], os.path.join(tmp, "step0_ref.pt"))
+        torch.save(init, os.path.join(tmp, "init_ref.pt"))
+        del step0, init
+        ref_peak = torch.cuda.max_memory_allocated()
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+            pipe = _mesh_pipeline(dev)
+            dec3, info3 = pipe(u8, target_bpp=1.0)
+            streams = pipe.encode_to_bitstream(u8, target_bpp=1.0)
+            from_streams = pipe.decode_from_bitstream(streams)
+        del pipe, batch
+        np.save(os.path.join(tmp, "streams_ref.npy"), np.array(streams, dtype=object),
+                allow_pickle=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t_ranks = time.perf_counter()
+        env = dict(os.environ, PYTHONUNBUFFERED="1")
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                                   str(r), "2", tmp], env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        t_ranks = time.perf_counter() - t_ranks
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"phase (h2) rank {r} failed ({p.returncode}):\n{out[-6000:]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        files = sorted(f for f in os.listdir(os.path.join(tmp, "ckpt")))
+    legs = ranks[0]["legs"]
+    gap = max(_metric_gap(m, m_ref[first:], first)[0] for first, m in legs.values())
+    rank_gaps = {label: max(abs(a[k] - b[k]) for a, b in zip(got, ranks[1]["legs"][label][1])
+                            for k in a) for label, (_, got) in legs.items()}
+    dec_share, dec_max = _identical_share(ranks[0]["dec3"], dec3)
+    sym_share, sym_max = _identical_share(ranks[0]["symbols"], info3["hq_symbols"].cpu().numpy())
+    streams_equal = sum(a == b for a, b in zip(ranks[0]["own_streams"], streams))
+    rt_share, rt_max = _identical_share(ranks[0]["from_streams"], from_streams)
+    counts = {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
+    split = ranks[0]["split"]
+    params = ranks[0]["params"]
+    params_ok = all(r["params"] == params for r in ranks) and all(
+        p["saturated"] >= MESH_PARAM_BAR[1] and p["worst"] <= 2 * cfg.learning_rate
+        for p in params.values())
+    log(f"mesh (h2) two ranks on one card over gloo, full width, global B = {MESH_BATCH}, "
+        f"on {card}: leaves split on (1, 2): {len(split['(1, 2)'])} "
+        f"({', '.join(split['(1, 2)'])}), on (2, 1): {len(split['(2, 1)'])}; files of the "
+        f"rank-0 save: {len(files)}, {', '.join(files)}")
+    for label, (first, got) in legs.items():
+        for i, g in enumerate(got, first):
+            want, again = m_ref[i], m_refs[1][i]
+            worst = max(want, key=lambda k: abs(g[k] - want[k]))
+            log(f"  {label} step {i} ({'D' if MESH_SCHEDULE[i] else 'no D'}): largest |mesh - "
+                f"one device| {abs(g[worst] - want[worst]):.2e} ({worst} {g[worst]:.7g}), bar "
+                f"{MESH_BARS[i][0]:.0e} + {MESH_BARS[i][1]:.0e} |ref|; one device against "
+                f"itself {max(abs(again[k] - want[k]) for k in want):.2e}")
+    for label, p in [*params.items(), ("one device against itself", params_self)]:
+        log(f"  state after step 0, {label}: where one device's update is saturated "
+            f"{p['saturated']:.8f} within {MESH_PARAM_BAR[0]:.0e} (bar >= {MESH_PARAM_BAR[1]}), "
+            f"all {p['share']:.6f}; largest {p['worst']:.3e} (bar 2 lr = "
+            f"{2 * cfg.learning_rate:.0e}); by |one device's update| / lr, edges "
+            f"{MESH_UPDATE_EDGES} (elements, within, same sign): {p['buckets']}; most outside: "
+            f"{p['tensors']}")
+    log(f"  largest excess over the bars {gap:.3e} (<= 0 passes); largest |rank 1 - rank 0| "
+        f"of a metric: " + ", ".join(f"{k} {v:.2e}" for k, v in rank_gaps.items())
+        + f" (bar {MESH_RANK_BAR:.0e})")
+    log(f"  serving, 3 images padded to 4 (two a rank) against one device (cuDNN deterministic "
+        f"in both): decoded bytes identical {dec_share:.6f} (max |diff| {dec_max}), HQ symbols "
+        f"identical {sym_share:.6f} (max {sym_max}); streams byte-identical {streams_equal} / 3; "
+        f"the reference's streams decoded on the mesh: identical {rt_share:.6f} (max {rt_max})")
+    for r, rk in enumerate(ranks):
+        log(f"  rank {r}: peak memory {rk['peak'] / 2**30:.2f} GiB; "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in rk["times"].items())
+            + f"; launches training {rk['train_counts']}, whole {rk['counts']}")
+    log(f"  one-device reference peak {ref_peak / 2**30:.2f} GiB; phase wall time "
+        f"{time.perf_counter() - t_phase:.1f} s (ranks {t_ranks:.1f} s, two processes sharing "
+        f"the card through gloo: a cost, not a scaling figure)")
+    if gap > 0 or max(rank_gaps.values()) > MESH_RANK_BAR or not params_ok:
+        raise AssertionError(f"phase (h2): the mesh steps differ from one device ({gap}, "
+                             f"parameters {params}) or between the ranks ({rank_gaps})")
+    if not split["(1, 2)"] or split["(2, 1)"] or "optimizers_final.msgpack" not in files:
+        raise AssertionError(f"phase (h2): leaves split {split}, files {files}")
+    if dec_max or sym_max or rt_max or streams_equal != len(streams):
+        raise AssertionError("phase (h2): mesh serving differs from one device")
+    if not all(counts[k] for k in ("K1", "K2", "K3", "K3b")):
+        raise AssertionError(f"phase (h2) launches {counts}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3513,21 +3915,24 @@ def main():
     dense_w8 = run_dense_w8_training(dev, card)
     no_pallas = run_use_pallas_false(dev, card)
     tools = run_tool_clis(dev, card, rd_csv)
+    mesh = run_mesh_nccl(dev, card)
+    mesh_ranks = run_mesh_shared_card(dev, card)
+    mesh = {k: mesh[k] + mesh_ranks[k] for k in mesh}
     paths = {"serving": serving, "jax_trained_serving": jax_trained,
              "checkpoint_serving": from_checkpoint, "w8a8_serving": w8a8_serving,
              "training": training, "mixed_training": mixed_training, "masks": mask_path,
              "fft_core_masks": fft_masks, "dct": dct_path, "entry_points": entry_points,
              "storable_codec": codec_path, "evaluation": evaluation,
              "training_flow": training_flow, **clis, "bf16_param_training": bf16_params,
-             "dense_w8_training": dense_w8, **no_pallas, **tools}
+             "dense_w8_training": dense_w8, **no_pallas, **tools, "mesh": mesh}
     serving_paths = ("serving", "jax_trained_serving", "checkpoint_serving", "w8a8_serving",
                      "training", "mixed_training", "storable_codec", "training_flow",
                      "eval_bitstream_cli", "shootout_cli")
     options = ("bf16_param_training", "dense_w8_training", "profile_codec_cli")
-    runs_it = {"K1": serving_paths + ("fft_core_masks", "profile_codec_cli"),
-               "K2": serving_paths + ("evaluation",) + options,
-               "K3": serving_paths + ("evaluation",) + options,
-               "K3b": ("training", "mixed_training", "training_flow") + options[:2],
+    runs_it = {"K1": serving_paths + ("fft_core_masks", "profile_codec_cli", "mesh"),
+               "K2": serving_paths + ("evaluation", "mesh") + options,
+               "K3": serving_paths + ("evaluation", "mesh") + options,
+               "K3b": ("training", "mixed_training", "training_flow", "mesh") + options[:2],
                "K4": ("masks", "fft_core_masks"), "K5": ("dct", "compress_cli", "shootout_cli"),
                "K6": ("entry_points",), "K7a": ("entry_points",), "K7b": ("entry_points",),
                "K8": ("entry_points",), "K1bf16": ("evaluation",)}
@@ -3554,4 +3959,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase (h2), started by the script itself
+        _mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -45,6 +45,7 @@ from contextual_image_compression_tpu_torch.config import (
     DCTCodecConfig,
     EvalConfig,
     LossConfig,
+    MeshConfig,
     ModelConfig,
     QuantizerConfig,
     SaliencyConfig,
@@ -52,5 +53,5 @@ from contextual_image_compression_tpu_torch.config import (
 )
 from contextual_image_compression_tpu_torch.version import __version__
 
-__all__ = ["AutoencoderConfig", "DCTCodecConfig", "EvalConfig", "LossConfig", "ModelConfig", "QuantizerConfig",
+__all__ = ["AutoencoderConfig", "DCTCodecConfig", "EvalConfig", "LossConfig", "MeshConfig", "ModelConfig", "QuantizerConfig",
            "SaliencyConfig", "TrainConfig", "__version__"]

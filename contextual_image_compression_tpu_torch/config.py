@@ -5,8 +5,8 @@ Field names and defaults are those of `contextual_image_compression_tpu.config`
 `TrainConfig`, `EvalConfig`, `DCTCodecConfig`, `AutoencoderConfig`), and
 `analytic_bpp` is its function, so a default-constructed config describes
 the same codec, mask engine, DCT baseline, GAN training run, evaluation
-and autoencoder in both packages. `MeshConfig` comes with the
-multi-device slice.
+and autoencoder in both packages. `MeshConfig` names the (data, model) mesh
+of parallel/mesh.py.
 """
 
 from __future__ import annotations
@@ -222,6 +222,16 @@ class TrainConfig:
     results_dir: str = "results"
     model_dir: str = "models_ckpt"
     sample_visualizations: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh of distributed training: its axis names and the
+    model-parallel degree; data parallelism fills the rest of the ranks."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallel: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,9 +13,8 @@ Counterpart of `contextual_image_compression_tpu/data/pipeline.py`:
     `np.random.RandomState(seed)` in the JAX dataset's order, so equal seeds
     give equal orders and bpps in both packages. `device_resident=True`
     keeps the corpus on the card and gathers each batch there.
-
-The multi-process sharding fields of the JAX dataset come with the
-multi-device slice.
+    `process_index` / `process_count` shard the corpus over nodes as the
+    JAX dataset shards it over processes (see the class).
 """
 
 from __future__ import annotations
@@ -68,7 +67,16 @@ class CompressionDataset:
     """Epoch iterator over (image, mask, bpp) batches on `device`.
 
     target_bpp=None draws a random bpp per sample from `bpp_range`; a float
-    fixes it (the fine-tune phase)."""
+    fixes it (the fine-tune phase).
+
+    Multi-node data sharding: construct with the global batch_size and this
+    node's (process_index, process_count); the dataset keeps the strided
+    shard images[process_index::process_count] and yields local batches of
+    batch_size // process_count samples from RandomState(seed +
+    process_index), as the JAX dataset does; parallel/sharding.py's
+    shard_batch splits that node-local batch over the node's ranks. After
+    construction the fields are the local view (process 0 of 1), so a view
+    (with_target_bpp) does not slice again."""
 
     images: np.ndarray  # (N, H, W, 3) in [-1, 1]
     masks: np.ndarray   # (N, H, W, 1) in [0, 1]
@@ -79,10 +87,24 @@ class CompressionDataset:
     drop_remainder: bool = True
     device_resident: bool = False
     device: str = "cuda"
+    process_index: int = 0
+    process_count: int = 1
 
     def __post_init__(self):
         if len(self.images) != len(self.masks):
             raise ValueError("images and masks differ in length")
+        if not 0 <= self.process_index < self.process_count:
+            raise ValueError(f"process_index {self.process_index} out of range for "
+                             f"process_count {self.process_count}")
+        if self.batch_size % self.process_count:
+            raise ValueError(f"global batch_size {self.batch_size} not divisible by "
+                             f"process_count {self.process_count}")
+        if self.process_count > 1:
+            self.images = self.images[self.process_index::self.process_count]
+            self.masks = self.masks[self.process_index::self.process_count]
+            self.batch_size //= self.process_count
+            self.seed += self.process_index  # disjoint shuffle / bpp streams
+            self.process_index, self.process_count = 0, 1
         self._device = resolve_device(self.device)
         self._rng = np.random.RandomState(self.seed)
         if self.device_resident:

@@ -1,7 +1,7 @@
 """GAN codec evaluation harness.
 
 Counterpart of `contextual_image_compression_tpu/eval/harness.py::
-CodecEvaluator`, on one device (meshes come with the multi-device slice):
+CodecEvaluator`, on one device or a (data, model) mesh:
 
   * `load_models`: the codec's components from a checkpoint directory of
     the JAX package's files, by the store's ladder final -> latest epoch_N
@@ -25,6 +25,12 @@ The masks come from `data/pipeline.py::prepare_masks` with
 route). The codec runs in `EvalConfig.model`'s dtype: K2 in the HQ encoder,
 K3 on both latents. Artifacts: metrics.txt is written before the images and
 plots, so it exists where matplotlib (the plots) is missing.
+
+`mesh=` (parallel/mesh.py): the codec's parameters are placed by the state
+rules (parallel/sharding.py: the largest split over 'model', the latent and
+fc projections then computing over the model group) and each device batch
+is split over 'data'; the outputs are gathered back, so every rank holds
+every result, and mesh position 0 alone writes the artifacts.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from contextual_image_compression_tpu_torch.eval import plots
 from contextual_image_compression_tpu_torch.models.adaptive import AdaptiveCodec, CodecOutput
 from contextual_image_compression_tpu_torch.ops import bitstream
 from contextual_image_compression_tpu_torch.ops import metrics as metric_ops
+from contextual_image_compression_tpu_torch.parallel import sharding
 
 # The bpps of the bit-allocation panels of the rate-control artifacts.
 _VIS_BPPS = (0.1, 1.0, 2.0)
@@ -52,11 +59,15 @@ _VIS_BPPS = (0.1, 1.0, 2.0)
 class CodecEvaluator:
     """Evaluates a codec of `cfg.model` on `device` ('cuda' unless the caller
     asks for the CPU, where every kernel wrapper runs its plain twin).
-    `seed` seeds the port's init of components a checkpoint lacks."""
+    `seed` seeds the port's init of components a checkpoint lacks; `mesh`
+    see the module docstring."""
 
-    def __init__(self, cfg: EvalConfig = EvalConfig(), device="cuda", seed: int = 0):
+    def __init__(self, cfg: EvalConfig = EvalConfig(), device="cuda", seed: int = 0,
+                 mesh=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.is_writer
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.seed = seed
         with torch.device(self.device):
             self.codec = AdaptiveCodec(cfg.model)
@@ -75,6 +86,8 @@ class CodecEvaluator:
             if provenance[comp] != "init":
                 getattr(self.codec, comp).load_state_dict(
                     convert.component_state(comp, tree, self.cfg.model))
+        if self.mesh is not None:
+            sharding.shard_state(self.codec, self.mesh)
         return self.codec, provenance
 
     # ------------------------------------------------------------- inference
@@ -97,7 +110,11 @@ class CodecEvaluator:
             img = torch.from_numpy(np.ascontiguousarray(img_np, np.float32)).to(self.device)
             mask = torch.from_numpy(np.ascontiguousarray(mask_np, np.float32)).to(self.device)
             bpp_t = torch.full((bs, 1), bpp, dtype=torch.float32, device=self.device)
-            out = codec.apply(img, mask, bpp_t)
+            if self.mesh is None:
+                out = codec.apply(img, mask, bpp_t)
+            else:
+                part = sharding.shard_batch((img, mask, bpp_t), self.mesh, node_local=False)
+                out = sharding.gather_batch(codec.apply(*part), self.mesh.data)
             if n < bs:
                 out = CodecOutput(*(x[:n] for x in out))
             outs.append(out)
@@ -184,7 +201,7 @@ class CodecEvaluator:
                 for k, v in results_by_bpp[bpp].items()
             }
 
-            if save_artifacts:
+            if save_artifacts and self.writer:
                 bpp_dir = os.path.join(results_dir, f"bpp_{bpp}")
                 out_dir = os.path.join(bpp_dir, "compressed")
                 vis_dir = os.path.join(bpp_dir, "visualizations")
@@ -260,6 +277,7 @@ class CodecEvaluator:
                     r = self.compress_and_reconstruct(codec, sub_images, sub_masks, bpp)
                     for i in range(k):
                         allocations_per_image[i][bpp] = r["bit_allocation"][i]
+        if save_artifacts and self.writer:
             rc_dir = os.path.join(results_dir, "rate_control_test")
             image_io.create_directories([rc_dir])
             for i, name in enumerate(sub_names):
@@ -284,9 +302,10 @@ class CodecEvaluator:
             print("No test images found!")
             return None
         masks = prepare_masks(images, cfg.saliency, device=self.device)
-        image_io.create_directories([cfg.results_dir])
+        if self.writer:
+            image_io.create_directories([cfg.results_dir])
         results = self.test_compression(codec, images, masks, file_names)
         self.test_rate_control(codec, images, masks, file_names)
-        if results["avg_metrics"]:
+        if results["avg_metrics"] and self.writer:
             plots.plot_rate_distortion_curve(results["avg_metrics"], cfg.results_dir)
         return results

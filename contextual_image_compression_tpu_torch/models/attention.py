@@ -13,7 +13,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from contextual_image_compression_tpu_torch.models.layers import KConv
+from contextual_image_compression_tpu_torch.models.layers import KConv, used
 from contextual_image_compression_tpu_torch.ops.attention import attention_block
 
 
@@ -39,8 +39,9 @@ class SelfAttention(nn.Module):
         xf = x.flatten(2).transpose(1, 2)  # (B, HW, C)
 
         def proj(conv):
-            wm = conv.weight.to(dt).reshape(conv.weight.shape[0], c)
-            return F.linear(xf, wm) + conv.bias.to(dt)
+            w = used(conv, "weight")
+            wm = w.to(dt).reshape(w.shape[0], c)
+            return F.linear(xf, wm) + used(conv, "bias").to(dt)
 
         q, k, v = proj(self.query_conv), proj(self.key_conv), proj(self.value_conv)
         out = attention_block(q, k, v, xf.contiguous(), self.gamma.to(dt)[0],

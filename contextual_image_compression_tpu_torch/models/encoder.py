@@ -54,7 +54,9 @@ class Encoder(nn.Module):
         self.conv4 = KConv(c3, c4, 4, 2)
         self.bn4 = KBatchNorm(c4)
         flat = c4 * (img_size[0] // 16) * (img_size[1] // 16)
-        self.latent_dense = KDense(flat, latent_dim, w8=dense_w8, int8=dense_int8)
+        # row-parallel on a mesh that splits it
+        self.latent_dense = KDense(flat, latent_dim, w8=dense_w8, int8=dense_int8,
+                                   tensor_parallel=True)
 
     def reset_parameters(self, gen: torch.Generator):
         for m in (self.conv1, self.conv2, self.conv3, self.conv4, self.latent_dense):

@@ -25,6 +25,7 @@ from contextual_image_compression_tpu_torch.models.layers import (
     KConvT,
     KDense,
     leaky_relu,
+    used,
 )
 from contextual_image_compression_tpu_torch.models.packed_tail import packed_tail_forward
 
@@ -51,8 +52,9 @@ class Generator(nn.Module):
         self.base_hw, self.base_ch = base_hw, base_ch
         self.leaky_slope = leaky_slope
         self.packed_tail, self.packed_tail_int8 = packed_tail, packed_tail_int8
+        # column-parallel on a mesh that splits it
         self.fc = KDense(latent_dim, base_hw * base_hw * base_ch, w8=dense_w8,
-                         int8=dense_int8)
+                         int8=dense_int8, tensor_parallel=True)
         self.bn0 = KBatchNorm(base_ch)
         # skips concat after deconv1..3: skip3, skip2, skip1
         concat = (skip_channels[2], skip_channels[1], skip_channels[0], 0)
@@ -83,9 +85,10 @@ class Generator(nn.Module):
         if self.packed_tail and not train:
             bn = self.bn4
             return packed_tail_forward(
-                x, self.deconv4.weight.to(x.dtype), self.deconv4.bias.to(x.dtype),
-                bn.weight, bn.bias, bn.running_mean, bn.running_var,
-                self.out_conv.weight, self.out_conv.bias.to(x.dtype),
+                x, used(self.deconv4, "weight").to(x.dtype),
+                used(self.deconv4, "bias").to(x.dtype),
+                used(bn, "weight"), used(bn, "bias"), bn.running_mean, bn.running_var,
+                used(self.out_conv, "weight"), used(self.out_conv, "bias").to(x.dtype),
                 bn_eps=bn.eps, leaky_slope=s, int8_planar=self.packed_tail_int8,
             )
         x = leaky_relu(self.bn4(self.deconv4(x), train), s)

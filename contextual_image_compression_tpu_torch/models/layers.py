@@ -14,6 +14,11 @@ cast's backward carries the gradient to the float32 parameter.
 
 flax's SAME padding is asymmetric for even kernels: k4/s1 pads (1, 2), k4/s2
 pads (1, 1) and k3/s2 pads (0, 1) on each spatial axis.
+
+On a mesh (parallel/sharding.py), a parameter split over the model axis is
+gathered where it is used (`used`), and KBatchNorm's batch statistics are
+taken over the global batch; the codec's latent / fc projections compute
+over the model group (`KDense.tensor_parallel`).
 """
 
 from __future__ import annotations
@@ -35,6 +40,15 @@ def const(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tenso
     rounds the constant to the tensor's dtype first, as JAX does with a
     Python scalar."""
     return torch.full((), value, dtype=dtype, device=device)
+
+
+def used(module: nn.Module, name: str) -> torch.Tensor:
+    """Parameter `name` of `module` whole: a slice split over the model
+    axis (parallel/sharding.py) is gathered, its gradient going back to the
+    slice."""
+    t = getattr(module, name)
+    shard = getattr(module, "_shards", {}).get(name)
+    return t if shard is None else shard.gather(t)
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
@@ -76,12 +90,12 @@ class KConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ph = same_pads(x.shape[-2], self.kernel, self.stride)
         pw = same_pads(x.shape[-1], self.kernel, self.stride)
-        w = self.weight.to(x.dtype)
+        w = used(self, "weight").to(x.dtype)
         if ph[0] == ph[1] and pw[0] == pw[1]:
             y = F.conv2d(x, w, stride=self.stride, padding=(ph[0], pw[0]))
         else:
             y = F.conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), w, stride=self.stride)
-        return y + self.bias.to(x.dtype)[:, None, None]
+        return y + used(self, "bias").to(x.dtype)[:, None, None]
 
 
 class KConvT(nn.Module):
@@ -108,12 +122,12 @@ class KConvT(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.to(x.dtype)
+        w = used(self, "weight").to(x.dtype)
         if self.polyphase:
             y = _polyphase_deconv(x, w)
         else:
             y = F.conv_transpose2d(x, w, stride=2, padding=1)
-        return y + self.bias.to(x.dtype)[:, None, None]
+        return y + used(self, "bias").to(x.dtype)[:, None, None]
 
 
 def _polyphase_deconv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -156,11 +170,21 @@ class KDense(nn.Module):
     int8=True is the W8A8 form (`dense_int8`), at inference only: a forward
     with train=True takes the float path, as the JAX codec builds the layer
     with `int8=dense_int8 and not train`. w8 wins over int8, as in the JAX
-    layer."""
+    layer.
 
-    def __init__(self, cin: int, features: int, w8: bool = False, int8: bool = False):
+    tensor_parallel=True (the codec's latent and fc projections): on a mesh
+    that splits the float weight, the product runs over the model group,
+    row-parallel when the inputs are split (each rank multiplies its slice
+    of x by its rows, the partial products are summed in float32 and the
+    bias is added once) and column-parallel when the outputs are (the
+    slices' outputs are gathered). Otherwise a split weight is gathered at
+    use, w8 and int8 forms included."""
+
+    def __init__(self, cin: int, features: int, w8: bool = False, int8: bool = False,
+                 tensor_parallel: bool = False):
         super().__init__()
         self.w8, self.int8 = w8, int8
+        self.tensor_parallel = tensor_parallel
         self.weight = nn.Parameter(torch.zeros(features, cin))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("weight_q", None)
@@ -182,16 +206,32 @@ class KDense(nn.Module):
             if self.weight_q is not None:
                 w = self.weight_q.to(cd) * self.w8_scale.to(cd)
             else:
-                q, s = w8_quantize(self.weight)
+                q, s = w8_quantize(used(self, "weight"))
                 w = q.to(cd) * s.to(cd)
         else:
             if self.weight is None:
                 raise TypeError("KDense holds int8 rows only (prepare_w8): its float path "
                                 "(train=True, or w8=False) has no weight")
             if self.int8 and not train:
-                return dense_w8a8(x, self.weight, self.bias)
-            w = self.weight.to(cd)
-        return F.linear(x, w) + self.bias.to(cd)
+                return dense_w8a8(x, used(self, "weight"), used(self, "bias"))
+            shard = getattr(self, "_shards", {}).get("weight")
+            if shard is not None and self.tensor_parallel:
+                return self._tensor_parallel(x, shard)
+            w = used(self, "weight").to(cd)
+        return F.linear(x, w) + used(self, "bias").to(cd)
+
+    def _tensor_parallel(self, x: torch.Tensor, shard) -> torch.Tensor:
+        from contextual_image_compression_tpu_torch.parallel import collectives as C
+
+        cd, g = x.dtype, shard.group
+        x = C.copy_to(x, g)
+        w = self.weight.to(cd)
+        if shard.dim == 1:  # inputs split: row-parallel
+            xs = x.chunk(g.size, -1)[g.index]
+            y = C.sum_replicated(F.linear(xs, w).float(), g).to(cd)
+        else:               # outputs split: column-parallel
+            y = C.gather_replicated(F.linear(x, w), g, -1)
+        return y + used(self, "bias").to(cd)
 
 
 def _symmetric_int8(x32: torch.Tensor, dim: int):
@@ -279,13 +319,20 @@ class KBatchNorm(nn.Module):
     update running = 0.99 * running + 0.01 * batch is not applied in the
     forward: the batch statistics wait in `pending` until
     `commit_batch_stats()`, so the caller decides which forward's statistics
-    count."""
+    count.
+
+    On a mesh (`mesh`, set by parallel/sharding.py's shard_state) with more
+    than one data index, train=True takes the float32 sums of x and x^2 and
+    the count over the global batch (all-reduced over the data group, with
+    their gradient), so `pending` holds the global statistics, as the JAX
+    layer computes them under SPMD."""
 
     momentum = 0.99
 
     def __init__(self, features: int, eps: float = 1e-3):
         super().__init__()
         self.eps = eps
+        self.mesh = None
         self.weight = nn.Parameter(torch.ones(features))  # flax 'scale'
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -295,8 +342,18 @@ class KBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
             x32 = x.float()
-            mean = x32.mean(dim=(0, 2, 3))
-            var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            group = self.mesh.data_parallel_group() if self.mesh is not None else None
+            if group is None:
+                mean = x32.mean(dim=(0, 2, 3))
+                var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            else:
+                from contextual_image_compression_tpu_torch.parallel import collectives as C
+
+                n = x32.numel() // x32.shape[1] * group.size
+                sums = C.sum_shared(torch.stack([x32.sum(dim=(0, 2, 3)),
+                                                 (x32 * x32).sum(dim=(0, 2, 3))]), group)
+                mean = sums[0] / n
+                var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
             self.pending = (mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var

@@ -1,8 +1,8 @@
 """Serving pipeline: uint8 RGB images in -> decoded uint8 images out.
 
 Counterpart of `CompressionPipeline.__call__` in
-`contextual_image_compression_tpu/serve.py`, on one device: contextual mask
-(K1) -> adaptive GAN codec (K2 in the HQ encoder, K3 on both latents) ->
+`contextual_image_compression_tpu/serve.py`, on one device or a mesh:
+contextual mask (K1) -> adaptive GAN codec (K2 in the HQ encoder, K3 on both latents) ->
 uint8, plus the fp32 bitstream symbols computed from the latents before
 quantization. The serving configuration is the JAX package's: bfloat16
 compute, the folded generator tail with int8 storage, and weight-only int8
@@ -18,8 +18,15 @@ needs a codec trained with skip_mode='zero' (or 'mask'): with the
 reference's encoder skips the latents do not carry the whole image.
 
 `model_dir=` serves a checkpoint directory of the JAX package's files
-(checkpoint/store.py), with the JAX pipeline's provenance. Meshes come with
-a later slice.
+(checkpoint/store.py), with the JAX pipeline's provenance.
+
+`mesh=` (parallel/mesh.py) serves data-parallel over every rank of the
+mesh, as the JAX pipeline shards a request over data x model: the
+parameters are replicated, every rank is given the whole request, which
+is padded to a multiple of the mesh's size by `_padded_batch`, runs its
+slice, and gathers the decoded images and the info from the others, so
+each rank returns the whole answer. `decode_from_bitstream` pads a ragged
+batch of containers the same way.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from contextual_image_compression_tpu_torch.ops.saliency import (
     _full_fp32_matmul,
     resize_op_matrix,
 )
+from contextual_image_compression_tpu_torch.parallel import sharding
 
 
 def load_codec_checkpoint(codec: AdaptiveCodec, model_dir: str) -> Dict[str, str]:
@@ -103,8 +111,11 @@ class CompressionPipeline:
         device="cuda",
         seed: int = 0,
         model_dir: Optional[str] = None,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._world = mesh.world.size if mesh is not None else 1
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.mcfg = _serving_model_config(model_config or ModelConfig())
         self.scfg = saliency_config or SaliencyConfig()
         with torch.device(self.device):
@@ -164,14 +175,23 @@ class CompressionPipeline:
 
     def _padded_batch(self, b: int) -> int:
         """The smallest batch size already run that fits b, else the next
-        power of two."""
+        power of two, rounded up to a multiple of the mesh's size."""
         fitting = [c for c in self._seen_batches if c >= b]
         if fitting:
             return min(fitting)
         p = 1
         while p < b:
             p *= 2
-        return p
+        return -(-p // self._world) * self._world
+
+    def _on_mesh(self, fn, *args):
+        """fn on this rank's slice of args (leading axis split over the
+        whole mesh), its outputs gathered from every rank."""
+        if self.mesh is None:
+            return fn(*args)
+        w, pos = self._world, self.mesh.position
+        out = fn(*(a.chunk(w, 0)[pos] for a in args))
+        return sharding.gather_batch(out, self.mesh.world)
 
     def __call__(self, images_u8, target_bpp: float = 1.0) -> Tuple[np.ndarray, Dict]:
         imgs = torch.as_tensor(images_u8)
@@ -185,7 +205,7 @@ class CompressionPipeline:
         imgs = imgs.to(self.device)
         bpp = torch.full((bp, 1), float(target_bpp), dtype=self.mcfg.compute_dtype(),
                          device=self.device)
-        decoded, info = self._run(imgs, bpp)
+        decoded, info = self._on_mesh(self._run, imgs, bpp)
         self._seen_batches.add(bp)
         if bp != b:
             decoded = decoded[:b]
@@ -243,5 +263,9 @@ class CompressionPipeline:
 
         bpp = torch.tensor([[p["target_bpp"]] for p in parts], dtype=torch.float32,
                            device=self.device)
-        out = self._decode(stack("hq_latent"), stack("lq_latent"), stack("mask_small"), bpp)
-        return out.cpu().numpy()
+        args = [stack("hq_latent"), stack("lq_latent"), stack("mask_small"), bpp]
+        b = len(parts)
+        bp = self._padded_batch(b) if self.mesh is not None else b
+        if bp != b:
+            args = [torch.cat([a, a.new_zeros((bp - b,) + tuple(a.shape[1:]))]) for a in args]
+        return self._on_mesh(self._decode, *args)[:b].cpu().numpy()

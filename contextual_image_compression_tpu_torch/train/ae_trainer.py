@@ -7,6 +7,14 @@ of the seed), per-epoch train and validation MSE, and checkpoints in the
 JAX package's files (component `autoencoder`, through convert.py), so
 either package loads what the other saved, `runs/ae_ref` included.
 Images cross the API as NHWC numpy arrays in [0, 1], as in JAX.
+
+`mesh=` (parallel/mesh.py) trains on a (data, model) mesh as the JAX
+trainer does under SPMD: the parameters and Adam moments placed by the
+state rules (parallel/sharding.py), each batch split over 'data', the loss
+the global batch's mean and the gradients summed over the data group; the
+validation loss is every rank's over the whole held-out set. `save` gathers
+the split leaves on every rank and mesh position 0 writes; `load` reads the
+whole tensors and places them.
 """
 
 from __future__ import annotations
@@ -25,14 +33,18 @@ from contextual_image_compression_tpu_torch.config import (
     torch_dtype,
 )
 from contextual_image_compression_tpu_torch.models.autoencoder import Autoencoder
+from contextual_image_compression_tpu_torch.parallel import sharding
+from contextual_image_compression_tpu_torch.train.losses import mean
 
 
 class AETrainer:
     def __init__(self, cfg: AutoencoderConfig = AutoencoderConfig(),
-                 log_fn: Callable[[str], None] = print, device="cuda"):
+                 log_fn: Callable[[str], None] = print, device="cuda", mesh=None):
         self.cfg = cfg
         self.log = log_fn
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.group = mesh.data_parallel_group() if mesh is not None else None
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.compute_dtype = torch_dtype(cfg.dtype)
         with torch.device(self.device):
             self.model = Autoencoder(out_channels=cfg.channels, enc_channels=cfg.enc_channels,
@@ -49,6 +61,8 @@ class AETrainer:
         return self.model
 
     def _fresh_optimizer(self) -> None:
+        if self.mesh is not None:
+            sharding.shard_state(self.model, self.mesh)
         self.opt = torch.optim.Adam(self.model.parameters(), lr=self.cfg.learning_rate,
                                     betas=(0.9, 0.999), eps=1e-8)
 
@@ -56,9 +70,9 @@ class AETrainer:
         x = torch.as_tensor(np.asarray(images, np.float32)).to(self.device)
         return x.permute(0, 3, 1, 2).to(self.compute_dtype)
 
-    def _loss(self, x: torch.Tensor) -> torch.Tensor:
+    def _loss(self, x: torch.Tensor, group=None) -> torch.Tensor:
         d = self.model(x) - x.float()
-        return torch.mean(d * d)
+        return mean(d * d, group)
 
     def fit(self, images: np.ndarray, epochs: Optional[int] = None,
             batch_size: Optional[int] = None, seed: int = 42) -> Dict[str, List[float]]:
@@ -83,8 +97,12 @@ class AETrainer:
             for start in range(0, len(train_idx) - batch_size + 1, batch_size):
                 batch = self._nchw(images[train_idx[start:start + batch_size]])
                 self.opt.zero_grad(set_to_none=True)
-                loss = self._loss(batch)
+                if self.mesh is not None:
+                    batch = sharding.shard_batch(batch, self.mesh)
+                loss = self._loss(batch, self.group)
                 loss.backward()
+                if self.mesh is not None:
+                    sharding.reduce_gradients(self.model, self.mesh)
                 self.opt.step()
                 losses.append(loss.detach())
             train_loss = (float(np.mean(torch.stack(losses).double().cpu().numpy()))
@@ -109,14 +127,23 @@ class AETrainer:
 
     # ---------------------------------------------------------------- persist
     def save(self, directory: str, tag: str = "final") -> str:
-        return CheckpointStore(directory).save_component(
-            "autoencoder", convert.layer_variables(self.model), tag)
+        store = CheckpointStore(directory)
+        if self.mesh is None:
+            return store.save_component("autoencoder", convert.layer_variables(self.model), tag)
+        tensors = sharding.full_state_dict(self.model)
+        if not self.mesh.is_writer:
+            return store._path("autoencoder", tag)
+        return store.save_component(
+            "autoencoder", convert.layer_variables(self.model, tensors=tensors), tag)
 
     def load(self, directory: str, tag: str = "final") -> Autoencoder:
         """Load the `autoencoder` component at `tag` (no ladder, as in JAX)
         and start a fresh Adam."""
         template = convert.layer_variables(self.model, leaf=convert.placeholder)
         tree = CheckpointStore(directory).load_component("autoencoder", template, tag)
-        self.model.load_state_dict(convert.convert_layer_variables(tree))
+        sd = convert.convert_layer_variables(tree)
+        if self.mesh is not None:
+            sd = sharding.local_tensors(self.model, sd)
+        self.model.load_state_dict(sd)
         self._fresh_optimizer()
         return self.model

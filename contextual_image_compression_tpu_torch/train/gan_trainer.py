@@ -29,6 +29,15 @@ gradients and Adam moments are bf16 (optax's order, train/optimizers.py) and
 the BatchNorm statistics float32, as in the JAX trainer.
 
 Images and masks are NCHW here; `Batch` carries them so.
+
+On a mesh (`mesh=`, parallel/mesh.py) each rank takes its slice of the
+batch (`place_batch`) and holds the state as `place` splits it
+(parallel/sharding.py); every loss and metric is the global batch's
+(train/losses.py with the data group), the BatchNorm statistics are the
+global batch's (models/layers.py), each phase sums its gradients over the
+data group before its optimizers step, and the clip takes the whole norm
+of a split leaf (train/optimizers.py): the step computes JAX's SPMD step.
+A mesh of one data index computes what one device computes.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from contextual_image_compression_tpu_torch.models.adaptive import (
 from contextual_image_compression_tpu_torch.models.discriminator import Discriminator
 from contextual_image_compression_tpu_torch.models.layers import cast_floats, commit_batch_stats
 from contextual_image_compression_tpu_torch.models.vgg import VGG19Features, preprocess_caffe
+from contextual_image_compression_tpu_torch.parallel import sharding
 from contextual_image_compression_tpu_torch.train import losses as L
 from contextual_image_compression_tpu_torch.train.optimizers import KerasAdam
 
@@ -87,7 +97,8 @@ class GANStepBuilder:
     """Builds the train state and runs the step (see the module docstring)."""
 
     def __init__(self, cfg: TrainConfig, vgg: Optional[VGG19Features] = None,
-                 bn_mode: str = "train", disc_bn_mode: Optional[str] = None, device="cuda"):
+                 bn_mode: str = "train", disc_bn_mode: Optional[str] = None, device="cuda",
+                 mesh=None):
         if bn_mode not in ("train", "frozen"):
             raise ValueError(f"unknown bn_mode {bn_mode!r}")
         disc_bn_mode = disc_bn_mode or "frozen"
@@ -97,7 +108,9 @@ class GANStepBuilder:
         self.vgg = vgg
         self.bn_mode = bn_mode
         self.disc_bn_mode = disc_bn_mode
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.group = mesh.data_parallel_group() if mesh is not None else None
+        self.device = mesh.device if mesh is not None else resolve_device(device)
 
     # ------------------------------------------------------------------ state
     def init_state(self, seed: int = 0) -> GANTrainState:
@@ -127,6 +140,25 @@ class GANStepBuilder:
             d_opt=adam(disc.parameters(), lr),
         )
 
+    def place(self, state: GANTrainState,
+              min_shard_elems: Optional[int] = None) -> GANTrainState:
+        """The state on the mesh (in place): the rule's leaves split over
+        'model', parameters and Adam moments alike; without a mesh, as it is.
+        `min_shard_elems`: default sharding.DEFAULT_MIN_SHARD_ELEMS."""
+        if self.mesh is not None:
+            sharding.shard_state(state.codec, self.mesh,
+                                 (state.g_opt, state.ls_opt, state.rd_opt), min_shard_elems)
+            sharding.shard_state(state.disc, self.mesh, (state.d_opt,), min_shard_elems)
+        return state
+
+    def place_batch(self, batch: Batch) -> Batch:
+        """This rank's slice of a (node-local) batch."""
+        return batch if self.mesh is None else sharding.shard_batch(batch, self.mesh)
+
+    def _reduce(self, module) -> None:
+        if self.mesh is not None:
+            sharding.reduce_gradients(module, self.mesh)
+
     # ------------------------------------------------------------------ phases
     def codec_forward(self, state: GANTrainState, batch: Batch) -> CodecOutput:
         """The step's one codec forward, routed for the single backward."""
@@ -139,8 +171,9 @@ class GANStepBuilder:
         state.d_opt.zero_grad()
         real_preds = state.disc(batch.image, train)
         fake_preds = state.disc(_nchw(out.blended).detach(), train)
-        d_loss = L.discriminator_loss(real_preds, fake_preds, self.cfg.loss)
+        d_loss = L.discriminator_loss(real_preds, fake_preds, self.cfg.loss, self.group)
         d_loss.backward()
+        self._reduce(state.disc)
         state.d_opt.step()
         if train:  # keep the statistics of the fake pass
             commit_batch_stats(state.disc)
@@ -153,7 +186,8 @@ class GANStepBuilder:
         with torch.no_grad():
             orig = self.vgg(preprocess_caffe(images))
         gen = self.vgg(preprocess_caffe(compressed))
-        return L.perceptual_loss(orig, gen, lcfg.perceptual_layer_weights, lcfg.perceptual_scale)
+        return L.perceptual_loss(orig, gen, lcfg.perceptual_layer_weights, lcfg.perceptual_scale,
+                                 self.group)
 
     def g_backward(self, state: GANTrainState, batch: Batch,
                    out: CodecOutput) -> Dict[str, torch.Tensor]:
@@ -166,24 +200,26 @@ class GANStepBuilder:
         frozen_d = {k: p.detach() for k, p in state.disc.named_parameters()}
         fake_preds = functional_call(state.disc, frozen_d, (blended, self.disc_bn_mode == "train"))
 
-        recon = L.mse(batch.image, blended)
-        adv = L.adversarial_loss(fake_preds)
-        l1 = L.mae(batch.image, blended)
+        grp = self.group
+        recon = L.mse(batch.image, blended, grp)
+        adv = L.adversarial_loss(fake_preds, grp)
+        l1 = L.mae(batch.image, blended, grp)
         perceptual = self.perceptual(batch.image, blended)
         ls_loss_raw = L.latent_saliency_loss(out.hq_saliency_loss, out.lq_saliency_loss,
-                                             batch.mask, lcfg)
-        rd_loss_raw = L.rd_loss(out.rd_params, batch.bpp, lcfg)
+                                             batch.mask, lcfg, grp)
+        rd_loss_raw = L.rd_loss(out.rd_params, batch.bpp, lcfg, grp)
         bitrate_control, underutil = L.bitrate_losses(
-            out.dynamic_threshold, batch.bpp, mcfg.base_latent_dim, mcfg.img_size, lcfg)
+            out.dynamic_threshold, batch.bpp, mcfg.base_latent_dim, mcfg.img_size, lcfg, grp)
         g_loss = L.combine_generator_loss(recon, l1, perceptual, adv, bitrate_control, lcfg)
         if lcfg.branch_recon_weight > 0.0:
-            branch = (L.mse(batch.image, _nchw(out.hq_output))
-                      + L.mse(batch.image, _nchw(out.lq_output)))
+            branch = (L.mse(batch.image, _nchw(out.hq_output), grp)
+                      + L.mse(batch.image, _nchw(out.lq_output), grp))
             g_loss = g_loss + lcfg.branch_recon_weight * branch
         ls_loss = lcfg.ls_loss_weight * ls_loss_raw
         rd_opt_loss = (lcfg.rd_loss_weight * rd_loss_raw
                        + lcfg.rd_bitrate_weight * bitrate_control + underutil)
         (g_loss + ls_loss + rd_opt_loss).backward()
+        self._reduce(state.codec)
         metrics = {
             "g_loss": g_loss,
             "reconstruction_loss": recon,
@@ -193,8 +229,8 @@ class GANStepBuilder:
             "latent_saliency_loss": ls_loss_raw,
             "rd_loss": rd_loss_raw,
             "bitrate_control_loss": bitrate_control,
-            "actual_bpp": torch.mean(L.analytic_bpp_from_allocation(
-                out.dynamic_threshold, mcfg.base_latent_dim, mcfg.img_size)),
+            "actual_bpp": L.mean(L.analytic_bpp_from_allocation(
+                out.dynamic_threshold, mcfg.base_latent_dim, mcfg.img_size), grp),
         }
         return {k: v.detach() for k, v in metrics.items()}
 

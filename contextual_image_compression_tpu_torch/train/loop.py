@@ -23,7 +23,17 @@ epoch (utils/profiling.trace). `train_full_reference_flow` is JAX's main
 flow: the training epochs, then `fine_tune_epochs` at each bpp of
 `bpp_range`.
 
-Not in this slice of the port, and refused rather than skipped: meshes.
+`mesh=` (parallel/mesh.py) trains on a (data, model) mesh, one process a
+device: the trainer takes its device from the mesh, places the state after
+`init_state` (the rule's leaves split over 'model', parameters and Adam
+moments) and each batch (the dataset's node-local batch, of which the rank
+keeps its data slice), and the step computes JAX's SPMD step on the global
+batch (train/gan_trainer.py). History and logs are global on every rank.
+Every rank runs the artifacts' forwards and gathers the split leaves for a
+save (both are collectives); mesh position 0 alone writes checkpoints,
+metadata and figures, in the files of a single-device save. `init_state(
+resume=True)` loads the whole tensors on every rank and keeps each rank's
+slice, so a checkpoint of one mesh shape resumes on any other.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from contextual_image_compression_tpu_torch.data.pipeline import CompressionData
 from contextual_image_compression_tpu_torch.eval import plots
 from contextual_image_compression_tpu_torch.models.adaptive import ALL_CODEC_COMPONENTS
 from contextual_image_compression_tpu_torch.models.vgg import load_vgg19_features
+from contextual_image_compression_tpu_torch.parallel import Mesh, sharding
 from contextual_image_compression_tpu_torch.train.gan_trainer import (
     Batch,
     GANStepBuilder,
@@ -63,8 +74,6 @@ HISTORY_KEYS = (
     "rd_loss",
 )
 
-_MESHES = "meshes (sharded training) wait for the multi-device slice of the port"
-
 
 class GANTrainer:
     """Owns the step builder, the train state, the loss history and the
@@ -76,26 +85,32 @@ class GANTrainer:
     copies each tensor to the host and converts it there, with no second
     copy of the state on the device. nan_guard: check the step's metrics
     after every step (one host read a step) and raise FloatingPointError
-    with the step, the metrics and the codec's non-finite tensors."""
+    with the step, the metrics and the codec's non-finite tensors.
+
+    mesh: a `parallel.Mesh` (see the module docstring)."""
 
     def __init__(self, cfg: TrainConfig, bn_mode: str = "train",
                  disc_bn_mode: Optional[str] = None,
                  log_fn: Callable[[str], None] = print, device="cuda",
-                 nan_guard: bool = False, save_mode: str = "background"):
+                 nan_guard: bool = False, save_mode: str = "background", mesh=None):
         if save_mode not in ("background", "host"):
             raise ValueError(f"unknown save_mode {save_mode!r}")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh (create_mesh), got {type(mesh)!r}")
         self.save_mode = save_mode
         self.nan_guard = nan_guard
         self.cfg = cfg
         self.log = log_fn
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.is_writer
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         vgg = load_vgg19_features(cfg.vgg_weights_path, self.device) if cfg.use_perceptual else None
         if vgg is not None:
             self.log("Perceptual loss: VGG19 weights loaded")
         elif cfg.use_perceptual:
             self.log("WARNING: no VGG19 weights available -- perceptual loss disabled")
         self.builder = GANStepBuilder(cfg, vgg=vgg, bn_mode=bn_mode,
-                                      disc_bn_mode=disc_bn_mode, device=self.device)
+                                      disc_bn_mode=disc_bn_mode, device=self.device, mesh=mesh)
         self.store = CheckpointStore(cfg.model_dir)
         self.history: Dict[str, List[float]] = {k: [] for k in HISTORY_KEYS}
         self.state: Optional[GANTrainState] = None
@@ -109,7 +124,8 @@ class GANTrainer:
         store's ladder finds in cfg.model_dir replaces its fresh values.
         The optimizers and the step are restored only when their own file
         was found; the epoch count and history come from the latest
-        metadata."""
+        metadata. On a mesh, the state is then placed (every rank loads the
+        whole tensors and keeps its slice)."""
         state = self.builder.init_state(self.cfg.seed)
         self.start_epoch = 0
         if resume:
@@ -135,7 +151,7 @@ class GANTrainer:
                     self.start_epoch = int(meta.get("epoch", 0))
                     self.history = {k: list(meta.get("history", {}).get(k, []))
                                     for k in HISTORY_KEYS}
-        self.state = state
+        self.state = self.builder.place(state)
         return state
 
     # ------------------------------------------------------------------ train
@@ -160,7 +176,8 @@ class GANTrainer:
             self.init_state()
         samples_dir = os.path.join(cfg.results_dir, "training_samples")
         if artifacts:
-            os.makedirs(samples_dir, exist_ok=True)
+            if self.writer:
+                os.makedirs(samples_dir, exist_ok=True)
             if sample_batch is None:
                 sample_batch = dataset.first_samples(cfg.sample_visualizations)
         with contextlib.ExitStack() as tracing:  # a trace still open on an error is closed
@@ -183,10 +200,12 @@ class GANTrainer:
                         step_iter = dataset.epoch()
                         batch = next(step_iter)
                     do_d = step % cfg.d_every_n_steps == 0
+                    batch = self.builder.place_batch(batch)
                     self.state, metrics = self.builder.train_step(self.state, batch, do_d)
                     if self.nan_guard:
                         self._check_finite(metrics)
-                    n_images += int(batch.image.shape[0])
+                    n_images += int(batch.image.shape[0]) * (
+                        self.mesh.shape["data"] if self.mesh is not None else 1)
                     for k, v in metrics.items():
                         if k in counts:
                             sums[k] = v if k not in sums else sums[k] + v
@@ -217,7 +236,7 @@ class GANTrainer:
                     self.save(f"epoch_{epoch_label}")
         self.save("final")
         self._join_saver()  # the final checkpoint is on disk before fit returns
-        if artifacts:
+        if artifacts and self.writer:
             plots.plot_final_losses(self.history,
                                     os.path.join(cfg.results_dir, "final_loss_history.png"))
         return self.history
@@ -238,13 +257,15 @@ class GANTrainer:
         masks = host(sample_batch.mask[:, 0])
         bpps = host(sample_batch.bpp)
         comp, alloc = host(out.blended), host(out.dynamic_threshold)
+        probe_path = os.path.join(self.cfg.results_dir, "rate_control_test.png")
+        self.rate_control_probe(sample_batch, probe_path if self.writer else None)
+        if not self.writer:
+            return
         for i in range(len(imgs)):
             plots.visualize_results(
                 imgs[i], masks[i], comp[i],
                 os.path.join(samples_dir, f"sample_{i + 1}_epoch_{epoch}_bpp_{bpps[i, 0]:.2f}.png"),
                 alloc[i])
-        self.rate_control_probe(sample_batch,
-                                os.path.join(self.cfg.results_dir, "rate_control_test.png"))
         plots.plot_epoch_losses(
             self.history, os.path.join(self.cfg.results_dir, f"loss_history_epoch_{epoch}.png"))
 
@@ -270,16 +291,27 @@ class GANTrainer:
         device, and hands the clone to a writer thread (blocking=True
         writes before returning); 'host' mode writes before returning, from
         host copies, with no second copy on the device. A writer's error is
-        raised by the next save or join."""
+        raised by the next save or join.
+
+        On a mesh every rank gathers the split leaves (a collective) and
+        mesh position 0 alone writes; a blocking save, and a join of the
+        writer, return on every rank once the files are written."""
         state = self.state
         mcfg = self.cfg.model
         if self.save_mode == "host":
             blocking = True
         else:
             self._join_saver()
+        snap = {"codec": state.codec.state_dict(), "disc": state.disc.state_dict(),
+                "moments": convert.optimizer_moments(state)}
+        if self.mesh is not None:
+            snap = _full_snapshot(state, snap)
+            if not self.writer:
+                if blocking:
+                    self.mesh.barrier()
+                return
         snap = _map_tensors(
-            {"codec": state.codec.state_dict(), "disc": state.disc.state_dict(),
-             "moments": convert.optimizer_moments(state)},
+            snap,
             (lambda t: t.detach().cpu()) if self.save_mode == "host" else
             (lambda t: t.detach().clone()))
         meta = {"epoch": len(self.history["g_loss"]),
@@ -296,6 +328,8 @@ class GANTrainer:
 
         if blocking:
             write()
+            if self.mesh is not None:
+                self.mesh.barrier()
             return
 
         def run():
@@ -312,6 +346,8 @@ class GANTrainer:
         if saver is not None:
             saver.join()
         err, self._saver_error = self._saver_error, None
+        if self.mesh is not None:
+            self.mesh.barrier()
         if err is not None:
             raise RuntimeError("the checkpoint writer failed") from err
 
@@ -346,16 +382,30 @@ class GANTrainer:
 def train_full_reference_flow(cfg: TrainConfig, dataset: CompressionDataset, mesh=None,
                               log: Callable[[str], None] = print, device="cuda") -> GANTrainer:
     """The reference main() flow: train cfg.epochs, then fine-tune
-    cfg.fine_tune_epochs at each bpp of cfg.bpp_range."""
-    if mesh is not None:
-        raise NotImplementedError(_MESHES)
-    trainer = GANTrainer(cfg, log_fn=log, device=device)
+    cfg.fine_tune_epochs at each bpp of cfg.bpp_range (on `mesh` when given)."""
+    trainer = GANTrainer(cfg, log_fn=log, device=device, mesh=mesh)
     trainer.init_state()
     trainer.fit(dataset)
     for target_bpp in cfg.bpp_range:
         log(f"Fine-tuning for target bitrate: {target_bpp} bpp...")
         trainer.fit(dataset.with_target_bpp(float(target_bpp)), epochs=cfg.fine_tune_epochs)
     return trainer
+
+
+def _full_snapshot(state: GANTrainState, snap: Dict) -> Dict:
+    """`snap` (codec and disc state dicts, optimizer_moments) with every
+    split leaf gathered; every rank of the mesh calls it."""
+    moments = dict(snap["moments"])
+    for opt_name in convert.OPTIMIZER_GROUPS:
+        entry = dict(moments[opt_name])
+        for which in ("mu", "nu"):
+            entry[which] = {
+                comp: sharding.full_tensors(
+                    state.disc if comp is None else getattr(state.codec, comp), sd)
+                for comp, sd in entry[which].items()}
+        moments[opt_name] = entry
+    return {"codec": sharding.full_tensors(state.codec, snap["codec"]),
+            "disc": sharding.full_tensors(state.disc, snap["disc"]), "moments": moments}
 
 
 def _map_tensors(tree, fn):

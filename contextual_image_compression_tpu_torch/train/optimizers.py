@@ -18,11 +18,16 @@ scaled by -lr, and p + u rounded to the parameter's dtype. torch.optim.Adam
 would fold the corrections into the step size and the root. The moments
 live in the torch Adam's state (`exp_avg`, `exp_avg_sq`, `step`), so
 checkpoints carry them either way.
+
+On a mesh, a parameter split over the model axis (parallel/sharding.py)
+is clipped by the norm of the whole tensor: the slices' squared norms are
+summed over the model group first. Adam itself is elementwise on each
+rank's slice.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List
+from typing import Iterable, List, Optional, Sequence
 
 import torch
 
@@ -30,10 +35,20 @@ from contextual_image_compression_tpu_torch.models.layers import const
 
 
 @torch.no_grad()
-def clip_per_leaf_norm_(grads: Iterable[torch.Tensor], max_norm: float) -> None:
-    """In place, for each tensor: g *= min(1, max_norm / max(||g||_2, 1e-12))."""
-    for g in grads:
-        norm = torch.linalg.vector_norm(g)
+def clip_per_leaf_norm_(grads: Iterable[torch.Tensor], max_norm: float,
+                        shards: Optional[Sequence] = None) -> None:
+    """In place, for each tensor: g *= min(1, max_norm / max(||g||_2, 1e-12)).
+    `shards`: each tensor's split over the model group (parallel/sharding.py
+    `Shard`) or None; a split tensor's norm is the whole tensor's."""
+    grads = list(grads)
+    norms = [torch.linalg.vector_norm(g) for g in grads]
+    split = [i for i, s in enumerate(shards or ()) if s is not None]
+    if split:  # one all_reduce for every split leaf (they share the model group)
+        sq = torch.stack([norms[i].float() ** 2 for i in split])
+        shards[split[0]].group.all_reduce_(sq)
+        for j, i in enumerate(split):
+            norms[i] = torch.sqrt(sq[j]).to(norms[i].dtype)
+    for g, norm in zip(grads, norms):
         g.mul_(torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0))
 
 
@@ -49,6 +64,9 @@ class KerasAdam:
         self.clipnorm = clipnorm
         self.lr, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
         self.adam = torch.optim.Adam(self.params, lr=learning_rate, betas=(b1, b2), eps=eps)
+        # each parameter's split over the model group, set when the optimizer
+        # is placed on a mesh (parallel/sharding.py shard_state)
+        self.shards: List[Optional[object]] = [None] * len(self.params)
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
@@ -57,7 +75,7 @@ class KerasAdam:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        clip_per_leaf_norm_([p.grad for p in self.params], self.clipnorm)
+        clip_per_leaf_norm_([p.grad for p in self.params], self.clipnorm, self.shards)
         if all(p.dtype == torch.float32 for p in self.params):
             self.adam.step()
             return

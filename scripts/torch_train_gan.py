@@ -12,10 +12,18 @@ It runs on the card; main(device="cpu") runs it on the CPU (each kernel's
 plain twin). Training writes the per-epoch figures, which need matplotlib:
 where it does not import, main raises before any work. On the card the
 corpus stays in device memory when it is under 4 GiB.
+
+On a (data, model) mesh, one process a device, under torchrun:
+  torchrun --nproc-per-node 4 scripts/torch_train_gan.py --backend nccl \
+      --model-parallel 2 --synthetic 64 --epochs 2
+Each rank takes cuda:<LOCAL_RANK> (nccl), each node its share of the corpus;
+the batch size is the global one. gloo serves the CPU and ranks that share
+a card. --model-parallel above 1 without torchrun exits naming it.
 """
 
 import argparse
 import dataclasses
+import os
 import sys
 from pathlib import Path
 
@@ -83,8 +91,12 @@ def main(argv=None, device="cuda"):
     p.add_argument("--synthetic-rich", action="store_true",
                    help="use the diverse synthetic corpus for --synthetic")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="above 1 raises: sharded training waits in the port's "
-                   "multi-device queue")
+                   help="model-parallel degree of the (data, model) mesh; a mesh "
+                   "runs under torchrun, one process a device")
+    p.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                   help="torch.distributed backend under torchrun (required there): "
+                   "nccl with a card a rank, gloo on the CPU or for ranks that "
+                   "share a card")
     p.add_argument("--no-fine-tune", action="store_true",
                    help="skip the per-bpp fine-tuning phase")
     p.add_argument("--fine-tune-only", action="store_true",
@@ -116,9 +128,21 @@ def main(argv=None, device="cuda"):
     from contextual_image_compression_tpu_torch.train.loop import GANTrainer
 
     plots.pyplot()  # every fit below writes figures
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1: sharded training waits in the port's multi-device queue")
+    mesh = None
+    if "WORLD_SIZE" in os.environ:  # under torchrun
+        if args.backend is None:
+            raise SystemExit("under torchrun, give --backend (nccl or gloo)")
+        from contextual_image_compression_tpu_torch.parallel import (
+            create_mesh, initialize_multihost,
+        )
+        initialize_multihost("env://", backend=args.backend)
+        mesh = create_mesh(args.model_parallel, multihost=True,
+                           device=None if resolve_device(device).type == "cuda" else device)
+        device = mesh.device
+        print(f"Mesh {mesh.shape}, rank position {mesh.position} on {device}")
+    elif args.model_parallel > 1:
+        raise SystemExit(f"--model-parallel {args.model_parallel} needs a process group: "
+                         "run it under torchrun (one process a device) with --backend")
 
     mcfg = ModelConfig()
     if args.img_size:
@@ -175,14 +199,17 @@ def main(argv=None, device="cuda"):
     device_resident = resolve_device(device).type == "cuda" and corpus_bytes < 4 * 1024**3
     if device_resident:
         print(f"Corpus ({corpus_bytes / 2**20:.0f} MiB) kept device-resident")
+    nodes = sorted(set(mesh.nodes)) if mesh is not None else [0]
     dataset = CompressionDataset(
         images, masks, batch_size=cfg.batch_size, bpp_range=cfg.bpp_range,
         seed=cfg.seed, device_resident=device_resident, device=device,
+        process_index=mesh.nodes[mesh.position] if mesh is not None else 0,
+        process_count=len(nodes),
     )
 
     trainer = GANTrainer(cfg, bn_mode=args.bn_mode,
                          disc_bn_mode=args.disc_bn_mode,
-                         save_mode=args.save_mode, device=device)
+                         save_mode=args.save_mode, device=device, mesh=mesh)
     trainer.init_state(resume=not args.no_resume)
     if not args.fine_tune_only:
         trainer.fit(dataset)

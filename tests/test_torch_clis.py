@@ -242,3 +242,59 @@ def test_codec_shootout_cli_matches_jax(tmp_path):
     for series in ("dct", "gan", "gan_storable", "ae"):
         assert got[series], series
         _rows_close(got[series], want[series], SHOOTOUT_BARS)
+
+
+def _torchrun_port(script, argv, tmp_path, nproc, prelude=""):
+    """scripts/<script>'s main(argv, device="cpu") on nproc ranks under
+    `python -m torch.distributed.run --standalone` (a free local port)."""
+    wrapper = tmp_path / f"run_{script}"
+    wrapper.write_text(f"import runpy, sys\nsys.path.insert(0, {str(REPO)!r})\n{prelude}"
+                       f"sys.exit(runpy.run_path({str(REPO / 'scripts' / script)!r})['main']"
+                       f"(sys.argv[1:], device='cpu'))\n")
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("XLA_", "JAX_"))}
+    env["OMP_NUM_THREADS"] = "1"
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          f"--nproc-per-node={nproc}", str(wrapper), *argv], cwd=tmp_path,
+                         env=env, timeout=600, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+    assert res.returncode == 0, res.stdout[-4000:]
+    return res.stdout
+
+
+def test_train_gan_cli_on_a_mesh_under_torchrun(tmp_path):
+    """torch_train_gan.py --model-parallel 2 on two gloo ranks under
+    torchrun: the files of the one-process run (figures and checkpoints
+    written once, by rank 0) and its history within the train bars."""
+    prelude = _tiny_prelude("contextual_image_compression_tpu_torch")
+    argv = ["--synthetic", "4", "--epochs", "1", "--batch-size", "4", "--img-size", "32",
+            "--no-perceptual", "--no-fine-tune"]
+
+    def dirs(name):
+        return ["--results-dir", str(tmp_path / name / "results"), "--model-dir",
+                str(tmp_path / name / "ckpt")]
+
+    one = _run_port("torch_train_gan.py", argv + dirs("one"), tmp_path, prelude)
+    two = _torchrun_port("torch_train_gan.py", argv + dirs("mesh") + [
+        "--backend", "gloo", "--model-parallel", "2"], tmp_path, 2, prelude)
+    assert "Mesh {'data': 1, 'model': 2}" in two and two.count("Training completed!") == 2
+    assert "Training completed!" in one
+    assert _files(tmp_path / "mesh") == _files(tmp_path / "one")
+    jh = json.loads((tmp_path / "one" / "ckpt" / "metadata_final.json").read_text())
+    th = json.loads((tmp_path / "mesh" / "ckpt" / "metadata_final.json").read_text())
+    assert th["epoch"] == jh["epoch"] == 1
+    for k, want in jh["history"].items():
+        assert all(_close(g, w) for g, w in zip(th["history"][k], want, strict=True)), k
+
+
+def test_train_gan_cli_model_parallel_needs_torchrun(tmp_path):
+    """--model-parallel 2 without a process group exits non-zero naming
+    torchrun; it never trains on one device as if nothing were asked."""
+    code = (f"import runpy, sys\nsys.path.insert(0, {str(REPO)!r})\n"
+            f"sys.exit(runpy.run_path({str(REPO / 'scripts' / 'torch_train_gan.py')!r})['main']"
+            f"(['--model-parallel', '2', '--synthetic', '4', '--model-dir', 'ckpt'], "
+            f"device='cpu'))\n")
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK")}
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env, timeout=300,
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    assert res.returncode != 0 and "torchrun" in res.stdout, res.stdout[-2000:]
+    assert "Computing saliency masks" not in res.stdout and not (tmp_path / "ckpt").exists()

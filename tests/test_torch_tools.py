@@ -344,3 +344,30 @@ def test_layer_microbench_prints_the_jax_keys(monkeypatch, capsys):
         keys = {"ms", "gmacs_per_img", "tflops"} if name[:4] in ("enc.", "gen.") and \
             "dense" not in name else {"ms", "tflops"}
         assert set(out[name]) == keys and out[name]["ms"] > 0, name
+
+
+def test_mesh_scaling_records_equal_losses(tmp_path):
+    """scripts/torch_mesh_scaling.py at world sizes 1 and 2 (gloo ranks on
+    the CPU): the batch sharded 1 / D, the same losses at both sizes within
+    the JAX script's bar, written where asked and never to JAX's record."""
+    import os
+    import subprocess
+
+    out = tmp_path / "mesh_scaling_torch.json"
+    script = str(Path(__file__).resolve().parent.parent / "scripts" / "torch_mesh_scaling.py")
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("XLA_", "JAX_"))}
+    res = subprocess.run([sys.executable, script, "--world-sizes", "1,2", "--steps", "1",
+                          "--global-batch", "8", "--out", str(out)], env=env, timeout=600,
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    assert res.returncode == 0, res.stdout[-4000:]
+    rec = json.loads(out.read_text())
+    one, two = rec["per_world_size"]["1"], rec["per_world_size"]["2"]
+    assert two["mesh"] == {"data": 2, "model": 1}
+    assert one["per_rank_batch_shard"][0] == 8 and two["per_rank_batch_shard"][0] == 4
+    for k, v in one["losses"].items():
+        assert abs(two["losses"][k] - v) <= 1e-4 + 1e-3 * abs(v), k
+    refused = subprocess.run([sys.executable, script, "--out", str(Path(script).parent.parent
+                                                                   / "runs" / "mesh_scaling.json")],
+                             env=env, timeout=300, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    assert refused.returncode != 0 and "JAX script" in refused.stdout

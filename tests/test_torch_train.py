@@ -312,8 +312,8 @@ def test_rate_control_probe_matches_jax(tmp_path):
 
 def test_fit_runs_and_refuses_what_waits(tmp_path):
     """fit alternates the D / no-D steps, fills the history and writes the
-    final checkpoint; meshes raise instead of being skipped quietly; the
-    probe writes its figure at save_path. init_state() with nothing in
+    final checkpoint; a mesh that is not a parallel.Mesh raises instead of
+    being skipped quietly; the probe writes its figure at save_path. init_state() with nothing in
     model_dir starts fresh."""
     cfg = TrainConfig(model=TTINY, batch_size=4, use_perceptual=False, epochs=1,
                       model_dir=str(tmp_path))
@@ -323,7 +323,7 @@ def test_fit_runs_and_refuses_what_waits(tmp_path):
     logs = []
     trainer = GANTrainer(cfg, device="cpu", log_fn=logs.append)
     assert trainer.init_state().step == 0 and trainer.start_epoch == 0
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         train_full_reference_flow(cfg, ds, mesh=object(), device="cpu")
     hist = trainer.fit(ds, steps_per_epoch=3, artifacts=False)
     assert trainer.state.step == 3

@@ -130,14 +130,14 @@ def test_reference_flow_history_and_probe_match_jax(flows):
 
 def test_jax_resumes_the_port_flow(flows):
     """JAX's GANTrainer resumes the port's 'final' at epoch 3 with its
-    history; a mesh is refused by the port's flow."""
+    history; the port's flow refuses a mesh that is not a parallel.Mesh."""
     tcfg = flows["tcfg"]
     resumed = JTrainer(JTrainConfig(model=JTINY, **FLOW, model_dir=tcfg.model_dir),
                        log_fn=lambda s: None)
     resumed.init_state(resume=True)
     assert resumed.start_epoch == 3
     assert resumed.history == flows["trainer"].history
-    with pytest.raises(NotImplementedError, match="meshes"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         train_full_reference_flow(tcfg, None, mesh=object(), device="cpu")
 
 
