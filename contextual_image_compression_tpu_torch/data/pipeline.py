@@ -28,6 +28,7 @@ import torch
 from contextual_image_compression_tpu_torch.config import SaliencyConfig, resolve_device
 from contextual_image_compression_tpu_torch.ops import masks as mask_ops
 from contextual_image_compression_tpu_torch.train.gan_trainer import Batch
+from contextual_image_compression_tpu_torch.utils.profiling import annotate
 
 
 def make_mask_fn(config: SaliencyConfig | None = None):
@@ -131,15 +132,17 @@ class CompressionDataset:
         limit = (n // self.batch_size) * self.batch_size if self.drop_remainder else n
         limit = max(limit, min(n, self.batch_size))
         for start in range(0, limit, self.batch_size):
-            sel = idx[start:start + self.batch_size]
-            bpp = torch.from_numpy(self._bpp(len(sel))).to(self._device)
-            if self.device_resident:
-                sel_dev = torch.from_numpy(sel).to(self._device)
-                yield Batch(image=self._dev_images.index_select(0, sel_dev),
-                            mask=self._dev_masks.index_select(0, sel_dev), bpp=bpp)
-            else:
-                yield Batch(image=_to_nchw(self.images[sel], self._device),
-                            mask=_to_nchw(self.masks[sel], self._device), bpp=bpp)
+            with annotate("data.batch"):
+                sel = idx[start:start + self.batch_size]
+                bpp = torch.from_numpy(self._bpp(len(sel))).to(self._device)
+                if self.device_resident:
+                    sel_dev = torch.from_numpy(sel).to(self._device)
+                    batch = Batch(image=self._dev_images.index_select(0, sel_dev),
+                                  mask=self._dev_masks.index_select(0, sel_dev), bpp=bpp)
+                else:
+                    batch = Batch(image=_to_nchw(self.images[sel], self._device),
+                                  mask=_to_nchw(self.masks[sel], self._device), bpp=bpp)
+            yield batch
 
     def with_target_bpp(self, target_bpp: Optional[float]) -> "CompressionDataset":
         """A view with a fixed target bpp (the fine-tune phase), sharing the

@@ -44,6 +44,7 @@ from contextual_image_compression_tpu_torch.ops.saliency import (
     _full_fp32_matmul,
     resize_op_matrix,
 )
+from contextual_image_compression_tpu_torch.utils.profiling import annotate
 
 # The three disjoint parameter groups of GAN training, one optimizer each.
 GENERATOR_COMPONENTS = ("hq_encoder", "hq_generator", "lq_encoder", "lq_generator")
@@ -210,40 +211,43 @@ class AdaptiveCodec(nn.Module):
         LS-loss score from the detached latent."""
         cfg = self.cfg
         ct = cfg.compute_dtype()
-        x = img.to(ct).permute(0, 3, 1, 2)
-        m = mask.to(ct).permute(0, 3, 1, 2)
-        target_bpp = target_bpp.to(ct)
+        with annotate("codec.encode"):
+            x = img.to(ct).permute(0, 3, 1, 2)
+            m = mask.to(ct).permute(0, 3, 1, 2)
+            target_bpp = target_bpp.to(ct)
+            hq_latent, hq_skips = self.hq_encoder(x, train)
+            lq_latent, lq_skips = self.lq_encoder(x, train)
 
-        hq_latent, hq_skips = self.hq_encoder(x, train)
-        lq_latent, lq_skips = self.lq_encoder(x, train)
-        overall, threshold, quant_strength = self.rd_schedule(target_bpp)
-        dyn_thr = self.dynamic_threshold(m, threshold)
-        if cfg.skip_mode == "zero":
-            hq_skips = lq_skips = self._zero_skips(x.shape[0], ct, x.device)
-        elif cfg.skip_mode == "mask":
-            hq_skips = lq_skips = self._mask_skips(m, dyn_thr, ct)
+        with annotate("codec.plan"):
+            overall, threshold, quant_strength = self.rd_schedule(target_bpp)
+            dyn_thr = self.dynamic_threshold(m, threshold)
+            if cfg.skip_mode == "zero":
+                hq_skips = lq_skips = self._zero_skips(x.shape[0], ct, x.device)
+            elif cfg.skip_mode == "mask":
+                hq_skips = lq_skips = self._mask_skips(m, dyn_thr, ct)
+            if detach_for_training:
+                s_hq = _with_detached_params(self.latent_saliency_hq, hq_latent)
+                s_lq = _with_detached_params(self.latent_saliency_lq, lq_latent)
+                s_hq_loss = self.latent_saliency_hq(hq_latent.detach())
+                s_lq_loss = self.latent_saliency_lq(lq_latent.detach())
+            else:
+                s_hq = self.latent_saliency_hq(hq_latent)
+                s_lq = self.latent_saliency_lq(lq_latent)
+                s_hq_loss, s_lq_loss = s_hq, s_lq
+            rd_params = self.rd_optimizer(m, target_bpp)
 
-        if detach_for_training:
-            s_hq = _with_detached_params(self.latent_saliency_hq, hq_latent)
-            s_lq = _with_detached_params(self.latent_saliency_lq, lq_latent)
-            s_hq_loss = self.latent_saliency_hq(hq_latent.detach())
-            s_lq_loss = self.latent_saliency_lq(lq_latent.detach())
-        else:
-            s_hq = self.latent_saliency_hq(hq_latent)
-            s_lq = self.latent_saliency_lq(lq_latent)
-            s_hq_loss, s_lq_loss = s_hq, s_lq
-        rd_params = self.rd_optimizer(m, target_bpp)
+        with annotate("codec.quantize"):
+            if cfg.quant_bypass:
+                zq_hq, zq_lq = hq_latent, lq_latent
+            else:
+                qcfg = cfg.resolved_quantizer()
+                zq_hq = adaptive_quantize(hq_latent, s_hq, quant_strength, qcfg)
+                zq_lq = adaptive_quantize(lq_latent, s_lq, quant_strength, qcfg)
 
-        if cfg.quant_bypass:
-            zq_hq, zq_lq = hq_latent, lq_latent
-        else:
-            qcfg = cfg.resolved_quantizer()
-            zq_hq = adaptive_quantize(hq_latent, s_hq, quant_strength, qcfg)
-            zq_lq = adaptive_quantize(lq_latent, s_lq, quant_strength, qcfg)
-
-        hq_out = self.hq_generator(zq_hq, hq_skips, train)
-        lq_out = self.lq_generator(zq_lq, lq_skips, train)
-        blended = hq_out * dyn_thr + lq_out * (const(1.0, ct, x.device) - dyn_thr)
+        with annotate("codec.generate"):
+            hq_out = self.hq_generator(zq_hq, hq_skips, train)
+            lq_out = self.lq_generator(zq_lq, lq_skips, train)
+            blended = hq_out * dyn_thr + lq_out * (const(1.0, ct, x.device) - dyn_thr)
         return CodecOutput(
             blended=_nhwc(blended),
             hq_latent_q=zq_hq,

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from contextual_image_compression_tpu_torch.models.layers import KConv, used
 from contextual_image_compression_tpu_torch.ops.attention import attention_block
+from contextual_image_compression_tpu_torch.utils.profiling import annotate
 
 
 class SelfAttention(nn.Module):
@@ -43,7 +44,8 @@ class SelfAttention(nn.Module):
             wm = w.to(dt).reshape(w.shape[0], c)
             return F.linear(xf, wm) + used(conv, "bias").to(dt)
 
-        q, k, v = proj(self.query_conv), proj(self.key_conv), proj(self.value_conv)
-        out = attention_block(q, k, v, xf.contiguous(), self.gamma.to(dt)[0],
-                              use_pallas=self.use_pallas)
-        return out.transpose(1, 2).reshape(b, c, h, w)
+        with annotate("codec.attention"):
+            q, k, v = proj(self.query_conv), proj(self.key_conv), proj(self.value_conv)
+            out = attention_block(q, k, v, xf.contiguous(), self.gamma.to(dt)[0],
+                                  use_pallas=self.use_pallas)
+            return out.transpose(1, 2).reshape(b, c, h, w)

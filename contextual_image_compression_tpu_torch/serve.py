@@ -58,6 +58,7 @@ from contextual_image_compression_tpu_torch.ops.saliency import (
     resize_op_matrix,
 )
 from contextual_image_compression_tpu_torch.parallel import sharding
+from contextual_image_compression_tpu_torch.utils.profiling import annotate
 
 
 def load_codec_checkpoint(codec: AdaptiveCodec, model_dir: str) -> Dict[str, str]:
@@ -143,18 +144,21 @@ class CompressionPipeline:
         ct = self.mcfg.compute_dtype()
         dev = imgs_u8.device
         coeff = float(self.mcfg.quantizer.scale_coeff)
-        mask = mask_ops.compute_contextual_mask(imgs_u8, self.scfg)[..., None]
-        img = imgs_u8.to(ct) * const(1.0 / 127.5, ct, dev) - const(1.0, ct, dev)
-        out = self.codec.apply(img, mask.to(ct), bpp)
-        decoded = (out.blended.float() + 1.0) * 127.5
-        decoded = torch.clamp(torch.round(decoded), 0, 255).to(torch.uint8)
-        # Symbols in fp32 from the pre-quantization latents, with the JAX
-        # pipeline's association exp((coeff * qs) * (1 - s)).
-        qs = out.quant_strength.float()
-        hq_scale = torch.exp(coeff * qs * (1.0 - out.hq_saliency_quant.float()))
-        lq_scale = torch.exp(coeff * qs * (1.0 - out.lq_saliency_quant.float()))
-        hq_sym = torch.round(out.hq_latent.float() * hq_scale)
-        lq_sym = torch.round(out.lq_latent.float() * lq_scale)
+        with annotate("pipeline.mask"):
+            mask = mask_ops.compute_contextual_mask(imgs_u8, self.scfg)[..., None]
+        with annotate("pipeline.codec"):
+            img = imgs_u8.to(ct) * const(1.0 / 127.5, ct, dev) - const(1.0, ct, dev)
+            out = self.codec.apply(img, mask.to(ct), bpp)
+            decoded = (out.blended.float() + 1.0) * 127.5
+            decoded = torch.clamp(torch.round(decoded), 0, 255).to(torch.uint8)
+        with annotate("pipeline.symbols"):
+            # Symbols in fp32 from the pre-quantization latents, with the JAX
+            # pipeline's association exp((coeff * qs) * (1 - s)).
+            qs = out.quant_strength.float()
+            hq_scale = torch.exp(coeff * qs * (1.0 - out.hq_saliency_quant.float()))
+            lq_scale = torch.exp(coeff * qs * (1.0 - out.lq_saliency_quant.float()))
+            hq_sym = torch.round(out.hq_latent.float() * hq_scale)
+            lq_sym = torch.round(out.lq_latent.float() * lq_scale)
         return decoded, {
             "bit_allocation": out.dynamic_threshold[..., 0],
             "hq_latent_q": out.hq_latent_q,
@@ -194,23 +198,25 @@ class CompressionPipeline:
         return sharding.gather_batch(out, self.mesh.world)
 
     def __call__(self, images_u8, target_bpp: float = 1.0) -> Tuple[np.ndarray, Dict]:
-        imgs = torch.as_tensor(images_u8)
-        if imgs.dtype != torch.uint8 or imgs.ndim != 4:
-            raise TypeError("images_u8 must be a (B, H, W, C) uint8 array")
-        b = imgs.shape[0]
-        bp = self._padded_batch(b)
-        if bp != b:
-            pad = torch.zeros((bp - b,) + tuple(imgs.shape[1:]), dtype=imgs.dtype)
-            imgs = torch.cat([imgs.cpu(), pad], dim=0)
-        imgs = imgs.to(self.device)
-        bpp = torch.full((bp, 1), float(target_bpp), dtype=self.mcfg.compute_dtype(),
-                         device=self.device)
+        with annotate("pipeline.upload"):
+            imgs = torch.as_tensor(images_u8)
+            if imgs.dtype != torch.uint8 or imgs.ndim != 4:
+                raise TypeError("images_u8 must be a (B, H, W, C) uint8 array")
+            b = imgs.shape[0]
+            bp = self._padded_batch(b)
+            if bp != b:
+                pad = torch.zeros((bp - b,) + tuple(imgs.shape[1:]), dtype=imgs.dtype)
+                imgs = torch.cat([imgs.cpu(), pad], dim=0)
+            imgs = imgs.to(self.device)
+            bpp = torch.full((bp, 1), float(target_bpp), dtype=self.mcfg.compute_dtype(),
+                             device=self.device)
         decoded, info = self._on_mesh(self._run, imgs, bpp)
         self._seen_batches.add(bp)
-        if bp != b:
-            decoded = decoded[:b]
-            info = {k: v[:b] for k, v in info.items()}
-        return decoded.cpu().numpy(), info
+        with annotate("pipeline.download"):
+            if bp != b:
+                decoded = decoded[:b]
+                info = {k: v[:b] for k, v in info.items()}
+            return decoded.cpu().numpy(), info
 
     def serialize_latents(self, info: Dict) -> Tuple[List[Tuple[bytes, bytes]], np.ndarray]:
         """Range-code the float32 symbols of a call's info into per-image

@@ -62,6 +62,7 @@ from contextual_image_compression_tpu_torch.models.vgg import VGG19Features, pre
 from contextual_image_compression_tpu_torch.parallel import sharding
 from contextual_image_compression_tpu_torch.train import losses as L
 from contextual_image_compression_tpu_torch.train.optimizers import KerasAdam
+from contextual_image_compression_tpu_torch.utils.profiling import annotate
 
 
 class Batch(NamedTuple):
@@ -183,55 +184,59 @@ class GANStepBuilder:
         if self.vgg is None or not self.cfg.use_perceptual:
             return torch.zeros((), dtype=torch.float32, device=images.device)
         lcfg = self.cfg.loss
-        with torch.no_grad():
-            orig = self.vgg(preprocess_caffe(images))
-        gen = self.vgg(preprocess_caffe(compressed))
-        return L.perceptual_loss(orig, gen, lcfg.perceptual_layer_weights, lcfg.perceptual_scale,
-                                 self.group)
+        with annotate("step.perceptual"):
+            with torch.no_grad():
+                orig = self.vgg(preprocess_caffe(images))
+            gen = self.vgg(preprocess_caffe(compressed))
+            return L.perceptual_loss(orig, gen, lcfg.perceptual_layer_weights,
+                                     lcfg.perceptual_scale, self.group)
 
     def g_backward(self, state: GANTrainState, batch: Batch,
                    out: CodecOutput) -> Dict[str, torch.Tensor]:
         """The G/LS/RD losses and one backward of their sum into the codec's
         `.grad`s; returns the detached metrics."""
         lcfg, mcfg = self.cfg.loss, self.cfg.model
-        for opt in (state.g_opt, state.ls_opt, state.rd_opt):
-            opt.zero_grad()
-        blended = _nchw(out.blended)
-        frozen_d = {k: p.detach() for k, p in state.disc.named_parameters()}
-        fake_preds = functional_call(state.disc, frozen_d, (blended, self.disc_bn_mode == "train"))
+        with annotate("step.losses"):
+            for opt in (state.g_opt, state.ls_opt, state.rd_opt):
+                opt.zero_grad()
+            blended = _nchw(out.blended)
+            frozen_d = {k: p.detach() for k, p in state.disc.named_parameters()}
+            fake_preds = functional_call(state.disc, frozen_d,
+                                         (blended, self.disc_bn_mode == "train"))
 
-        grp = self.group
-        recon = L.mse(batch.image, blended, grp)
-        adv = L.adversarial_loss(fake_preds, grp)
-        l1 = L.mae(batch.image, blended, grp)
-        perceptual = self.perceptual(batch.image, blended)
-        ls_loss_raw = L.latent_saliency_loss(out.hq_saliency_loss, out.lq_saliency_loss,
-                                             batch.mask, lcfg, grp)
-        rd_loss_raw = L.rd_loss(out.rd_params, batch.bpp, lcfg, grp)
-        bitrate_control, underutil = L.bitrate_losses(
-            out.dynamic_threshold, batch.bpp, mcfg.base_latent_dim, mcfg.img_size, lcfg, grp)
-        g_loss = L.combine_generator_loss(recon, l1, perceptual, adv, bitrate_control, lcfg)
-        if lcfg.branch_recon_weight > 0.0:
-            branch = (L.mse(batch.image, _nchw(out.hq_output), grp)
-                      + L.mse(batch.image, _nchw(out.lq_output), grp))
-            g_loss = g_loss + lcfg.branch_recon_weight * branch
-        ls_loss = lcfg.ls_loss_weight * ls_loss_raw
-        rd_opt_loss = (lcfg.rd_loss_weight * rd_loss_raw
-                       + lcfg.rd_bitrate_weight * bitrate_control + underutil)
-        (g_loss + ls_loss + rd_opt_loss).backward()
-        self._reduce(state.codec)
-        metrics = {
-            "g_loss": g_loss,
-            "reconstruction_loss": recon,
-            "gan_loss": adv,
-            "l1_loss": l1,
-            "perceptual_loss": perceptual,
-            "latent_saliency_loss": ls_loss_raw,
-            "rd_loss": rd_loss_raw,
-            "bitrate_control_loss": bitrate_control,
-            "actual_bpp": L.mean(L.analytic_bpp_from_allocation(
-                out.dynamic_threshold, mcfg.base_latent_dim, mcfg.img_size), grp),
-        }
+            grp = self.group
+            recon = L.mse(batch.image, blended, grp)
+            adv = L.adversarial_loss(fake_preds, grp)
+            l1 = L.mae(batch.image, blended, grp)
+            perceptual = self.perceptual(batch.image, blended)
+            ls_loss_raw = L.latent_saliency_loss(out.hq_saliency_loss, out.lq_saliency_loss,
+                                                 batch.mask, lcfg, grp)
+            rd_loss_raw = L.rd_loss(out.rd_params, batch.bpp, lcfg, grp)
+            bitrate_control, underutil = L.bitrate_losses(
+                out.dynamic_threshold, batch.bpp, mcfg.base_latent_dim, mcfg.img_size, lcfg, grp)
+            g_loss = L.combine_generator_loss(recon, l1, perceptual, adv, bitrate_control, lcfg)
+            if lcfg.branch_recon_weight > 0.0:
+                branch = (L.mse(batch.image, _nchw(out.hq_output), grp)
+                          + L.mse(batch.image, _nchw(out.lq_output), grp))
+                g_loss = g_loss + lcfg.branch_recon_weight * branch
+            ls_loss = lcfg.ls_loss_weight * ls_loss_raw
+            rd_opt_loss = (lcfg.rd_loss_weight * rd_loss_raw
+                           + lcfg.rd_bitrate_weight * bitrate_control + underutil)
+            metrics = {
+                "g_loss": g_loss,
+                "reconstruction_loss": recon,
+                "gan_loss": adv,
+                "l1_loss": l1,
+                "perceptual_loss": perceptual,
+                "latent_saliency_loss": ls_loss_raw,
+                "rd_loss": rd_loss_raw,
+                "bitrate_control_loss": bitrate_control,
+                "actual_bpp": L.mean(L.analytic_bpp_from_allocation(
+                    out.dynamic_threshold, mcfg.base_latent_dim, mcfg.img_size), grp),
+            }
+        with annotate("step.backward"):
+            (g_loss + ls_loss + rd_opt_loss).backward()
+            self._reduce(state.codec)
         return {k: v.detach() for k, v in metrics.items()}
 
     def g_update(self, state: GANTrainState) -> None:

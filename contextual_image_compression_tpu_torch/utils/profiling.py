@@ -1,8 +1,15 @@
 """Tracing and throughput measurement, the counterpart of the JAX package's
 `utils/profiling.py`: a `torch.profiler` trace context that writes a Chrome
-trace (viewable in Perfetto or chrome://tracing), named regions inside it, a
-step timer with images/sec accounting, and a wall-clock benchmark of a
-function.
+trace (viewable in Perfetto or chrome://tracing), the program's named spans
+inside it, a step timer with images/sec accounting, and a wall-clock
+benchmark of a function.
+
+Spans: `annotate(name)` opens `torch.profiler.record_function(name)` while
+a torch profiler records (`trace`, or any other on the calling thread), so
+the span lands in the same Chrome trace, on the same clock, as the card's
+kernels, copies and runtime calls, and the device's idle gaps can be put
+down to the span open on the host. With no profiler it returns a shared
+null context after one C call. `SPANS` names every span the program opens.
 """
 
 from __future__ import annotations
@@ -34,19 +41,28 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
             log_dir, f"torch_trace_{os.getpid()}_{int(time.time() * 1000)}.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named region inside a profiler trace, and an NVTX range where CUDA is
-    available."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+SPANS = (
+    # serve.py, CompressionPipeline.__call__ end to end
+    "pipeline.upload", "pipeline.mask", "pipeline.codec", "pipeline.symbols",
+    "pipeline.download",
+    # models/adaptive.py, AdaptiveCodec.apply end to end; models/attention.py
+    "codec.encode", "codec.plan", "codec.quantize", "codec.generate", "codec.attention",
+    # train/gan_trainer.py, inside GANStepBuilder.g_backward
+    "step.losses", "step.perceptual", "step.backward",
+    # data/pipeline.py, CompressionDataset.epoch
+    "data.batch",
+)
+
+_OFF = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def annotate(name: str) -> contextlib.AbstractContextManager:
+    """Named span inside a profiler trace; a shared null context when no
+    profiler records."""
+    if not _profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 class StepTimer:
