@@ -27,8 +27,9 @@
 5. runs CompressionPipeline(ModelConfig(), device="cuda") at full width with
    seeded random weights (attention gamma 0.5, random BN statistics) on
    B = 16 structured 256^2 images three times, checking shapes, finite
-   symbols and that the kernels' launch counters moved by K1 +1, K2 +1 and
-   K3 +2 per call;
+   symbols and that the kernels' launch counters moved by K1 +1, K2 +1,
+   K3 +2 and K8int8 +2 (K8's int8 route, the two generators' tails) per
+   call;
 6. holds K3b (the quantizer's backward) against its twin at the training
    path's shapes (B = 16, D = 1024 and 512, float32 and bf16), one kernel
    per call, and times it;
@@ -85,14 +86,17 @@
    bn4 (random statistics) and out_conv on a (16, 128, 128, 128) input,
    bf16 on the "wgmma" route and float32 on the "tf32x3" one, and times it
    the same two ways, float32 beside cuDNN's float32 (TF32 off) and its
-   bounds;
+   bounds; then K8's int8 route (the serving tail, folded once) against
+   packed_tail_forward(int8_planar=True), the path it replaces, at B = 16
+   and 128, both timed the same two ways beside its bound;
 16. drives the entry points of K6-K8 once at full width in bf16
    (attention_core, sagan_block, sagan_block_spatial,
    packed_tail_forward(use_pallas=True)): each kernel +1 and no other;
 17. runs the storable codec: at the small config, containers made on the
    card and on the CPU decode on both; at full width
    (ModelConfig(skip_mode='zero'), 16 structured images)
-   encode_to_bitstream then decode_from_bitstream (K1 +1, K2 +1, K3 +2),
+   encode_to_bitstream then decode_from_bitstream (K1 +1, K2 +1, K3 +2,
+   K8int8 +4),
    the decode held against the direct call, with the measured bpp and the
    encode, decode and host-coder times;
 18. checks that the serving, training, mask and storable-codec paths at 256^2
@@ -105,7 +109,7 @@
 After step 5 a full-width W8A8 serving call (the pipeline's codec built
 with dense_int8 instead of dense_w8: activations quantized per row, int32
 products through torch._int_mm) runs three times at B = 16, each K1 +1, K2
-+1, K3 +2, timed beside the dense_w8 pipeline on the same weights.
++1, K3 +2, K8int8 +2, timed beside the dense_w8 pipeline on the same weights.
 
 Checkpoints (the JAX package's files, read and written without flax) and
 the autoencoder run in four more phases, after step 5, in step 8 and after
@@ -113,7 +117,7 @@ step 17:
 
 (a) serves the JAX-trained tiny GAN of tests/fixtures/jax_tiny_gan
    (CompressionPipeline(model_dir=...), provenance all 'final', K1 +1, K2
-   +1, K3 +2) against the JAX pipeline's committed outputs and the port's
+   +1, K3 +2, K8int8 +2) against the JAX pipeline's committed outputs and the port's
    CPU pipeline on the same files;
 (b) saves the seeded full-width codec's float32 state through the store
    into a temporary directory (1.67 GB) and serves it from there at B = 16,
@@ -175,8 +179,8 @@ The user entry points add two phases at the end:
 (f) the codec CLIs on the card: scripts/torch_compress.py encodes the 16
    JPEGs of runs/ae_ref/compressed_outputs at quality 75 (K5 +1 each;
    streams byte-identical to the same CLI on the CPU) and decodes them;
-   scripts/torch_eval_bitstream.py (K1 +2, K2 +2 on "wgmma", K3 +4 per
-   bpp) and scripts/torch_codec_shootout.py (K5 +6, K1 +1, K2 +8 on
+   scripts/torch_eval_bitstream.py (K1 +2, K2 +2 on "wgmma", K3 +4, K8int8
+   +6 per bpp) and scripts/torch_codec_shootout.py (K5 +6, K1 +1, K2 +8 on
    "tf32x3", K3 +16) from phase (b)'s full-width model_dir over 16
    images, the shootout with --ae-dir runs/ae_ref/model; their JSON rows
    must be finite, and without matplotlib the shootout's plot raises after
@@ -201,7 +205,8 @@ from 0 (its columns of the kernels line):
    and each kernel moved, only there;
 (g3) the use_pallas=False routes, each beside its kernel route on the same
    inputs and timed with it: serving at B = 16 with attention_use_pallas and
-   QuantizerConfig.use_pallas False (K1 +1 a call, no K2 or K3; decoded
+   QuantizerConfig.use_pallas False (K1 +1 and K8int8 +2 a call, no K2 or
+   K3: the generators' int8 tail has no use_pallas flag; decoded
    PSNR >= 40 dB against the kernel route, symbols within +-1 and >= 95%
    identical), masks of 128 images with mask_use_pallas=False for the three
    methods (no K1 or K4; within 1e-4 of K1 / K4) and the DCT round trip at
@@ -287,13 +292,16 @@ def log(msg):
 def launch_counts():
     """The port's launch counts (ops.launch_counts()) with K1's two routes
     apart: 'K1' its float32 launches, 'K1bf16' its bf16 ones (the
-    wrapper's routes 'cluster_bf16' and 'tiled_bf16')."""
+    wrapper's routes 'cluster_bf16' and 'tiled_bf16'); and K8's int8 route
+    (the serving generators' tail) apart as 'K8int8'."""
     from contextual_image_compression_tpu_torch import ops
 
     counts = ops.launch_counts()
-    routes = ops.route_counts()["K1"]
-    counts["K1bf16"] = routes["cluster_bf16"] + routes["tiled_bf16"]
+    routes = ops.route_counts()
+    counts["K1bf16"] = routes["K1"]["cluster_bf16"] + routes["K1"]["tiled_bf16"]
     counts["K1"] -= counts["K1bf16"]
+    counts["K8int8"] = routes["K8"]["int8"]
+    counts["K8"] -= counts["K8int8"]
     return counts
 
 
@@ -302,7 +310,7 @@ def expect(**nonzero):
     kernels at their counts, every other kernel at 0."""
     from contextual_image_compression_tpu_torch import ops
 
-    keys = (*ops.KERNEL_WRAPPERS, "K1bf16")
+    keys = (*ops.KERNEL_WRAPPERS, "K1bf16", "K8int8")
     unknown = set(nonzero) - set(keys)
     if unknown:
         raise KeyError(f"unknown kernels {unknown}")
@@ -661,10 +669,12 @@ def w8a8_pipeline(pipe, state_dict):
     of `state_dict` in a codec built with dense_int8 and without dense_w8
     (which wins over dense_int8 in both packages' KDense, so the serving
     configuration's dense_w8 would hide it), cast to bf16 as serving casts
-    them. Everything else of the pipeline's call is its own."""
+    them, the generators' int8 tails folded once as serving folds them.
+    Everything else of the pipeline's call is its own."""
     import dataclasses
 
     from contextual_image_compression_tpu_torch.models.adaptive import AdaptiveCodec
+    from contextual_image_compression_tpu_torch.models.generator import prepare_int8_tails
     from contextual_image_compression_tpu_torch.models.layers import cast_floats
 
     mcfg = dataclasses.replace(pipe.mcfg, dense_w8=False, dense_int8=True)
@@ -672,6 +682,7 @@ def w8a8_pipeline(pipe, state_dict):
         codec = AdaptiveCodec(mcfg)
     codec.load_state_dict(state_dict)
     cast_floats(codec, mcfg.compute_dtype())
+    prepare_int8_tails(codec)
     out = copy.copy(pipe)
     out.mcfg, out.codec, out._seen_batches = mcfg, codec.eval().requires_grad_(False), set()
     return out
@@ -740,9 +751,9 @@ def run_full_pipeline(dev, card):
         times.append(time.perf_counter() - t)
         after = launch_counts()
         delta = {k: after[k] - before[k] for k in after}
-        if delta != expect(K1=1, K2=1, K3=2):
+        if delta != expect(K1=1, K2=1, K3=2, K8int8=2):
             raise AssertionError(f"call {i}: kernel launches {delta}, want K1 1, K2 1, K3 2, "
-                                 "and no other")
+                                 "K8int8 2 (the two generators' tails), and no other")
         if dec.shape != (B, 256, 256, 3) or dec.dtype != np.uint8:
             raise AssertionError(f"decoded {dec.shape} {dec.dtype}")
         for key, shape in (("hq_symbols", (B, 1024)), ("lq_symbols", (B, 512)),
@@ -801,7 +812,7 @@ def run_w8a8_serving(dev, card):
         times[name].append(time.perf_counter() - t)
         after = launch_counts()
         delta = {k: after[k] - before[k] for k in after}
-        if delta != expect(K1=1, K2=1, K3=2):
+        if delta != expect(K1=1, K2=1, K3=2, K8int8=2):
             raise AssertionError(f"{name} call: kernel launches {delta}")
         if name == "w8a8":
             counts = {k: counts[k] + delta[k] for k in counts}
@@ -1562,8 +1573,9 @@ def run_jax_trained_serving(dev, card):
     ops.reset_launch_counts()
     dec, info = pipe(u8, target_bpp=bpp)
     counts = launch_counts()
-    if counts != expect(K1=1, K2=1, K3=2):
-        raise AssertionError(f"JAX-trained serving launches {counts}, want K1 1, K2 1, K3 2")
+    if counts != expect(K1=1, K2=1, K3=2, K8int8=2):
+        raise AssertionError(f"JAX-trained serving launches {counts}, want K1 1, K2 1, K3 2, "
+                             "K8int8 2")
     check_cluster_route("JAX-trained serving")
     check_attention_route("JAX-trained serving", "wgmma")
     cpu_dec, cpu_info = CompressionPipeline(model_dir=str(fixture), model_config=cfg,
@@ -1636,8 +1648,9 @@ def run_checkpoint_serving(dev, card, tmp):
         ops.reset_launch_counts()
         dec, info = pipe(u8, target_bpp=1.0)
         counts = launch_counts()
-        if counts != expect(K1=1, K2=1, K3=2):
-            raise AssertionError(f"checkpoint serving launches {counts}, want K1 1, K2 1, K3 2")
+        if counts != expect(K1=1, K2=1, K3=2, K8int8=2):
+            raise AssertionError(f"checkpoint serving launches {counts}, want K1 1, K2 1, K3 2, "
+                                 "K8int8 2")
         check_cluster_route("checkpoint serving")
         check_attention_route("checkpoint serving", "wgmma")
         want_dec, want_info = direct(u8, target_bpp=1.0)
@@ -2305,6 +2318,68 @@ def check_k8(dev, B, codec):
                 max_abs_err_float32=t32)
 
 
+def check_k8_int8(dev, codec):
+    """K8's int8 route (the serving generators' tail) with the HQ generator's
+    tail of a full-width codec in bf16, as serving casts it, folded once
+    (fold_int8_tail), on (B, 128, 128, 128) inputs at B = 16 and 128: held to
+    the path it replaces, packed_tail_forward(int8_planar=True) (cuDNN and
+    elementwise passes, its fold on every call), at K8's bf16 bars against
+    cuDNN (max 6.25e-2, mean 4e-3, identical on >= 99%); both timed,
+    host-inclusive and on the device alone, in the same run, beside the
+    bound max(bytes / 3.35 TB/s, operations / 989 TFLOP/s) over x read once
+    and the output written once."""
+    from contextual_image_compression_tpu_torch.measure import device_ms, event_ms
+    from contextual_image_compression_tpu_torch.models.packed_tail import (
+        fold_int8_tail, int8_tail_forward, packed_tail_forward)
+    from contextual_image_compression_tpu_torch.ops.generator_tail import fused_tail
+
+    gm, bf = codec.hq_generator, torch.bfloat16
+    bn = gm.bn4
+    w = [t.detach().to(bf) for t in (gm.deconv4.weight, gm.deconv4.bias, bn.weight, bn.bias,
+                                     bn.running_mean, bn.running_var, gm.out_conv.weight,
+                                     gm.out_conv.bias)]
+    ops = fold_int8_tail(*w, bf, bn_eps=bn.eps, pack=True)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    rec = {}
+    for B in (16, 128):
+        x = (torch.randn(B, 128, 128, 128, device=dev, generator=gen) * 0.5).to(bf)
+        route = lambda: int8_tail_forward(x, ops)  # noqa: E731
+        path = lambda: packed_tail_forward(x, *w, bn_eps=bn.eps, int8_planar=True)  # noqa: E731
+        got, which = _route_of(fused_tail, route)
+        if which != "int8":
+            raise AssertionError(f"K8 int8 took the {which} route")
+        d = (got.float() - path().float()).abs()
+        err = (d.max().item(), d.mean().item(), (d == 0).float().mean().item())
+        del got, d
+        if not (err[0] <= 6.25e-2 and err[1] <= 4e-3 and err[2] >= 0.99):
+            raise AssertionError(f"K8 int8 at B = {B} disagrees with the PyTorch path: {err}")
+        px = B * 256 * 256
+        flops = 2.0 * px * 32 * 4 * 128 + 2.0 * px * 3 * 16 * 32
+        b_ms, b_by = bound_ms(x.numel() * 2 + px * 3 * 2, flops, H100_BF16_TFLOPS)
+        t = dict(ms=event_ms(route, reps=10), device_ms=device_ms(route, reps=10),
+                 path_ms=event_ms(path, reps=10), path_device_ms=device_ms(path, reps=10),
+                 bound_ms=b_ms, bound_by=b_by)
+        log(f"K8 int8 x {(B, 128, 128, 128)} -> {(B, 3, 256, 256)} against "
+            f"packed_tail_forward(int8_planar=True): max {err[0]:.3e} mean {err[1]:.2e} identical "
+            f"{err[2]:.5f} (bars 6.25e-2, 4e-3, 0.99); route {t['ms']:.4f} ms (device alone "
+            f"{t['device_ms']:.4f}), the path it replaces {t['path_ms']:.4f} ms (device alone "
+            f"{t['path_device_ms']:.4f}), bound {b_ms:.4f} ms ({b_by})")
+        rec[B] = (err, t)
+        del x
+    (err, t), (err128, t128) = rec[16], rec[128]
+    return dict(name="K8 int8 int8_tail", route="cuda",
+                source="contextual_image_compression_tpu_torch/csrc/packed_tail.cu",
+                replaces="contextual_image_compression_tpu_torch/models/packed_tail.py "
+                         "packed_tail_forward(int8_planar=True)",
+                max_abs_err=err[0], mean_abs_err=err[1], identical=err[2], ms=t["ms"],
+                plain_ms=t["path_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                library_ms=t["path_ms"], device_ms=t["device_ms"],
+                library_device_ms=t["path_device_ms"], design="wgmma, one rounding of the deconv",
+                max_abs_err_b128=err128[0], ms_b128=t128["ms"], device_ms_b128=t128["device_ms"],
+                library_ms_b128=t128["path_ms"], library_device_ms_b128=t128["path_device_ms"],
+                bound_ms_b128=t128["bound_ms"])
+
+
 def run_entry_points(dev, B, codec):
     """The main path of K6, K7a, K7b and K8: each public entry point that
     reaches one of them, called once at full width in bf16 (the serving
@@ -2407,7 +2482,7 @@ def run_codec_path(dev, card):
     decoded = pipe.decode_from_bitstream(streams)  # ends in a device->host copy
     t_dec = time.perf_counter() - t0
     counts = launch_counts()
-    want = expect(K1=1, K2=1, K3=2)
+    want = expect(K1=1, K2=1, K3=2, K8int8=4)  # the generators' tails: 2 encoding, 2 decoding
     if counts != want:
         raise AssertionError(f"storable codec launches {counts}, want {want}")
     check_cluster_route("storable codec")
@@ -2936,7 +3011,7 @@ def run_cli_paths(dev, card, model_dir):
         with open(f"{tmp}/eb.json") as f:
             eb = json.load(f)
         nb = len(eb["rows"])
-        if counts != expect(K1=2 * nb, K2=2 * nb, K3=4 * nb):
+        if counts != expect(K1=2 * nb, K2=2 * nb, K3=4 * nb, K8int8=6 * nb):
             raise AssertionError(f"eval_bitstream CLI launches {counts}")
         check_cluster_route("eval_bitstream CLI")
         check_attention_route("eval_bitstream CLI", "wgmma")
@@ -3253,7 +3328,7 @@ def run_use_pallas_false(dev, card):
         routes[name] = (dec, info["hq_symbols"].cpu().numpy(), info["lq_symbols"].cpu().numpy(),
                         float(np.median(times)))
         del pipe
-    if paths["no_pallas_serving"] != expect(K1=1):
+    if paths["no_pallas_serving"] != expect(K1=1, K8int8=2):
         raise AssertionError(f"use_pallas=False serving launches {paths['no_pallas_serving']}")
     psnr = _psnr_u8(routes["jnp"][0], routes["kernels"][0])
     sym = [np.abs(routes["jnp"][i] - routes["kernels"][i]) for i in (1, 2)]
@@ -3899,6 +3974,7 @@ def main():
     codec = _full_width_codec(dev)
     records.extend(check_k7(dev, B, codec))
     records.append(check_k8(dev, B, codec))
+    records.append(check_k8_int8(dev, codec))
     entry_points = run_entry_points(dev, B, codec)
     del codec
     check_small_codec_against_cpu(dev)
@@ -3935,8 +4011,11 @@ def main():
                "K3b": ("training", "mixed_training", "training_flow", "mesh") + options[:2],
                "K4": ("masks", "fft_core_masks"), "K5": ("dct", "compress_cli", "shootout_cli"),
                "K6": ("entry_points",), "K7a": ("entry_points",), "K7b": ("entry_points",),
-               "K8": ("entry_points",), "K1bf16": ("evaluation",)}
-    keys_in_order = ("K1", "K2", "K3", "K3b", "K4", "K5", "K6", "K7a", "K7b", "K8", "K1bf16")
+               "K8": ("entry_points",), "K1bf16": ("evaluation",),
+               "K8int8": ("serving", "jax_trained_serving", "checkpoint_serving", "w8a8_serving",
+                          "storable_codec", "eval_bitstream_cli", "no_pallas_serving", "mesh")}
+    keys_in_order = ("K1", "K2", "K3", "K3b", "K4", "K5", "K6", "K7a", "K7b", "K8", "K8int8",
+                     "K1bf16")
     if len(records) != len(keys_in_order):
         raise AssertionError("one record per kernel")
     for rec, key in zip(records, keys_in_order):

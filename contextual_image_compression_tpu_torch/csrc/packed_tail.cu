@@ -56,6 +56,22 @@
 // ones (1.52x); the x window's loads are 2-byte-channel gathers from NCHW;
 // the kernel is at the 255-register limit with a small spill.
 //
+// int8 (serving, bf16): tail_tc_kernel<NG, true>, route "int8". It gives
+// the numbers of packed_tail_forward(int8_planar=True), the XLA path that
+// JAX serves with (cuDNN's convolutions in the port), not the TPU kernel's:
+//   * stage A chains the four taps into one float32 accumulator per column
+//     group (K = 4 x Cin) and rounds it to bf16 once, as a convolution does;
+//   * then, in registers: + shift in bf16, LeakyReLU in bf16 (y * bf16(slope)
+//     rounded), q = clamp(rint(y * inv_amax[o]), -127, 127) with the float32
+//     127 / amax of the folded BatchNorm, zeros at the out-of-image pixels
+//     (F.pad's zeros on q). q is exact in bf16 and goes straight into the
+//     planar tile, so there is no activation pass;
+//   * stage B runs on q with the out-conv weight W_out * amax / 127 in bf16,
+//     rounds its float32 sum to bf16, adds the bf16 bias with a rounding and
+//     rounds tanh to bf16: the cuDNN path's roundings.
+// The operands (tap tiles, shift, inv_amax, the scaled weight, the bias) are
+// folded once at serving set-up (models/generator.py, Generator.prepare_tail).
+//
 // float32 (bar 2e-5 against the twin): tail_tf32_kernel, the same plan on the
 // tensor cores with every product as three TF32 passes a_hi b_hi + a_hi b_lo
 // + a_lo b_hi (hi = cvt.rna.tf32(a), lo = cvt.rna.tf32(a - hi), summed in
@@ -141,10 +157,10 @@ constexpr int SMEM_LIMIT = 232448;
 // channels, K-major, swizzled: kt / 4 atoms of 1024 bytes); the x window
 // ([XR * XC][xs_stride]: the channels of a position); the planar tile ([POS]
 // [ys_stride]: 4 slabs of kt channels, zeros beyond Cmid); the place of
-// each planar column n in a row; shift and bias in float32.
+// each planar column n in a row; shift, bias and (int8) 127 / amax in float32.
 struct Layout {
   int cin_pad, ng, kt, xs_stride, ys_stride;
-  int wo_off, x_off, y_off, tab_off, sh_off, bias_off, total;
+  int wo_off, x_off, y_off, tab_off, sh_off, bias_off, inv_off, total;
 };
 
 __host__ __device__ inline Layout layout(int Cin, int Cmid) {
@@ -160,12 +176,16 @@ __host__ __device__ inline Layout layout(int Cin, int Cmid) {
   L.tab_off = L.y_off + POS * L.ys_stride;
   L.sh_off = L.tab_off + 2 * 128;
   L.bias_off = L.sh_off + 32 * 4;
-  L.total = L.bias_off + 4 * 4 + 1024;  // and the 1024-byte alignment of the base
+  L.inv_off = L.bias_off + 4 * 4;
+  L.total = L.inv_off + 32 * 4 + 1024;  // and the 1024-byte alignment of the base
   return L;
 }
 
 __device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// v rounded to bf16, as a float
+__device__ __forceinline__ float bf16r(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 
 // bf16(a + b) of two pairs of bf16 values, the sum in float32
 __device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
@@ -240,11 +260,13 @@ __device__ __forceinline__ void store_window(const Window& w, unsigned char* xs,
 
 // Stage A, step s = (group g = s / 4, tap t = s % 4): ldmatrix of the
 // window shifted by the tap into ab, then D = X_t . W_t[g] into db with a
-// fresh float32 accumulator, committed as one group.
+// fresh float32 accumulator, or D += X_t . W_t[g] where chain (the int8
+// route's taps after the first), committed as one group.
 template <int NG>
 __device__ __forceinline__ void mma_step(int s, uint32_t (&ab)[KSTEPS_MAX][4], float (&db)[32],
                                            uint32_t a_base, const unsigned char* wsm,
-                                           int xs_stride, int cin_pad, int ksteps) {
+                                           int xs_stride, int cin_pad, int ksteps,
+                                           bool chain = false) {
   const int t = s & 3, g = s >> 2;
   const uint32_t at = a_base + ((t >> 1) * XC + (t & 1)) * xs_stride;
 #pragma unroll
@@ -259,18 +281,51 @@ __device__ __forceinline__ void mma_step(int s, uint32_t (&ab)[KSTEPS_MAX][4], f
   for (int kk = 0; kk < KSTEPS_MAX; ++kk)
     if (kk < ksteps)
       wgmma_rs_m64n64k16_tb(db, ab[kk], sw128_desc(wtap + kk * 16 * 128, cin_pad * 128, 1024),
-                            kk > 0);
+                            chain || kk > 0);
   wgmma_commit();
+}
+
+// The int8 route's activation of a finished column group g: d holds the
+// float32 sums of planar positions p0 and p0 + 8 (pair q: row p0 + 8 (q % 2),
+// columns n, n + 1); each goes to bf16, + shift, LeakyReLU, to int8 levels,
+// zero outside the image, and into the planar tile as bf16.
+template <int NG>
+__device__ __forceinline__ void quantize_to_planar(const float (&d)[32], int g, int p0, int lane,
+                                                   int NC, int M0, int J0, int H, int W,
+                                                   float slope, const uint16_t* colmap,
+                                                   const float* shs, const float* invs,
+                                                   unsigned char* ys) {
+  constexpr int KT = 16 * NG, YS = 2 * 4 * KT + 16;
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const int p = p0 + 8 * (q & 1);
+    uint16_t* row = reinterpret_cast<uint16_t*>(ys + p * YS);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = g * 64 + 8 * (q >> 1) + 2 * (lane & 3) + e;
+      if (n >= NC) continue;
+      const int cm = colmap[n], slab = cm / KT, o = cm % KT;
+      const int P = 2 * (M0 + p / PC) - (slab >> 1), Q = 2 * (J0 + p % PC) - (slab & 1);
+      const bool outside = P < 0 || P >= 2 * H || Q < 0 || Q >= 2 * W;
+      float y = bf16r(bf16r(d[2 * q + e]) + shs[o]);
+      y = y >= 0.f ? y : bf16r(y * slope);
+      const float lv = fminf(fmaxf(rintf(y * invs[o]), -127.f), 127.f);
+      row[cm] = outside ? (uint16_t)0 : __bfloat16_as_ushort(__float2bfloat16_rn(lv));
+    }
+  }
 }
 
 // NG: the 64-column groups of the 4 Cmid planar channels (1 or 2), a template
 // argument so that stage A's steps unroll with their buffers in registers.
-template <int NG>
+// Q8: the int8 route (bias in bf16, inv_amax read); else the bf16 route
+// (bias in float32, inv_amax null).
+template <int NG, bool Q8>
 __global__ void __launch_bounds__(THREADS, 1)
 tail_tc_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wt,
                const uint16_t* __restrict__ shift, const uint16_t* __restrict__ wo,
-               const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int B, int Cin,
-               int H, int W, int Cmid, int Co, float slope, int tiles_y, int tiles_x) {
+               const void* __restrict__ bias, const float* __restrict__ inv_amax,
+               __nv_bfloat16* __restrict__ out, int B, int Cin, int H, int W, int Cmid, int Co,
+               float slope, int tiles_y, int tiles_x) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const Layout L = layout(Cin, Cmid);
@@ -281,6 +336,7 @@ tail_tc_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wt,
   uint16_t* colmap = reinterpret_cast<uint16_t*>(base + L.tab_off);  // planar column n -> slab kt + o
   float* shs = reinterpret_cast<float*>(base + L.sh_off);
   float* bs = reinterpret_cast<float*>(base + L.bias_off);
+  float* invs = reinterpret_cast<float*>(base + L.inv_off);
   const int tid = threadIdx.x, NC = 4 * Cmid, cin_pad = L.cin_pad;
   constexpr int KT = 16 * NG;                // channels a slab in the planar tile
   constexpr int YS = 2 * 4 * KT + 16;        // its row stride in bytes (L.ys_stride)
@@ -289,7 +345,7 @@ tail_tc_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wt,
   // once per block: the tap tiles (16-byte chunks into the swizzled layout),
   // stage B's weights (element (n, k = tap * kt + c) of the swizzled K-major
   // tile), zeros over the planar tile (its channel padding stays zero), the
-  // column table, shift and bias
+  // column table, shift, bias and 127 / amax
   for (int c = tid; c < 4 * L.ng * cin_pad * 8; c += THREADS) {
     const int row = c >> 3, ch = c & 7, ci = row % cin_pad;
     const uint4 val = *reinterpret_cast<const uint4*>(wt + (size_t)row * 64 + ch * 8);
@@ -305,7 +361,12 @@ tail_tc_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wt,
     reinterpret_cast<uint4*>(ys)[i] = make_uint4(0u, 0u, 0u, 0u);
   for (int n = tid; n < NC; n += THREADS) colmap[n] = (uint16_t)(n / Cmid * KT + n % Cmid);
   for (int i = tid; i < 32; i += THREADS) shs[i] = i < Cmid ? __uint_as_float((uint32_t)shift[i] << 16) : 0.f;
-  if (tid < 4) bs[tid] = tid < Co ? bias[tid] : 0.f;
+  if (tid < 4)
+    bs[tid] = tid >= Co ? 0.f
+              : Q8      ? __uint_as_float((uint32_t)static_cast<const uint16_t*>(bias)[tid] << 16)
+                        : static_cast<const float*>(bias)[tid];
+  if (Q8)
+    for (int i = tid; i < 32; i += THREADS) invs[i] = i < Cmid ? inv_amax[i] : 0.f;
   fence_proxy_async();
   __syncthreads();
 
@@ -357,7 +418,9 @@ tail_tc_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wt,
     // of A and D buffers before step s is waited for, rounded to bf16 and
     // combined in the TPU order (pairs of bf16 in yv, P(1, 0) held in p10),
     // so the combine overlaps the next products; after a group's fourth tap
-    // the sums go to the planar tile.
+    // the sums go to the planar tile. The int8 route adds a group's four
+    // taps into one accumulator, d[g] (the next group's first tap is in
+    // flight while a group's sums are activated, quantized and stored).
     uint32_t a[2][KSTEPS_MAX][4];
     float d[2][32];
     uint32_t yv[16], p10[16];
@@ -366,10 +429,21 @@ tail_tc_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wt,
     for (int s = 0; s < 4 * NG; ++s) {
       const int cur = s & 1, t = s & 3;
       if (s + 1 < 4 * NG) {
-        mma_step<NG>(s + 1, a[cur ^ 1], d[cur ^ 1], a_base, wsm_t, L.xs_stride, cin_pad, ksteps);
+        mma_step<NG>(s + 1, a[cur ^ 1], d[Q8 ? (s + 1) >> 2 : cur ^ 1], a_base, wsm_t,
+                     L.xs_stride, cin_pad, ksteps, Q8 && t != 3);
         wgmma_wait<1>();
       } else {
         wgmma_wait<0>();
+      }
+      if constexpr (Q8) {
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS_MAX; ++kk) fence_regs(a[cur][kk]);
+        if (t == 3) {  // group s / 4 is summed
+          fence_regs(d[s >> 2]);
+          quantize_to_planar<NG>(d[s >> 2], s >> 2, p0, lane, NC, M0, J0, H, W, bf16r(slope),
+                                 colmap, shs, invs, ys);
+        }
+        continue;
       }
       fence_regs(d[cur]);
 #pragma unroll
@@ -401,7 +475,9 @@ tail_tc_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wt,
     __syncthreads();
 
     // + shift, LeakyReLU, zeros at the out-of-range pixels (-1 and 2H): 8
-    // channels of one slab at one planar position a step
+    // channels of one slab at one planar position a step (the int8 route did
+    // this in stage A)
+    if constexpr (!Q8) {
     for (int c = tid; c < POS * 4 * (KT / 8); c += THREADS) {
       const int p = c / (4 * (KT / 8)), slab = (c / (KT / 8)) & 3, o8 = (c % (KT / 8)) * 8;
       if (o8 >= Cmid) continue;
@@ -422,6 +498,7 @@ tail_tc_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wt,
       *at = make_uint4(w[0], w[1], w[2], w[3]);
     }
     __syncthreads();  // the planar tile is in; the window is free
+    }
 
     // the next tile's window: loads in flight during stage B, stored after it
     const int next = tile + gridDim.x;
@@ -512,27 +589,30 @@ tail_tc_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wt,
         const int P = 2 * M0 + pix / TW, Q = 2 * J0 + pix % TW;
         if (P >= 2 * H || Q >= 2 * W) continue;
         out[((size_t)b * Co + co) * plane + (size_t)P * 2 * W + Q] =
-            __float2bfloat16_rn(tanhf(acc[mt][i] + bs[co]));
+            Q8 ? __float2bfloat16_rn(tanhf(bf16r(bf16r(acc[mt][i]) + bs[co])))
+               : __float2bfloat16_rn(tanhf(acc[mt][i] + bs[co]));
       }
     if (next < total) store_window(win, xs, ltid, cin_pad, L.xs_stride);
   }
 }
 
-int launch(const void* x, const void* wt, const void* shift, const void* wo, const float* bias,
-           void* out, int B, int Cin, int H, int W, int Cmid, int Co, float slope,
-           cudaStream_t st) {
+// inv_amax null: the bf16 route (bias float32); else the int8 route (bias bf16)
+int launch(const void* x, const void* wt, const void* shift, const void* wo, const void* bias,
+           const float* inv_amax, void* out, int B, int Cin, int H, int W, int Cmid, int Co,
+           float slope, cudaStream_t st) {
   static int smem_set[64] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
   if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
   if (!smem_set[device]) {  // once, to the card's limit: any shape may follow any other
-    err = cudaFuncSetAttribute(tail_tc_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_LIMIT);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(tail_tc_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 SMEM_LIMIT);
-    if (err != cudaSuccess) return (int)err;
+    const decltype(&tail_tc_kernel<1, false>) kernels[] = {
+        tail_tc_kernel<1, false>, tail_tc_kernel<2, false>, tail_tc_kernel<1, true>,
+        tail_tc_kernel<2, true>};
+    for (const auto k : kernels) {
+      err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+      if (err != cudaSuccess) return (int)err;
+    }
     smem_set[device] = 1;
   }
   const Layout L = layout(Cin, Cmid);
@@ -544,10 +624,12 @@ int launch(const void* x, const void* wt, const void* shift, const void* wo, con
   const long long total = (long long)B * tiles_y * tiles_x;
   if (total > (1ll << 31) - 1) return (int)cudaErrorInvalidValue;
   const int grid = (int)(total < sms ? total : sms);
-  auto kernel = L.ng == 1 ? tail_tc_kernel<1> : tail_tc_kernel<2>;
+  const bool q8 = inv_amax != nullptr;
+  auto kernel = L.ng == 1 ? (q8 ? tail_tc_kernel<1, true> : tail_tc_kernel<1, false>)
+                          : (q8 ? tail_tc_kernel<2, true> : tail_tc_kernel<2, false>);
   kernel<<<grid, THREADS, L.total, st>>>(
       static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(wt),
-      static_cast<const uint16_t*>(shift), static_cast<const uint16_t*>(wo), bias,
+      static_cast<const uint16_t*>(shift), static_cast<const uint16_t*>(wo), bias, inv_amax,
       static_cast<__nv_bfloat16*>(out), B, Cin, H, W, Cmid, Co, slope, tiles_y, tiles_x);
   return (int)cudaGetLastError();
 }
@@ -1015,6 +1097,23 @@ extern "C" int cic_packed_tail_bf16(const void* x, const void* wt, const void* s
   if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cin > CIN_MAX || Cmid < 1 || 4 * Cmid > NC_MAX ||
       Co < 1 || Co > CO_MAX)
     return (int)cudaErrorInvalidValue;
-  return tc::launch(x, wt, shift, wo, bias, out, B, Cin, H, W, Cmid, Co, slope,
+  return tc::launch(x, wt, shift, wo, bias, nullptr, out, B, Cin, H, W, Cmid, Co, slope,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// int8 (bf16 x, wt, shift, wo, bias, out; the route of the module comment).
+// wt as cic_packed_tail_bf16's, from the BN-folded deconv weight; shift:
+// (Cmid,); inv_amax: (Cmid,) float32, 127 / amax; wo: (Co, Cmid, 4, 4), the
+// out-conv weight times amax / 127; bias: (Co,); out: (B, Co, 2H, 2W). slope
+// is rounded to bf16, as the XLA path's LeakyReLU multiplies by it. Takes
+// Cin <= 128, Cmid <= 32, Co <= 4.
+extern "C" int cic_packed_tail_int8(const void* x, const void* wt, const void* shift,
+                                    const float* inv_amax, const void* wo, const void* bias,
+                                    void* out, int B, int Cin, int H, int W, int Cmid, int Co,
+                                    float slope, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cin > CIN_MAX || Cmid < 1 || 4 * Cmid > NC_MAX ||
+      Co < 1 || Co > CO_MAX || inv_amax == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return tc::launch(x, wt, shift, wo, bias, inv_amax, out, B, Cin, H, W, Cmid, Co, slope,
                     static_cast<cudaStream_t>(stream));
 }

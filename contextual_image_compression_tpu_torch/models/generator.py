@@ -6,7 +6,12 @@ Counterpart of `contextual_image_compression_tpu/models/generator.py`:
     ConvT k4 s2 -> BN -> LReLU -> Conv k4 s1 -> tanh       (native tail)
 or, at inference with packed_tail, the folded tail of models/packed_tail.py
 (train-mode calls take the native tail, as the JAX generator does: batch
-statistics cannot be folded). polyphase=True lowers the deconvolutions as
+statistics cannot be folded). The int8 form folds its operands on every
+call unless `prepare_tail()` (serving set-up: `prepare_int8_tails`) folded
+them once; a prepared generator takes K8's int8 route for a square bf16 CUDA
+input within the kernel's widths (models/packed_tail.py::int8_tail_forward)
+and refolds when a source weight or statistic has changed since (a state
+dict loaded, an in-place edit, a move). polyphase=True lowers the deconvolutions as
 the JAX generator's `generator_polyphase` does (layers.KConvT).
 The fc output is reshaped in NCHW order; `convert.py` permutes the JAX
 (NHWC-order) fc columns and bias to match.
@@ -27,7 +32,11 @@ from contextual_image_compression_tpu_torch.models.layers import (
     leaky_relu,
     used,
 )
-from contextual_image_compression_tpu_torch.models.packed_tail import packed_tail_forward
+from contextual_image_compression_tpu_torch.models.packed_tail import (
+    fold_int8_tail,
+    int8_tail_forward,
+    packed_tail_forward,
+)
 
 
 class Generator(nn.Module):
@@ -64,12 +73,55 @@ class Generator(nn.Module):
             setattr(self, f"bn{i + 1}", KBatchNorm(ch))
             cin = ch + extra
         self.out_conv = KConv(channels[3], out_channels, 4, 1)
+        self._int8_tail = None  # (sources' key, Int8Tail) once prepare_tail() ran
 
     def reset_parameters(self, gen: torch.Generator):
         self.fc.reset_parameters(gen)
         for i in range(1, 5):
             getattr(self, f"deconv{i}").reset_parameters(gen)
         self.out_conv.reset_parameters(gen)
+
+    def _tail_sources(self):
+        bn = self.bn4
+        return (self.deconv4.weight, self.deconv4.bias, bn.weight, bn.bias, bn.running_mean,
+                bn.running_var, self.out_conv.weight, self.out_conv.bias)
+
+    @staticmethod
+    def _key(sources):
+        # new storage (a load with assign=True, a cast, a move) changes the
+        # address; an in-place write (load_state_dict's copy_) the version.
+        # Tensors made under torch.inference_mode keep no version.
+        return tuple((t.data_ptr(), None if t.is_inference() else t._version) for t in sources)
+
+    @torch.no_grad()
+    def prepare_tail(self) -> None:
+        """Fold the int8 tail's operands once, from the current weights
+        (gathered where a mesh splits them), in the deconv weight's dtype:
+        the values the per-call fold computes, bit for bit. A generator
+        without the packed int8 tail has nothing to prepare."""
+        if not (self.packed_tail and self.packed_tail_int8):
+            return
+        bn, dt = self.bn4, self.deconv4.weight.dtype
+        ops = fold_int8_tail(
+            used(self.deconv4, "weight").to(dt), used(self.deconv4, "bias").to(dt),
+            used(bn, "weight"), used(bn, "bias"), bn.running_mean, bn.running_var,
+            used(self.out_conv, "weight"), used(self.out_conv, "bias").to(dt), dt,
+            bn_eps=bn.eps, leaky_slope=self.leaky_slope, pack=True)
+        self._int8_tail = (self._key(self._tail_sources()), ops)
+
+    def _prepared_tail(self, x: torch.Tensor):
+        """The prepared Int8Tail for x, refolded first if a source changed
+        since; None when unprepared, when x has another dtype or device, or
+        when autograd wants the tail's gradients."""
+        if self._int8_tail is None:
+            return None
+        sources = self._tail_sources()
+        if torch.is_grad_enabled() and any(t.requires_grad for t in sources):
+            return None
+        if self._key(sources) != self._int8_tail[0]:
+            self.prepare_tail()
+        ops = self._int8_tail[1]
+        return ops if ops.folded.dtype == x.dtype and ops.folded.device == x.device else None
 
     def forward(self, latent: torch.Tensor, skips, train: bool = False) -> torch.Tensor:
         """latent (B, D), skips (skip1, skip2, skip3) NCHW -> (B, C, H, W) in
@@ -83,6 +135,9 @@ class Generator(nn.Module):
             x = getattr(self, f"bn{i + 1}")(getattr(self, f"deconv{i + 1}")(x), train)
             x = torch.cat([leaky_relu(x, s), skip.to(x.dtype)], dim=1)
         if self.packed_tail and not train:
+            ops = self._prepared_tail(x) if self.packed_tail_int8 else None
+            if ops is not None:
+                return int8_tail_forward(x, ops)
             bn = self.bn4
             return packed_tail_forward(
                 x, used(self.deconv4, "weight").to(x.dtype),
@@ -93,3 +148,11 @@ class Generator(nn.Module):
             )
         x = leaky_relu(self.bn4(self.deconv4(x), train), s)
         return torch.tanh(self.out_conv(x))
+
+
+def prepare_int8_tails(model: nn.Module) -> None:
+    """`prepare_tail()` on every generator of `model` with the packed int8
+    tail (serving set-up, after the weights are final and cast)."""
+    for mod in model.modules():
+        if isinstance(mod, Generator):
+            mod.prepare_tail()

@@ -124,6 +124,11 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I,      # B, Cin, H, W, Cmid, Co
         _F, _P,                      # LeakyReLU slope, stream
     ],
+    "cic_packed_tail_int8": [
+        _P, _P, _P, _P, _P, _P, _P,  # x, tap tiles, shift, 127 / amax(f32), out weight, bias, out
+        _I, _I, _I, _I, _I, _I,      # B, Cin, H, W, Cmid, Co
+        _F, _P,                      # LeakyReLU slope, stream
+    ],
     "cic_adaptive_quantize": [
         _I,                          # dtype code of the latent
         _P, _P, _I, _P, _I,          # latent, score, its dtype code, strength, its dtype code

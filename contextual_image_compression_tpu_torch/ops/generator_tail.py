@@ -11,6 +11,15 @@ tap products and the out-conv on the tensor cores: bf16 in one pass, route
 roundings: each of the four polyphase tap products rounded to the compute
 dtype and added into a dtype accumulator in the kernel's order, LeakyReLU in
 float32, the out-conv in float32. Inference only (no backward), as in JAX.
+
+`int8_tail` is K8's third route, "int8": the serving tail in its int8 form
+(`packed_tail_forward(int8_planar=True)`, the XLA path JAX serves with) on
+bf16 CUDA tensors, from operands folded once (`models/packed_tail.py::
+fold_int8_tail`). It keeps that path's roundings, not the TPU kernel's: the
+deconv summed over all four taps and Cin in float32 and rounded to bf16
+once, + shift and LeakyReLU in bf16, q = clamp(rint(y * 127 / amax), +-127),
+the out-conv on q rounded to bf16, + bias in bf16, tanh. Its eager twin is
+that path itself (`models/packed_tail.py::int8_tail_plain`).
 """
 
 from __future__ import annotations
@@ -178,6 +187,37 @@ def fused_tail(x, folded, shift, out_weight, out_bias, leaky_slope: float = 0.2)
     return out
 
 
+def int8_tail(x, taps, shift, inv_amax, out_weight, out_bias, leaky_slope: float = 0.2):
+    """K8's int8 route on a CUDA bf16 x (B, Cin, H, W): taps from
+    `_pack_tap_tiles` of the BN-folded deconv weight, shift (Cmid,) bf16,
+    inv_amax (Cmid,) float32 (127 / amax), out_weight (Co, Cmid, 4, 4) bf16
+    (scaled by amax / 127), out_bias (Co,) bf16. Returns (B, Co, 2H, 2W) bf16.
+    Counted as a K8 launch on route "int8"."""
+    bf = torch.bfloat16
+    b, cin, h, w = x.shape
+    co, cmid = out_weight.shape[:2]
+    if x.dtype != bf or out_weight.dtype != bf or shift.dtype != bf or out_bias.dtype != bf:
+        raise ValueError("int8_tail: x, shift, out_weight and out_bias must be bfloat16")
+    if inv_amax.dtype != torch.float32 or inv_amax.shape != (cmid,):
+        raise ValueError("int8_tail: inv_amax must be float32 (Cmid,)")
+    if taps.shape != (4, -(-4 * cmid // 64), -(-cin // 16) * 16, 64) or taps.dtype != bf:
+        raise ValueError(f"int8_tail: taps {tuple(taps.shape)} do not fit Cin {cin}, Cmid {cmid}")
+    if cin > 128 or cmid > 32 or co > 4:
+        raise ValueError(f"int8_tail: kernel takes Cin <= 128, Cmid <= 32, Co <= 4; got {cin}, {cmid}, {co}")
+    x = x.contiguous()
+    ck.require_cuda("int8_tail", x, taps, shift, inv_amax, out_weight, out_bias)
+    out = torch.empty((b, co, 2 * h, 2 * w), dtype=bf, device=x.device)
+    err = ck.library().cic_packed_tail_int8(
+        x.data_ptr(), taps.data_ptr(), shift.data_ptr(), inv_amax.data_ptr(),
+        out_weight.data_ptr(), out_bias.data_ptr(), out.data_ptr(), b, cin, h, w, cmid, co,
+        float(leaky_slope), ck.stream_ptr(x.device))
+    ck.check(err, "int8_tail")
+    fused_tail.launches += 1
+    fused_tail.route_launches["int8"] += 1
+    return out
+
+
 fused_tail.launches = 0
-# launches per route: "wgmma" (bf16), "tf32x3" (float32, three TF32 passes)
-fused_tail.route_launches = {"wgmma": 0, "tf32x3": 0}
+# launches per route: "wgmma" (bf16), "tf32x3" (float32, three TF32 passes),
+# "int8" (`int8_tail`, the serving tail in its int8 form)
+fused_tail.route_launches = {"wgmma": 0, "tf32x3": 0, "int8": 0}

@@ -45,6 +45,7 @@ from contextual_image_compression_tpu_torch.config import (
     resolve_device,
 )
 from contextual_image_compression_tpu_torch.models.adaptive import AdaptiveCodec
+from contextual_image_compression_tpu_torch.models.generator import prepare_int8_tails
 from contextual_image_compression_tpu_torch.models.layers import (
     cast_floats,
     const,
@@ -133,9 +134,12 @@ class CompressionPipeline:
         # Quantize the giant projections once from float32, then cast to
         # bf16 (w8 scale rows stay float32), then quantize the smaller w8
         # layers from their bf16 weights, as the JAX layer does at trace time.
+        # The generators' int8 tails fold their operands once, from the bf16
+        # weights, as their per-call fold would (K8's int8 route on the card).
         quantize_dense_w8(codec)
         cast_floats(codec, self.mcfg.compute_dtype())
         prepare_w8(codec)
+        prepare_int8_tails(codec)
         self.codec = codec.eval().requires_grad_(False)
         self._seen_batches: set = set()
 

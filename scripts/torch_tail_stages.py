@@ -14,7 +14,8 @@ the entry points' full-width shapes with seeded inputs:
      block, the mean cycles of stage A (the four tap products and their
      combine), the activation pass, stage B (the out-conv; the next tile's
      window loads are started before it) and the window store (which waits
-     for those loads);
+     for those loads); then its int8 route on the same input (stage A there
+     includes the activation and the quantization, so the pass reads 0);
   K8 in float32 (three TF32 passes) on the same shapes: per tile and
      consumer warpgroup, the mean cycles of waiting for the window, stage
      A, the planar store, stage B (the T GEMM and each output's tap sum)
@@ -170,6 +171,7 @@ def main():
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     tail.cic_packed_tail_bf16.argtypes = [P] * 6 + [I] * 6 + [ctypes.c_float, P]
     tail.cic_packed_tail.argtypes = [P] * 6 + [I] * 6 + [ctypes.c_float, P]
+    tail.cic_packed_tail_int8.argtypes = [P] * 7 + [I] * 6 + [ctypes.c_float, P]
     gemm.cic_sagan_block_bf16.argtypes = [P, L, L, L, P, P, P, P, P, P, P, L, L, L, I, I, I, I, P]
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
@@ -202,6 +204,26 @@ def main():
     per_tile = v[4] / (B * ty * tx)  # blocks / tiles: a block's share of one tile
     cyc = ", ".join(f"{name} {v[k] / v[4] * per_tile:.0f}" for k, name in enumerate(TAIL_PHASES))
     print(f"K8 bf16 x {(B, cin, h, h)}: instrumented call {ms:.4f} ms on the device; "
+          f"{v[4]:.0f} blocks; mean cycles a tile: {cyc}", flush=True)
+
+    inv_amax = torch.rand(cmid, device=dev, generator=gen) * 20 + 5  # 127 / amax
+    bias16 = bias.to(bf)
+
+    def k8_int8():
+        err = tail.cic_packed_tail_int8(x.data_ptr(), tiles.data_ptr(), shift.data_ptr(),
+                                        inv_amax.data_ptr(), wo.data_ptr(), bias16.data_ptr(),
+                                        out.data_ptr(), B, cin, h, h, cmid, co, 0.2, stream)
+        if err:
+            raise RuntimeError(f"instrumented K8 int8 failed with cudaError_t {err}")
+
+    k8_int8()
+    ms = device_ms(k8_int8)
+    tail.cic_prof_zero()
+    k8_int8()
+    torch.cuda.synchronize()
+    v = read(tail)
+    cyc = ", ".join(f"{name} {v[k] / v[4] * per_tile:.0f}" for k, name in enumerate(TAIL_PHASES))
+    print(f"K8 int8 x {(B, cin, h, h)}: instrumented call {ms:.4f} ms on the device; "
           f"{v[4]:.0f} blocks; mean cycles a tile: {cyc}", flush=True)
 
     x32 = x.float()

@@ -20,7 +20,9 @@ bf16 ("wgmma") and in float32 (three TF32 passes, "tf32x3") at DK 8, 16 and
 32, the float32 kernel's contiguous epilogue for K2 and K7a and its strided
 one for K7b, K7's backward, K8 at an odd batch, a ragged size, Cin not a
 multiple of 16, the full path shape and in float32 (TMA windows, and its own
-loads at W = 9), each K7 / K8 call on the route its dtype takes.
+loads at W = 9), each K7 / K8 call on the route its dtype takes, and K8's
+int8 route against the PyTorch int8 tail it replaces in serving (small and
+full width, amax varying by channel) and once a prepared generator's call.
 
 These tests need an NVIDIA GPU and the CUDA toolkit (the kernels build at
 first use); elsewhere they skip. The file imports torch only, so it runs on a
@@ -859,6 +861,88 @@ def test_k8_matches_twin(dev, b, h, cin, cmid, dtype):
     else:
         assert err.max().item() <= 1.6e-2
         assert (err == 0).float().mean().item() >= 0.99
+
+
+def _int8_tail_weights(dev, cin, cmid, co, seed):
+    """The int8 tail's weights in bf16, with BN statistics drawn so that amax
+    (max(|bn_bias|, |shift|) + 8 |bn_scale|) varies by channel, about 7x."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, scale=0.1):
+        return (torch.randn(*shape, device=dev, generator=gen) * scale).to(torch.bfloat16)
+
+    def u(n, lo, hi):
+        return (torch.rand(n, device=dev, generator=gen) * (hi - lo) + lo).to(torch.bfloat16)
+
+    return dict(deconv_weight=r(cin, cmid, 4, 4), deconv_bias=r(cmid), bn_scale=u(cmid, 0.25, 1.75),
+                bn_bias=r(cmid, scale=0.3), bn_mean=r(cmid, scale=0.3), bn_var=u(cmid, 0.1, 2.0),
+                out_weight=r(co, cmid, 4, 4), out_bias=r(co))
+
+
+@pytest.mark.parametrize("b,h,cin,cmid,co", [
+    (2, 12, 40, 8, 3), (3, 9, 24, 5, 3), (1, 16, 128, 32, 4), (2, 128, 128, 32, 3),
+], ids=["ragged-narrow", "cin24-cmid5", "co4", "full-width"])
+def test_k8_int8_matches_the_pytorch_path(dev, b, h, cin, cmid, co):
+    """K8's int8 route against packed_tail_forward(int8_planar=True) on the
+    PyTorch path (cuDNN), which it replaces in serving: full width is the
+    generator's tail at B = 2 (Cin 128, 128^2 -> 256^2, Cmid 32, Co 3); the
+    others a ragged 24-pixel output, Cin not a multiple of 16, Cmid 5 and Co 4.
+    Bars, K8's bf16 bars against cuDNN in chip_smoke.py: max 6.25e-2, mean
+    4e-3, identical on >= 99% of values."""
+    from contextual_image_compression_tpu_torch.models.packed_tail import (
+        fold_int8_tail, int8_tail_forward, packed_tail_forward)
+
+    w = _int8_tail_weights(dev, cin, cmid, co, b * h + cin)
+    gen = torch.Generator(device=dev).manual_seed(h)
+    x = (torch.randn(b, cin, h, h, device=dev, generator=gen) * 0.5).to(torch.bfloat16)
+    ops = fold_int8_tail(*w.values(), torch.bfloat16, pack=True)
+    got, route = _route_of(fused_tail, lambda: int8_tail_forward(x, ops))
+    assert route == "int8"
+    assert got.shape == (b, co, 2 * h, 2 * h) and got.dtype == torch.bfloat16
+    want = packed_tail_forward(x, *w.values(), int8_planar=True)
+    err = (got.float() - want.float()).abs()
+    assert err.max().item() <= 6.25e-2
+    assert err.mean().item() <= 4e-3
+    assert (err == 0).float().mean().item() >= 0.99
+
+
+def test_k8_int8_route_once_a_generator_call(dev):
+    """A prepared packed-int8 generator on the card launches K8's int8 route
+    once a call (its tail Cin 24, Cmid 8, Co 3), within the bars of its
+    unprepared (PyTorch) call; train=True takes the native tail, no K8."""
+    from contextual_image_compression_tpu_torch.models.generator import Generator
+    from contextual_image_compression_tpu_torch.models.layers import cast_floats
+    from contextual_image_compression_tpu_torch.models.packed_tail import fold_int8_tail
+
+    with torch.device(dev):
+        g = Generator(8, channels=(16, 16, 16, 8), skip_channels=(8, 8, 8), base_hw=4,
+                      base_ch=16, packed_tail=True, packed_tail_int8=True)
+    g.reset_parameters(torch.Generator(device=dev).manual_seed(3))
+    w = _int8_tail_weights(dev, 24, 8, 3, 5)
+    with torch.no_grad():
+        for t, v in zip(g._tail_sources(), w.values()):
+            t.copy_(v)
+    cast_floats(g, torch.bfloat16)
+    g.eval().requires_grad_(False)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    latent = torch.randn(2, 8, device=dev, generator=gen).to(torch.bfloat16)
+    skips = tuple(torch.randn(2, 8, s, s, device=dev, generator=gen).to(torch.bfloat16)
+                  for s in (32, 16, 8))
+    with torch.no_grad():
+        before = dict(fused_tail.route_launches)
+        want = g(latent, skips)
+        assert fused_tail.route_launches == before
+        g.prepare_tail()
+        assert torch.equal(g._int8_tail[1].taps, fold_int8_tail(
+            *g._tail_sources(), torch.bfloat16, pack=True).taps)
+        for n in (1, 2):
+            got = g(latent, skips)
+            assert fused_tail.route_launches == {**before, "int8": before["int8"] + n}
+        g(latent, skips, train=True)
+        assert fused_tail.route_launches["int8"] == before["int8"] + 2
+    err = (got.float() - want.float()).abs()
+    assert err.max().item() <= 6.25e-2 and err.mean().item() <= 4e-3
+    assert (err == 0).float().mean().item() >= 0.99
 
 
 def test_attention_jnp_routes_ignore_the_callers_tf32(dev):

@@ -296,3 +296,178 @@ def test_fused_tail_plain_rounds_each_tap_in_bf16():
     once = torch.nn.functional.conv_transpose2d(x.float(), w.float(), stride=2, padding=1)
     once = torch.tanh(torch.where(once >= 0, once, 0.2 * once).to(torch.bfloat16).float())
     assert (got[:, 0] != once.to(torch.bfloat16).float()[:, 0]).any()
+
+
+# ------------------------------------------- K8's int8 route: folded once
+
+def _int8_generator(seed, dtype=torch.bfloat16, channels=(16, 16, 16, 8)):
+    """A small packed-int8 generator (tail Cin 24, Cmid 8, Co 3 at 32 x 32 ->
+    64 x 64) with seeded weights, BN statistics drawn so that amax varies by
+    channel, cast to dtype and in eval mode; and its inputs."""
+    from contextual_image_compression_tpu_torch.models.generator import Generator
+    from contextual_image_compression_tpu_torch.models.layers import KBatchNorm, cast_floats
+
+    g = Generator(8, channels=channels, skip_channels=(8, 8, 8), base_hw=4, base_ch=16,
+                  packed_tail=True, packed_tail_int8=True)
+    gen = torch.Generator().manual_seed(seed)
+    g.reset_parameters(gen)
+    with torch.no_grad():
+        for mod in g.modules():
+            if isinstance(mod, KBatchNorm):
+                c = mod.weight.shape[0]
+                mod.running_mean.copy_(torch.randn(c, generator=gen) * 0.2)
+                mod.running_var.copy_(torch.rand(c, generator=gen) + 0.25)
+                mod.weight.copy_(torch.rand(c, generator=gen) * 1.5 + 0.25)
+                mod.bias.copy_(torch.randn(c, generator=gen) * 0.3)
+        for conv in (g.deconv4, g.out_conv):
+            conv.bias.copy_(torch.randn(conv.bias.shape, generator=gen) * 0.1)
+    cast_floats(g, dtype)
+    g.eval().requires_grad_(False)
+    latent = torch.randn(2, 8, generator=gen).to(dtype)
+    skips = tuple(torch.randn(2, 8, s, s, generator=gen).to(dtype) for s in (32, 16, 8))
+    return g, latent, skips
+
+
+def _per_call_fold(g, dt):
+    """The int8 tail's operands as packed_tail_forward(int8_planar=True)
+    computed them in line before they were factored out."""
+    f32 = torch.float32
+    bn = g.bn4
+    scale = bn.weight.to(f32) * torch.rsqrt(bn.running_var.to(f32) + bn.eps)
+    shift = bn.bias.to(f32) + (g.deconv4.bias.to(dt).to(f32) - bn.running_mean.to(f32)) * scale
+    folded = (g.deconv4.weight.to(dt).to(f32) * scale[None, :, None, None]).to(dt)
+    amax = torch.clamp(torch.maximum(torch.abs(bn.bias.to(f32)), torch.abs(shift))
+                       + 8.0 * torch.abs(bn.weight.to(f32)), min=1e-6)
+    return dict(folded=folded, shift=shift.to(dt), inv_amax=127.0 / amax,
+                out_weight=(g.out_conv.weight.to(f32) * (amax / 127.0)[None, :, None, None]).to(dt),
+                out_bias=g.out_conv.bias.to(dt))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_prepared_int8_operands_equal_the_per_call_fold(dtype):
+    """Generator.prepare_tail folds the same operands as the per-call fold,
+    bit for bit, and packs K8's tap tiles (bf16 only)."""
+    from contextual_image_compression_tpu_torch.ops.generator_tail import _pack_tap_tiles
+
+    g, _, _ = _int8_generator(20, dtype)
+    assert g._int8_tail is None
+    g.prepare_tail()
+    ops = g._int8_tail[1]
+    for name, want in _per_call_fold(g, dtype).items():
+        got = getattr(ops, name)
+        assert got.dtype == want.dtype and torch.equal(got, want), name
+    assert ops.inv_amax.dtype == torch.float32 and ops.leaky_slope == 0.2
+    if dtype == torch.bfloat16:
+        assert torch.equal(ops.taps, _pack_tap_tiles(ops.folded))
+    else:
+        assert ops.taps is None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_prepared_int8_generator_matches_unprepared_on_cpu(dtype):
+    """On the CPU a prepared generator runs the PyTorch path on its folded
+    operands: the output equals the per-call fold's bit for bit, and no
+    kernel is launched."""
+    g, latent, skips = _int8_generator(21, dtype)
+    with torch.no_grad():
+        want = g(latent, skips)
+        g.prepare_tail()
+        before = tops.launch_counts()
+        got = g(latent, skips)
+    assert tops.launch_counts() == before
+    assert got.shape == (2, 3, 64, 64) and got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+def test_int8_tail_prepares_under_inference_mode():
+    """A generator built, prepared and called under torch.inference_mode
+    (whose tensors keep no version counter) serves the per-call fold's
+    output."""
+    with torch.inference_mode():
+        g, latent, skips = _int8_generator(26)
+        want = g(latent, skips)
+        g.prepare_tail()
+        assert torch.equal(g(latent, skips), want)
+
+
+class _FakeX:
+    """What `takes_int8_route` reads of x, for a device this machine lacks."""
+
+    def __init__(self, device="cuda", dtype=torch.bfloat16, shape=(2, 24, 32, 32)):
+        self.device, self.dtype, self.shape = torch.device(device), dtype, shape
+
+
+@pytest.mark.parametrize("case,want", [
+    ("cuda-bf16", True), ("cpu", False), ("f32", False), ("not-square", False),
+    ("unpacked", False), ("cin-136", False), ("cmid-40", False), ("co-5", False),
+], ids=lambda v: str(v))
+def test_int8_route_dispatch(case, want):
+    """K8's int8 route takes a square bf16 CUDA input with packed taps
+    within Cin <= 128, Cmid <= 32, Co <= 4; everything else the PyTorch path."""
+    from contextual_image_compression_tpu_torch.models.packed_tail import (
+        fold_int8_tail, takes_int8_route)
+
+    cin, cmid, co = {"cin-136": (136, 8, 3), "cmid-40": (24, 40, 3),
+                     "co-5": (24, 8, 5)}.get(case, (24, 8, 3))
+    bf = torch.bfloat16
+    w = [torch.randn(cin, cmid, 4, 4), torch.randn(cmid), torch.rand(cmid) + 0.5,
+         torch.randn(cmid), torch.randn(cmid), torch.rand(cmid) + 0.5,
+         torch.randn(co, cmid, 4, 4), torch.randn(co)]
+    ops = fold_int8_tail(*[t.to(bf) for t in w], bf, pack=case != "unpacked")
+    x = _FakeX(device="cpu" if case == "cpu" else "cuda",
+               dtype=torch.float32 if case == "f32" else bf,
+               shape=(2, cin, 32, 30) if case == "not-square" else (2, cin, 32, 32))
+    assert takes_int8_route(x, ops) is want
+
+
+def test_int8_route_is_not_taken_on_cpu_or_unprepared(monkeypatch):
+    """A prepared generator on the CPU, and an unprepared one, never reach
+    the kernel wrapper; only prepared generators look for operands."""
+    from contextual_image_compression_tpu_torch.ops import generator_tail
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("K8's int8 route on a CPU tensor")
+
+    monkeypatch.setattr(generator_tail, "int8_tail", refuse)
+    g, latent, skips = _int8_generator(22)
+    with torch.no_grad():
+        assert g._prepared_tail(latent) is None
+        g(latent, skips)
+        g.prepare_tail()
+        g(latent, skips)
+        assert g._prepared_tail(latent.float()) is None  # another dtype: the per-call fold
+    g.requires_grad_(True)  # autograd wants the tail's gradients: the per-call fold
+    assert g._prepared_tail(latent) is None
+
+
+@pytest.mark.parametrize("how", ["load_state_dict", "load_assign", "in_place"])
+def test_int8_operands_are_not_served_stale(how):
+    """Weights changed after prepare_tail (a state dict loaded, with or
+    without assign, or an in-place edit of a BN statistic) are refolded
+    before the next call: the
+    output equals that of an unprepared generator holding the new weights."""
+    g, latent, skips = _int8_generator(23)
+    other, _, _ = _int8_generator(24)
+    g.prepare_tail()
+    with torch.no_grad():
+        stale = g(latent, skips)
+        if how == "in_place":
+            g.bn4.running_var.mul_(2.0)
+            other.load_state_dict(g.state_dict())
+        else:
+            g.load_state_dict(other.state_dict(), assign=how == "load_assign")
+        want = other(latent, skips)
+        got = g(latent, skips)
+    assert not torch.equal(got, stale)
+    assert torch.equal(got, want)
+    assert torch.equal(g._int8_tail[1].shift, _per_call_fold(other, torch.bfloat16)["shift"])
+
+
+def test_prepared_int8_tail_rejects_non_square_input():
+    """As the per-call path (packed_tail_forward) does."""
+    from contextual_image_compression_tpu_torch.models.packed_tail import int8_tail_forward
+
+    g, _, _ = _int8_generator(25)
+    g.prepare_tail()
+    with pytest.raises(ValueError, match="square"):
+        int8_tail_forward(torch.zeros(1, 24, 8, 6, dtype=torch.bfloat16), g._int8_tail[1])
