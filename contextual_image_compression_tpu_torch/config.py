@@ -150,6 +150,37 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class HiFiCConfig:
+    """HiFiC (Mentzer et al., NeurIPS 2020, arXiv:2006.09965) at its
+    published widths, served by models/hific.py: the encoder's filters
+    (the generator's are their reverse), the latent's C_y, the
+    hyperprior's N, the generator's residual blocks, the factorized prior
+    of z, ChannelNorm's eps, the Gaussian conditional's lower bounds and
+    the compute dtype. It has no JAX counterpart."""
+
+    channels: int = 3
+    encoder_filters: Tuple[int, ...] = (60, 120, 240, 480, 960)
+    latent_channels: int = 220
+    hyper_channels: int = 320
+    residual_blocks: int = 9
+    factorized_filters: Tuple[int, ...] = (3, 3, 3)
+    norm_eps: float = 1e-3
+    scale_lower_bound: float = 0.11
+    likelihood_lower_bound: float = 1e-9
+    dtype: str = "bfloat16"
+
+    @property
+    def stride(self) -> int:
+        """Image pixels per z position: the analysis halves the image once
+        per filter after the first, h_a twice more. Each image is padded to
+        a multiple of it."""
+        return 2 ** (len(self.encoder_filters) - 1) * 4
+
+    def compute_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
 class AutoencoderConfig:
     """The baseline skip-connection autoencoder and its training run."""
 

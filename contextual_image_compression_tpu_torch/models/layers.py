@@ -99,34 +99,47 @@ class KConv(nn.Module):
 
 
 class KConvT(nn.Module):
-    """ConvTranspose 4x4/s2 SAME; weight (Cin, Cout, 4, 4), flipped from flax.
+    """ConvTranspose with stride 2 and SAME padding; weight (Cin, Cout, k, k).
 
+    4x4 is the codec's deconv, its weight flipped from flax's.
     polyphase=True lowers it as the JAX package's `_PolyphaseConvT4x4s2`
     does: one stride-1 2x2 convolution with 4 * Cout outputs over the
     1-padded input, each output phase (a, b) taking kernel rows and columns
     {a, a + 2} x {b, b + 2}, then the four phases interleaved. Same function
-    (to float32 noise), same parameters, so checkpoints are interchangeable."""
+    (to float32 noise), same parameters, so checkpoints are interchangeable.
+
+    3x3 and 5x5 (HiFiC's, models/hific.py) are TF's SAME transposed
+    convolution: the adjoint of the SAME convolution from 2H to H, so the
+    output keeps positions [lo, lo + 2H) of the full transposed
+    convolution, lo being that convolution's low padding (`same_pads`: 0
+    for 3x3, 1 for 5x5)."""
 
     def __init__(self, cin: int, features: int, kernel: int = 4, stride: int = 2,
                  polyphase: bool = False):
         super().__init__()
-        if (kernel, stride) != (4, 2):
-            raise ValueError("KConvT supports the codec's 4x4 stride-2 SAME deconv only")
+        if stride != 2 or kernel not in (3, 4, 5) or (polyphase and kernel != 4):
+            raise ValueError("KConvT supports stride-2 SAME deconvs of 3x3, 4x4 and 5x5, "
+                             "polyphase for 4x4 only")
+        self.kernel = kernel
         self.polyphase = polyphase
         self.weight = nn.Parameter(torch.zeros(cin, features, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def reset_parameters(self, gen: torch.Generator):
-        cin, cout = self.weight.shape[:2]
-        glorot_uniform_(self.weight, 16 * cout, 16 * cin, gen)
+        cin, cout, k = self.weight.shape[0], self.weight.shape[1], self.kernel
+        glorot_uniform_(self.weight, k * k * cout, k * k * cin, gen)
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = used(self, "weight").to(x.dtype)
         if self.polyphase:
             y = _polyphase_deconv(x, w)
-        else:
+        elif self.kernel == 4:
             y = F.conv_transpose2d(x, w, stride=2, padding=1)
+        else:
+            h, wd = x.shape[-2:]
+            lo = same_pads(2 * h, self.kernel, 2)[0]
+            y = F.conv_transpose2d(x, w, stride=2, padding=lo)[..., :2 * h, :2 * wd]
         return y + used(self, "bias").to(x.dtype)[:, None, None]
 
 

@@ -27,25 +27,34 @@ is padded to a multiple of the mesh's size by `_padded_batch`, runs its
 slice, and gathers the decoded images and the info from the others, so
 each rank returns the whole answer. `decode_from_bitstream` pads a ragged
 batch of containers the same way.
+
+`model_config=HiFiCConfig(...)` serves HiFiC (models/hific.py) instead, on
+one device: no mask stage; each image, of any size, as u8 / 255 padded by
+reflection to a multiple of `HiFiCConfig.stride` and cropped back; the decoded
+uint8 images and, per image, the symbols of y and z and the bits of both.
+Upload, batch padding and download are the GAN codec's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from contextual_image_compression_tpu_torch import convert
 from contextual_image_compression_tpu_torch.checkpoint import CheckpointStore
 from contextual_image_compression_tpu_torch.config import (
+    HiFiCConfig,
     ModelConfig,
     SaliencyConfig,
     resolve_device,
 )
 from contextual_image_compression_tpu_torch.models.adaptive import AdaptiveCodec
 from contextual_image_compression_tpu_torch.models.generator import prepare_int8_tails
+from contextual_image_compression_tpu_torch.models.hific import HiFiCCodec
 from contextual_image_compression_tpu_torch.models.layers import (
     cast_floats,
     const,
@@ -103,12 +112,16 @@ class CompressionPipeline:
     {component: "final" / "epoch_N" / "init"}, the JAX pipeline's), else
     the port's own seeded init (provenance {"all": "init"}). A component
     that falls to "init" keeps the port's seeded init (`seed`), whose
-    values differ from the JAX package's PRNGKey(0) init."""
+    values differ from the JAX package's PRNGKey(0) init.
+
+    A `HiFiCConfig` serves HiFiC (module docstring) from `state_dict` or
+    the port's seeded init; its info holds `y_symbols`, `z_symbols` and
+    `bits`, and it takes no mesh, checkpoint directory or bitstream."""
 
     def __init__(
         self,
         state_dict: Optional[Dict[str, torch.Tensor]] = None,
-        model_config: Optional[ModelConfig] = None,
+        model_config: Optional[Union[ModelConfig, HiFiCConfig]] = None,
         saliency_config: Optional[SaliencyConfig] = None,
         device="cuda",
         seed: int = 0,
@@ -118,6 +131,10 @@ class CompressionPipeline:
         self.mesh = mesh
         self._world = mesh.world.size if mesh is not None else 1
         self.device = mesh.device if mesh is not None else resolve_device(device)
+        self._seen_batches: set = set()
+        if isinstance(model_config, HiFiCConfig):
+            self._init_hific(model_config, state_dict, seed, model_dir)
+            return
         self.mcfg = _serving_model_config(model_config or ModelConfig())
         self.scfg = saliency_config or SaliencyConfig()
         with torch.device(self.device):
@@ -141,10 +158,34 @@ class CompressionPipeline:
         prepare_w8(codec)
         prepare_int8_tails(codec)
         self.codec = codec.eval().requires_grad_(False)
-        self._seen_batches: set = set()
+
+    def _init_hific(self, cfg: HiFiCConfig, state_dict, seed: int, model_dir) -> None:
+        if self.mesh is not None or model_dir is not None:
+            raise ValueError("HiFiC serves on one device from a state_dict or the seeded "
+                             "init: no mesh, no checkpoint directory")
+        self.mcfg = cfg
+        with torch.device(self.device):
+            codec = HiFiCCodec(cfg)
+        if state_dict is not None:
+            codec.load_state_dict(state_dict)
+            self.provenance = {"all": "provided"}
+        else:
+            codec.reset_parameters(torch.Generator(device=self.device).manual_seed(seed))
+            self.provenance = {"all": "init"}
+        self.codec = codec.cast_compute().eval().requires_grad_(False)
+
+    @property
+    def hific(self) -> bool:
+        return isinstance(self.mcfg, HiFiCConfig)
+
+    def _gan_only(self, what: str) -> None:
+        if self.hific:
+            raise TypeError(f"{what} is the GAN codec's (a fixed image size, CICZ containers)")
 
     @torch.no_grad()
     def _run(self, imgs_u8: torch.Tensor, bpp: torch.Tensor):
+        if self.hific:
+            return self._run_hific(imgs_u8)
         ct = self.mcfg.compute_dtype()
         dev = imgs_u8.device
         coeff = float(self.mcfg.quantizer.scale_coeff)
@@ -177,7 +218,23 @@ class CompressionPipeline:
             "mask": mask[..., 0],
         }
 
+    @torch.no_grad()
+    def _run_hific(self, imgs_u8: torch.Tensor):
+        cfg = self.mcfg
+        _, h, w, _ = imgs_u8.shape
+        with annotate("pipeline.codec"):
+            x = imgs_u8.permute(0, 3, 1, 2).float().contiguous() / 255.0
+            k = cfg.stride
+            if h % k or w % k:
+                x = F.pad(x, (0, -w % k, 0, -h % k), mode="reflect")
+            out = self.codec.apply(x.to(cfg.compute_dtype()))
+            decoded = torch.round(out.x_hat[:, :, :h, :w].float() * 255.0)
+            decoded = torch.clamp(decoded, 0, 255).to(torch.uint8).permute(0, 2, 3, 1)
+        return decoded.contiguous(), {"y_symbols": out.y_symbols, "z_symbols": out.z_symbols,
+                                      "bits": out.bits}
+
     def warmup(self, batch: int) -> None:
+        self._gan_only("warmup")
         h, w = self.mcfg.img_size
         self(np.zeros((batch, h, w, self.mcfg.channels), np.uint8), target_bpp=1.0)
 
@@ -225,6 +282,8 @@ class CompressionPipeline:
     def serialize_latents(self, info: Dict) -> Tuple[List[Tuple[bytes, bytes]], np.ndarray]:
         """Range-code the float32 symbols of a call's info into per-image
         (hq, lq) latent streams; returns (streams, measured bits per pixel)."""
+        self._gan_only("serialize_latents")
+
         def host(key):
             return info[key].float().cpu().numpy()
 
@@ -236,6 +295,7 @@ class CompressionPipeline:
                             mask_downsample: int = 8) -> List[bytes]:
         """uint8 (B, H, W, C) -> one self-contained container per image: the
         latent streams, the mask downsampled to uint8 and the target bpp."""
+        self._gan_only("encode_to_bitstream")
         _, info = self(images_u8, target_bpp=target_bpp)
         latent_streams, _ = self.serialize_latents(info)
         mask = info["mask"].float().cpu().numpy()
@@ -260,6 +320,7 @@ class CompressionPipeline:
     def decode_from_bitstream(self, streams) -> np.ndarray:
         """Containers (one bytes object or a list) -> decoded uint8 images
         (B, H, W, C), with no encoder in the loop."""
+        self._gan_only("decode_from_bitstream")
         if isinstance(streams, (bytes, bytearray)):
             streams = [streams]
         parts = [bs.unpack_container(s) for s in streams]

@@ -158,7 +158,8 @@ class GANStepBuilder:
 
     def _reduce(self, module) -> None:
         if self.mesh is not None:
-            sharding.reduce_gradients(module, self.mesh)
+            with annotate("step.allreduce"):
+                sharding.reduce_gradients(module, self.mesh)
 
     # ------------------------------------------------------------------ phases
     def codec_forward(self, state: GANTrainState, batch: Batch) -> CodecOutput:

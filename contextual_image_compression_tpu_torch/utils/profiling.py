@@ -47,10 +47,14 @@ SPANS = (
     "pipeline.download",
     # models/adaptive.py, AdaptiveCodec.apply end to end; models/attention.py
     "codec.encode", "codec.plan", "codec.quantize", "codec.generate", "codec.attention",
-    # train/gan_trainer.py, inside GANStepBuilder.g_backward
-    "step.losses", "step.perceptual", "step.backward",
+    # train/gan_trainer.py, inside GANStepBuilder.g_backward; step.allreduce
+    # around each gradient reduction on a mesh (D's in d_phase too)
+    "step.losses", "step.perceptual", "step.backward", "step.allreduce",
     # data/pipeline.py, CompressionDataset.epoch
     "data.batch",
+    # models/hific.py, HiFiCCodec.apply: E, the hyperprior, G; the residual
+    # blocks inside G; each ChannelNorm
+    "hific.analysis", "hific.hyper", "hific.synthesis", "hific.resblocks", "hific.norm",
 )
 
 _OFF = contextlib.nullcontext()
