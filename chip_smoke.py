@@ -247,6 +247,15 @@ launches in the kernels line's `launches_mesh`:
    time (two processes sharing one card through gloo: a cost, not a
    scaling figure) and the ranks' launches; a failing rank fails the run.
 
+(i) K9, HiFiC's ChannelNorm, at the HiFiC cell's seven norm shapes (4
+   photos of 2048x1536: C = 60 at 1536 x 2048 down to 960 and 220 at 96 x
+   128), bf16, against its twin on the card (>= 99.9% identical, the rest
+   within one bf16 ulp or 1e-4), timed host-inclusive, on the device alone
+   and beside the twin and its bound (one read and one write, bytes at
+   3.35 TB/s), with the sum over a call's 29 norms; then HiFiC served at
+   its published widths (seeded weights) on photos of 192x256 and 200x300:
+   29 K9 launches a call and no other kernel.
+
 K1's bf16 launches are counted apart (`launch_counts()`: 'K1' float32,
 'K1bf16' bf16) and K1bf16 has its own line in the kernels JSON.
 
@@ -2380,6 +2389,116 @@ def check_k8_int8(dev, codec):
                 bound_ms_b128=t128["bound_ms"])
 
 
+# HiFiC's norms in a call of the HiFiC cell (4 photos of 2048x1536): (C,
+# relu, H, W, norms of that shape a call). E: 60 to 960 with ReLU; G:
+# norm_in (220), the head (960), the blocks' 18 (960, half with ReLU), the
+# upsampling's four with ReLU.
+HIFIC_NORM_SHAPES = ((60, True, 1536, 2048, 2), (120, True, 768, 1024, 2),
+                     (240, True, 384, 512, 2), (480, True, 192, 256, 2),
+                     (960, True, 96, 128, 10), (960, False, 96, 128, 10),
+                     (220, False, 96, 128, 1))
+
+
+def check_k9(dev):
+    """K9 against its twin (channel_norm_plain on the card) at each of the
+    HiFiC cell's norm shapes, B = 4, bf16, alpha in [0.75, 1.25] and beta
+    in +-0.1 as the benchmark draws them; K9 host-inclusive and on the
+    device alone, the twin, and the bound: x read once and y written once
+    at 3.35 TB/s (about ten float32 operations an element, far below the
+    bf16 line). The record's fields are the two extremes, C = 960 at 96 x
+    128 and C = 60 at 1536 x 2048; `call_ms` sums the device times over a
+    call's 29 norms."""
+    from contextual_image_compression_tpu_torch.measure import device_ms, event_ms
+    from contextual_image_compression_tpu_torch.ops.channel_norm import (
+        channel_norm, channel_norm_plain, tile_pixels)
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    bf, eps, B = torch.bfloat16, 1e-3, 4
+    rows, call = {}, dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, norms=0)
+    for c, relu, h, w, count in HIFIC_NORM_SHAPES:
+        offset = torch.rand(1, c, 1, 1, device=dev, generator=gen) * 2 - 1
+        x = (torch.randn(B, c, h, w, device=dev, generator=gen) + offset).to(bf)
+        alpha = (0.75 + 0.5 * torch.rand(c, device=dev, generator=gen)).to(bf)
+        beta = (0.2 * torch.rand(c, device=dev, generator=gen) - 0.1).to(bf)
+        k9 = lambda: channel_norm(x, alpha, beta, eps, relu)  # noqa: E731
+        twin = lambda: channel_norm_plain(x, alpha, beta, eps, relu)  # noqa: E731
+        n = channel_norm.launches
+        got, want = k9(), twin()
+        if channel_norm.launches != n + 1:
+            raise AssertionError("K9: one launch a call")
+        d = (got.float() - want.float()).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(1e-30))) - 7)
+        same = (d == 0).float().mean().item()
+        worst = d.max().item()
+        if same < 0.999 or not bool((d <= ulp.clamp_min(1e-4)).all()):
+            raise AssertionError(f"K9 at C = {c}, {h}x{w}: identical {same:.5f}, largest "
+                                 f"difference {worst:.3e}")
+        del got, want, d, ulp
+        b_ms, b_by = bound_ms(2 * x.numel() * x.element_size(), 10.0 * x.numel(),
+                              H100_FP32_TFLOPS)
+        t = dict(ms=event_ms(k9, reps=10), device_ms=device_ms(k9, reps=10),
+                 plain_ms=event_ms(twin, reps=5), bound_ms=b_ms)
+        rows[(c, relu)] = dict(t, identical=same, max_abs_err=worst, bound_by=b_by,
+                               tile=tile_pixels(c, 2))
+        for key in t:
+            call[key] += count * t[key]
+        call["norms"] += count
+        log(f"K9 x {(B, c, h, w)} relu {relu} (P = {rows[(c, relu)]['tile']}): identical "
+            f"{same:.6f}, max {worst:.3e}; {t['ms']:.4f} ms (device alone {t['device_ms']:.4f}), "
+            f"twin {t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / t['device_ms']:.1f}% of it; {count} a call")
+        del x
+    if call["norms"] != 29:
+        raise AssertionError("the HiFiC cell's call has 29 norms")
+    log(f"K9 over a HiFiC call's 29 norms: {call['ms']:.3f} ms (device alone "
+        f"{call['device_ms']:.3f}), twin {call['plain_ms']:.3f} ms, bound "
+        f"{call['bound_ms']:.3f} ms")
+    big, small = rows[(960, True)], rows[(60, True)]
+    return dict(name="K9 channel_norm", route="cuda",
+                source="contextual_image_compression_tpu_torch/csrc/channel_norm.cu",
+                replaces="none (the JAX package has no HiFiC): ChannelNorm.forward's eager body",
+                max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                identical=min(r["identical"] for r in rows.values()), ms=big["ms"],
+                device_ms=big["device_ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
+                bound_by=big["bound_by"], library_ms=None, ms_c60=small["ms"],
+                device_ms_c60=small["device_ms"], plain_ms_c60=small["plain_ms"],
+                bound_ms_c60=small["bound_ms"], call_ms=call["ms"],
+                call_device_ms=call["device_ms"], call_plain_ms=call["plain_ms"],
+                call_bound_ms=call["bound_ms"],
+                design="a tile of P pixels x all channels staged once in shared memory by "
+                       "cp.async, three tiles in flight, persistent grid")
+
+
+def run_hific_serving(dev, card):
+    """HiFiC at its published widths (seeded weights, bf16) served on two
+    photos of 192x256 and on one of 200x300 (padded by reflection to
+    256x320): each call launches K9 29 times and no other kernel of the
+    port; returns the launch counts."""
+    from contextual_image_compression_tpu_torch import ops
+    from contextual_image_compression_tpu_torch.config import HiFiCConfig
+    from contextual_image_compression_tpu_torch.serve import CompressionPipeline
+
+    pipe = CompressionPipeline(model_config=HiFiCConfig(), device=dev, seed=0)
+    rng = np.random.RandomState(20)
+    batches = [rng.randint(0, 256, (2, 192, 256, 3), dtype=np.uint8),
+               rng.randint(0, 256, (1, 200, 300, 3), dtype=np.uint8)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for u8 in batches:
+        before = launch_counts()
+        dec, info = pipe(u8)
+        after = launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        if delta != expect(K9=29):
+            raise AssertionError(f"HiFiC call: kernel launches {delta}, want K9 29 and no other")
+        if dec.shape != u8.shape or dec.dtype != np.uint8 or not np.isfinite(
+                info["bits"].cpu().numpy()).all():
+            raise AssertionError(f"HiFiC decoded {dec.shape} {dec.dtype} or non-finite bits")
+    counts = launch_counts()
+    log(f"HiFiC served at full width on {card}: {len(batches)} calls; launches {counts}")
+    return counts
+
+
 def run_entry_points(dev, B, codec):
     """The main path of K6, K7a, K7b and K8: each public entry point that
     reaches one of them, called once at full width in bf16 (the serving
@@ -3991,6 +4110,8 @@ def main():
     dense_w8 = run_dense_w8_training(dev, card)
     no_pallas = run_use_pallas_false(dev, card)
     tools = run_tool_clis(dev, card, rd_csv)
+    records.append(check_k9(dev))
+    hific_serving = run_hific_serving(dev, card)
     mesh = run_mesh_nccl(dev, card)
     mesh_ranks = run_mesh_shared_card(dev, card)
     mesh = {k: mesh[k] + mesh_ranks[k] for k in mesh}
@@ -4000,7 +4121,8 @@ def main():
              "fft_core_masks": fft_masks, "dct": dct_path, "entry_points": entry_points,
              "storable_codec": codec_path, "evaluation": evaluation,
              "training_flow": training_flow, **clis, "bf16_param_training": bf16_params,
-             "dense_w8_training": dense_w8, **no_pallas, **tools, "mesh": mesh}
+             "dense_w8_training": dense_w8, **no_pallas, **tools, "hific_serving": hific_serving,
+             "mesh": mesh}
     serving_paths = ("serving", "jax_trained_serving", "checkpoint_serving", "w8a8_serving",
                      "training", "mixed_training", "storable_codec", "training_flow",
                      "eval_bitstream_cli", "shootout_cli")
@@ -4013,9 +4135,10 @@ def main():
                "K6": ("entry_points",), "K7a": ("entry_points",), "K7b": ("entry_points",),
                "K8": ("entry_points",), "K1bf16": ("evaluation",),
                "K8int8": ("serving", "jax_trained_serving", "checkpoint_serving", "w8a8_serving",
-                          "storable_codec", "eval_bitstream_cli", "no_pallas_serving", "mesh")}
+                          "storable_codec", "eval_bitstream_cli", "no_pallas_serving", "mesh"),
+               "K9": ("hific_serving",)}
     keys_in_order = ("K1", "K2", "K3", "K3b", "K4", "K5", "K6", "K7a", "K7b", "K8", "K8int8",
-                     "K1bf16")
+                     "K1bf16", "K9")
     if len(records) != len(keys_in_order):
         raise AssertionError("one record per kernel")
     for rec, key in zip(records, keys_in_order):

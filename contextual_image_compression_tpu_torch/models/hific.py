@@ -59,6 +59,7 @@ import torch.nn.functional as F
 
 from contextual_image_compression_tpu_torch.config import HiFiCConfig
 from contextual_image_compression_tpu_torch.models.layers import KConv, KConvT
+from contextual_image_compression_tpu_torch.ops.channel_norm import channel_norm
 from contextual_image_compression_tpu_torch.utils.profiling import annotate
 from contextual_image_compression_tpu_torch.utils.tree import cast_floats
 
@@ -98,7 +99,8 @@ def _seed_conv(layer: nn.Module, gen: torch.Generator, gain: float = 1.0,
 
 class ChannelNorm(nn.Module):
     """Per-pixel normalization over channels (module docstring); relu=True
-    applies the ReLU that follows before the one rounding."""
+    applies the ReLU that follows before the one rounding. One launch of
+    K9 on the card, its plain twin on the CPU (ops/channel_norm.py)."""
 
     def __init__(self, channels: int, eps: float):
         super().__init__()
@@ -108,14 +110,7 @@ class ChannelNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
         with annotate("hific.norm"):
-            x32 = x.float()
-            var, mean = torch.var_mean(x32, dim=1, keepdim=True, correction=0)
-            y = (x32 - mean) * torch.rsqrt(var + self.eps)
-            y = torch.addcmul(self.bias.float()[:, None, None], y,
-                              self.weight.float()[:, None, None])
-            if relu:
-                y = torch.relu_(y)
-            return y.to(x.dtype)
+            return channel_norm(x, self.weight, self.bias, self.eps, relu)
 
 
 class HiFiCEncoder(nn.Module):

@@ -12,6 +12,8 @@ from contextual_image_compression_tpu_torch.ops.attention import (
     sagan_block,
     sagan_block_spatial,
 )
+# the module: K9's wrapper shares its name
+from contextual_image_compression_tpu_torch.ops import channel_norm
 from contextual_image_compression_tpu_torch.ops.dct import dct_strips
 from contextual_image_compression_tpu_torch.ops.fused_mask import contextual_mask, smooth_mask
 from contextual_image_compression_tpu_torch.ops.generator_tail import fused_tail
@@ -31,6 +33,7 @@ KERNEL_WRAPPERS = {
     "K7a": sagan_block,
     "K7b": sagan_block_spatial,
     "K8": fused_tail,
+    "K9": channel_norm.channel_norm,
 }
 
 

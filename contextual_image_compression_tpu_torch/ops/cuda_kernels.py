@@ -129,6 +129,11 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I,      # B, Cin, H, W, Cmid, Co
         _F, _P,                      # LeakyReLU slope, stream
     ],
+    "cic_channel_norm": [
+        _I, _P, _P, _P, _I,          # dtype code of x, x, alpha, beta, their dtype code
+        _P, _I, _I, _I, _I,          # out, B, C, H, W
+        _I, _F, _I, _P,              # pixels a tile, eps, relu, stream
+    ],
     "cic_adaptive_quantize": [
         _I,                          # dtype code of the latent
         _P, _P, _I, _P, _I,          # latent, score, its dtype code, strength, its dtype code

@@ -1,0 +1,265 @@
+"""K9, HiFiC's ChannelNorm as one kernel (ops/channel_norm.py,
+csrc/channel_norm.cu), and its plain twin.
+
+On the CPU: the wrapper is the twin, which is the eager body
+`ChannelNorm.forward` had before K9, bit for bit, at every (C, relu) HiFiC
+uses, and launches nothing; K9's tile plan fits the card's shared memory;
+an emulation of K9's order of sums against the twin at the card tests'
+bars. On the card (marker `cuda`; they skip elsewhere): K9 against the twin
+run on the card at all six channel widths, a HiFiC call's 29 launches, and
+what K9 refuses.
+
+Bars, K9 against the twin: bfloat16, at least 99.9% of outputs identical
+and the rest within one bf16 ulp of the twin's value or 1e-4, whichever is
+larger. The two sum in other orders (K9: each thread's channels in turn,
+then the warp, then the warps; the twin: var_mean's Welford reduction), so
+a mean or a variance may differ in its last float32 bits, which moves a
+value across a bf16 rounding boundary now and then, and more often where
+x sits near the mean (cancellation). Float32 outputs carry those last bits
+themselves, so there the bar is the second one on every output.
+
+The file imports torch and the port only, so it runs on the card's machine:
+
+    python -m pytest tests/test_torch_channel_norm.py --noconftest -q
+"""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from contextual_image_compression_tpu_torch import ops as tops
+from contextual_image_compression_tpu_torch.config import HiFiCConfig
+from contextual_image_compression_tpu_torch.models.hific import ChannelNorm, HiFiCCodec
+from contextual_image_compression_tpu_torch.ops import channel_norm as cn
+from contextual_image_compression_tpu_torch.ops import cuda_kernels
+
+EPS = HiFiCConfig().norm_eps
+# (C, relu) of HiFiC's 29 norms: E's five with ReLU; G's norm_in (220) and
+# head (960) without, the blocks' 960 with and without, the upsampling's
+# four with
+HIFIC_NORMS = [(60, True), (120, True), (240, True), (480, True), (960, True), (220, False),
+               (960, False)]
+WIDTHS = (60, 120, 220, 240, 480, 960)
+SMEM_PER_SM = 233472      # bytes an H100 SM holds for its blocks
+SMEM_PER_BLOCK = 232448   # the most one block may take
+SMEM_RESERVED = 1024      # the card's own share of each block
+
+
+def _source_constant(name):
+    text = (cuda_kernels.CSRC_DIR / "channel_norm.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def _inputs(b, c, h, w, dtype, seed):
+    """Conv-like activations: per-channel offsets and spreads, so each
+    pixel's mean is off zero; alpha and beta as the benchmark draws them."""
+    rng = np.random.RandomState(seed)
+    offset = rng.uniform(-1.0, 1.0, (1, c, 1, 1))
+    spread = rng.uniform(0.2, 2.0, (1, c, 1, 1))
+    x = rng.standard_normal((b, c, h, w)) * spread + offset
+    alpha = rng.uniform(0.75, 1.25, c)
+    beta = rng.uniform(-0.1, 0.1, c)
+    t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    return t(x).to(dtype), t(alpha).to(dtype), t(beta).to(dtype)
+
+
+def _forward_before_k9(x, weight, bias, eps, relu):
+    """ChannelNorm.forward's body as it was before K9."""
+    x32 = x.float()
+    var, mean = torch.var_mean(x32, dim=1, keepdim=True, correction=0)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    y = torch.addcmul(bias.float()[:, None, None], y, weight.float()[:, None, None])
+    if relu:
+        y = torch.relu_(y)
+    return y.to(x.dtype)
+
+
+def _gaps(got, want):
+    """(share identical, largest difference, whether every difference is
+    within one bf16 ulp of the wanted value or 1e-4)."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    within = bool((d <= torch.maximum(ulp, torch.full_like(ulp, 1e-4))).all())
+    return float((d == 0).float().mean()), float(d.max()), within
+
+
+def _check(got, want, dtype, label):
+    same, worst, within = _gaps(got, want)
+    assert within, f"{label}: largest difference {worst:.3e}, identical {same:.5f}"
+    if dtype == torch.bfloat16:
+        assert same >= 0.999, f"{label}: identical {same:.5f} (largest difference {worst:.3e})"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("c,relu", HIFIC_NORMS)
+def test_cpu_wrapper_is_the_eager_body(c, relu, dtype):
+    x, alpha, beta = _inputs(2, c, 6, 10, dtype, seed=c + relu)
+    before = tops.launch_counts()
+    got = cn.channel_norm(x, alpha, beta, EPS, relu)
+    norm = ChannelNorm(c, EPS).to(dtype)
+    with torch.no_grad():
+        norm.weight.copy_(alpha)
+        norm.bias.copy_(beta)
+        from_module = norm(x, relu=relu)
+    want = _forward_before_k9(x, alpha, beta, EPS, relu)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, want) and torch.equal(from_module, want)
+    assert tops.launch_counts() == before and tops.launch_counts()["K9"] == 0
+
+
+def test_k9_is_a_registered_wrapper():
+    assert tops.KERNEL_WRAPPERS["K9"] is cn.channel_norm
+    assert "K9" in tops.launch_counts()
+    with pytest.raises(ValueError):
+        cn.channel_norm(torch.empty((1, 8, 4, 4), device="meta"), torch.empty(8, device="meta"),
+                        torch.empty(8, device="meta"), EPS)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("c", WIDTHS)
+def test_tile_plan_fits_the_card(c, itemsize):
+    """The tile is a power of two of 16-byte rows, one tile within
+    TILE_BYTES, and three tiles with the partial sums, statistics, alpha
+    and beta fit one block an SM."""
+    threads, stages, quad = (_source_constant(n) for n in ("THREADS", "STAGES", "QUAD"))
+    assert threads == cn.THREADS and cn.MAX_TILE_PIXELS == quad * threads
+    p = cn.tile_pixels(c, itemsize)
+    assert p & (p - 1) == 0 and p * itemsize % 16 == 0 and quad <= p <= cn.MAX_TILE_PIXELS
+    assert c * p * itemsize <= cn.TILE_BYTES
+    if itemsize == 2:  # the served dtype: rows of at least 64 bytes
+        assert p * itemsize >= 64
+    smem = stages * c * p * itemsize + 4 * (threads * quad + 2 * p + 2 * c)
+    assert smem <= SMEM_PER_BLOCK and smem + SMEM_RESERVED <= SMEM_PER_SM
+
+
+@pytest.mark.parametrize("c,want", [(60, 512), (120, 256), (220, 128), (240, 128), (480, 64),
+                                    (960, 32), (3000, 8)])
+def test_tile_plan_in_bf16(c, want):
+    """The widths measured on the card (PERF.md, K9); a width too wide for
+    64 KB keeps the least tile, one 16-byte copy a channel row."""
+    assert cn.tile_pixels(c, 2) == want
+
+
+def _k9_order(x, weight, bias, eps, relu):
+    """K9's arithmetic on the CPU: its tile plan, each thread's channels
+    summed in turn, the shuffle butterfly inside a warp, the rows of partial
+    sums in order; fmaf as a float64 product and sum rounded to float32."""
+    b, c, h, w = x.shape
+    p = cn.tile_pixels(c, x.element_size())
+    quads = p // 4
+    k_count = cn.THREADS // quads
+    v = x.float().reshape(b, c, h * w)
+    zero = torch.zeros(b, h * w)
+
+    def block_sum(terms, fused):
+        parts = []
+        for k in range(k_count):
+            acc = zero
+            for ch in range(k, c, k_count):
+                if fused:  # fmaf(d, d, acc)
+                    d = terms[:, ch].double()
+                    acc = (d * d + acc.double()).float()
+                else:
+                    acc = acc + terms[:, ch]
+            parts.append(acc)
+        if quads < 32:  # threads of one quad share a warp: xor butterfly
+            per_warp = 32 // quads
+            rows = []
+            for warp in range(k_count // per_warp):
+                vals = parts[warp * per_warp:(warp + 1) * per_warp]
+                off = 1
+                while off < per_warp:
+                    vals = [vals[i] + vals[i ^ off] for i in range(per_warp)]
+                    off *= 2
+                rows.append(vals[0])
+        else:
+            rows = parts
+        acc = zero
+        for r in rows:
+            acc = acc + r
+        return acc / c
+
+    mean = block_sum(v, False)
+    rstd = torch.rsqrt(block_sum(v - mean[:, None], True) + eps)
+    t = (v - mean[:, None]) * rstd[:, None]
+    y = (t.double() * weight.float().double()[:, None] + bias.float().double()[:, None]).float()
+    if relu:
+        y = torch.relu(y)
+    return y.reshape(b, c, h, w).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("c,relu", HIFIC_NORMS)
+def test_k9_order_of_sums_within_the_bars(c, relu, dtype):
+    """The card tests' bars hold between K9's order of sums and the twin's,
+    here on the CPU (the card's twin sums in yet another order)."""
+    x, alpha, beta = _inputs(2, c, 16, 24, dtype, seed=100 + c)
+    _check(_k9_order(x, alpha, beta, EPS, relu), cn.channel_norm_plain(x, alpha, beta, EPS, relu),
+           dtype, f"C {c}")
+
+
+# ---- on the card -------------------------------------------------------------
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and the CUDA toolkit")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "plain"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("hw", [(48, 64), (24, 41), (37, 29)],
+                         ids=["whole-tiles", "ragged-tile", "unaligned-rows"])
+@pytest.mark.parametrize("c", WIDTHS)
+def test_k9_matches_twin(dev, c, hw, dtype, relu):
+    """(24, 41): 984 pixels, a multiple of no tile, rows 16-byte aligned;
+    (37, 29): 1073 pixels, rows unaligned (the element route)."""
+    x, alpha, beta = (t.to(dev) for t in _inputs(2, c, *hw, dtype, seed=c * 7 + hw[1]))
+    n = cn.channel_norm.launches
+    with torch.no_grad():
+        got = cn.channel_norm(x, alpha, beta, EPS, relu)
+        want = cn.channel_norm_plain(x, alpha, beta, EPS, relu)
+    torch.cuda.synchronize()
+    assert cn.channel_norm.launches == n + 1
+    _check(got, want, dtype, f"C {c} {hw} {dtype}")
+
+
+@pytest.mark.cuda
+def test_k9_reads_bf16_parameters_and_float32_input(dev):
+    x, alpha, beta = (t.to(dev) for t in _inputs(2, 240, 16, 16, torch.float32, seed=3))
+    got = cn.channel_norm(x, alpha.bfloat16(), beta.bfloat16(), EPS, True)
+    want = cn.channel_norm_plain(x, alpha.bfloat16(), beta.bfloat16(), EPS, True)
+    _check(got, want, torch.float32, "bf16 parameters")
+
+
+@pytest.mark.cuda
+def test_hific_call_launches_k9_29_times(dev):
+    codec = HiFiCCodec(HiFiCConfig())
+    codec.reset_parameters(torch.Generator().manual_seed(0))
+    codec = codec.to(dev).cast_compute().eval().requires_grad_(False)
+    x = torch.rand(1, 3, 192, 256, device=dev).to(torch.bfloat16)
+    n = cn.channel_norm.launches
+    with torch.no_grad():
+        out = codec.apply(x)
+    torch.cuda.synchronize()
+    assert cn.channel_norm.launches - n == 29
+    assert bool(torch.isfinite(out.x_hat.float()).all())
+
+
+@pytest.mark.cuda
+def test_k9_refuses_what_it_does_not_take(dev):
+    x, alpha, beta = (t.to(dev) for t in _inputs(1, 60, 8, 8, torch.float32, seed=4))
+    with pytest.raises(ValueError):
+        cn.channel_norm(x.clone().requires_grad_(True), alpha, beta, EPS)
+    with pytest.raises(ValueError):
+        cn.channel_norm(x.transpose(2, 3), alpha, beta, EPS)
+    with pytest.raises(TypeError):
+        cn.channel_norm(x.half(), alpha, beta, EPS)

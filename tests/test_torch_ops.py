@@ -318,8 +318,11 @@ def test_kernel_wrappers_refuse_other_devices():
         fused_tail(torch.empty((1, 16, 4, 4), device="meta"), torch.empty((16, 8, 4, 4), device="meta"),
                    torch.empty((8,), device="meta"), torch.empty((3, 8, 4, 4), device="meta"),
                    torch.empty((3,), device="meta"))
+    with pytest.raises(ValueError):
+        tops.KERNEL_WRAPPERS["K9"](meta.reshape(1, 1, 32, 32), torch.empty((1,), device="meta"),
+                                   torch.empty((1,), device="meta"), 1e-3)
     assert set(tops.launch_counts()) == {"K1", "K2", "K3", "K3b", "K4", "K5", "K6", "K7a", "K7b",
-                                         "K8"}
+                                         "K8", "K9"}
 
 
 def test_c_signatures_match_sources():
