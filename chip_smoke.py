@@ -677,23 +677,18 @@ def w8a8_pipeline(pipe, state_dict):
     (`ModelConfig(dtype='bfloat16', dense_int8=True)`): the float32 weights
     of `state_dict` in a codec built with dense_int8 and without dense_w8
     (which wins over dense_int8 in both packages' KDense, so the serving
-    configuration's dense_w8 would hide it), cast to bf16 as serving casts
-    them, the generators' int8 tails folded once as serving folds them.
-    Everything else of the pipeline's call is its own."""
+    configuration's dense_w8 would hide it), in its serving form
+    (`prepare_serving`). Everything else of the pipeline's call is its own."""
     import dataclasses
 
     from contextual_image_compression_tpu_torch.models.adaptive import AdaptiveCodec
-    from contextual_image_compression_tpu_torch.models.generator import prepare_int8_tails
-    from contextual_image_compression_tpu_torch.models.layers import cast_floats
 
     mcfg = dataclasses.replace(pipe.mcfg, dense_w8=False, dense_int8=True)
     with torch.device(pipe.device):
         codec = AdaptiveCodec(mcfg)
     codec.load_state_dict(state_dict)
-    cast_floats(codec, mcfg.compute_dtype())
-    prepare_int8_tails(codec)
     out = copy.copy(pipe)
-    out.mcfg, out.codec, out._seen_batches = mcfg, codec.eval().requires_grad_(False), set()
+    out.mcfg, out.codec, out._seen_batches = mcfg, codec.prepare_serving(), set()
     return out
 
 

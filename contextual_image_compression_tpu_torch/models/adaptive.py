@@ -37,7 +37,12 @@ from contextual_image_compression_tpu_torch.config import ModelConfig
 from contextual_image_compression_tpu_torch.models.encoder import Encoder
 from contextual_image_compression_tpu_torch.models.generator import Generator
 from contextual_image_compression_tpu_torch.models.latent_saliency import LatentSaliency
-from contextual_image_compression_tpu_torch.models.layers import cast_floats, const
+from contextual_image_compression_tpu_torch.models.layers import (
+    cast_floats,
+    const,
+    prepare_w8,
+    quantize_dense_w8,
+)
 from contextual_image_compression_tpu_torch.models.rd_optimizer import RDOptimizer
 from contextual_image_compression_tpu_torch.ops.quantize import adaptive_quantize
 from contextual_image_compression_tpu_torch.ops.saliency import (
@@ -118,6 +123,20 @@ class AdaptiveCodec(nn.Module):
         gen.manual_seed(seed)
         for name in ALL_CODEC_COMPONENTS:
             getattr(self, name).reset_parameters(gen)
+
+    def prepare_serving(self) -> "AdaptiveCodec":
+        """The serving form, made once from the final float32 weights: the
+        giant w8 projections quantized from float32, everything cast to the
+        compute dtype (the w8 scale rows stay float32), the smaller w8 layers
+        quantized from their cast weights, as the JAX layer does at trace
+        time, and each generator's int8 tail folded from the cast weights
+        (K8's int8 route on the card); then eval mode, no gradients."""
+        quantize_dense_w8(self)
+        cast_floats(self, self.cfg.compute_dtype())
+        prepare_w8(self)
+        self.hq_generator.prepare_tail()
+        self.lq_generator.prepare_tail()
+        return self.eval().requires_grad_(False)
 
     # ---------------------------------------------------------------- schedule
     def rd_schedule(self, target_bpp: torch.Tensor):

@@ -6,13 +6,14 @@ Counterpart of `contextual_image_compression_tpu/models/generator.py`:
     ConvT k4 s2 -> BN -> LReLU -> Conv k4 s1 -> tanh       (native tail)
 or, at inference with packed_tail, the folded tail of models/packed_tail.py
 (train-mode calls take the native tail, as the JAX generator does: batch
-statistics cannot be folded). The int8 form folds its operands on every
-call unless `prepare_tail()` (serving set-up: `prepare_int8_tails`) folded
-them once; a prepared generator takes K8's int8 route for a square bf16 CUDA
-input within the kernel's widths (models/packed_tail.py::int8_tail_forward)
-and refolds when a source weight or statistic has changed since (a state
-dict loaded, an in-place edit, a move). polyphase=True lowers the deconvolutions as
-the JAX generator's `generator_polyphase` does (layers.KConvT).
+statistics cannot be folded). The int8 form folds its operands once and
+keeps them (`_int8_operands`; `prepare_tail()` folds them ahead of the first
+call, in the serving set-up), refolding when x's dtype or device or a source
+weight or statistic has changed since (a state dict loaded, an in-place
+edit, a move); it takes K8's int8 route for a square bf16 CUDA input within
+the kernel's widths (models/packed_tail.py::int8_tail_forward).
+polyphase=True lowers the deconvolutions as the JAX generator's
+`generator_polyphase` does (layers.KConvT).
 The fc output is reshaped in NCHW order; `convert.py` permutes the JAX
 (NHWC-order) fc columns and bias to match.
 """
@@ -73,7 +74,7 @@ class Generator(nn.Module):
             setattr(self, f"bn{i + 1}", KBatchNorm(ch))
             cin = ch + extra
         self.out_conv = KConv(channels[3], out_channels, 4, 1)
-        self._int8_tail = None  # (sources' key, Int8Tail) once prepare_tail() ran
+        self._int8_tail = None  # (key, Int8Tail): the kept fold (_int8_operands)
 
     def reset_parameters(self, gen: torch.Generator):
         self.fc.reset_parameters(gen)
@@ -93,35 +94,39 @@ class Generator(nn.Module):
         # Tensors made under torch.inference_mode keep no version.
         return tuple((t.data_ptr(), None if t.is_inference() else t._version) for t in sources)
 
-    @torch.no_grad()
-    def prepare_tail(self) -> None:
-        """Fold the int8 tail's operands once, from the current weights
-        (gathered where a mesh splits them), in the deconv weight's dtype:
-        the values the per-call fold computes, bit for bit. A generator
-        without the packed int8 tail has nothing to prepare."""
-        if not (self.packed_tail and self.packed_tail_int8):
-            return
-        bn, dt = self.bn4, self.deconv4.weight.dtype
-        ops = fold_int8_tail(
+    def _fold(self, dt: torch.dtype, pack: bool):
+        """The int8 tail's operands from the current weights (gathered where
+        a mesh splits them), in dt; pack: also K8's tap tiles (bf16)."""
+        bn = self.bn4
+        return fold_int8_tail(
             used(self.deconv4, "weight").to(dt), used(self.deconv4, "bias").to(dt),
             used(bn, "weight"), used(bn, "bias"), bn.running_mean, bn.running_var,
             used(self.out_conv, "weight"), used(self.out_conv, "bias").to(dt), dt,
-            bn_eps=bn.eps, leaky_slope=self.leaky_slope, pack=True)
-        self._int8_tail = (self._key(self._tail_sources()), ops)
+            bn_eps=bn.eps, leaky_slope=self.leaky_slope, pack=pack)
 
-    def _prepared_tail(self, x: torch.Tensor):
-        """The prepared Int8Tail for x, refolded first if a source changed
-        since; None when unprepared, when x has another dtype or device, or
-        when autograd wants the tail's gradients."""
-        if self._int8_tail is None:
-            return None
-        sources = self._tail_sources()
-        if torch.is_grad_enabled() and any(t.requires_grad for t in sources):
-            return None
-        if self._key(sources) != self._int8_tail[0]:
-            self.prepare_tail()
-        ops = self._int8_tail[1]
-        return ops if ops.folded.dtype == x.dtype and ops.folded.device == x.device else None
+    def _kept_fold(self, dt: torch.dtype, device: torch.device):
+        key = (dt, device, self._key(self._tail_sources()))
+        if self._int8_tail is None or self._int8_tail[0] != key:
+            with torch.no_grad():
+                self._int8_tail = (key, self._fold(dt, pack=True))
+        return self._int8_tail[1]
+
+    def prepare_tail(self) -> None:
+        """Fold the int8 tail's operands now, in the deconv weight's dtype, so
+        that the first call finds them kept. A generator without the packed
+        int8 tail has nothing to prepare."""
+        if self.packed_tail and self.packed_tail_int8:
+            w = self.deconv4.weight
+            self._kept_fold(w.dtype, w.device)
+
+    def _int8_operands(self, x: torch.Tensor):
+        """The int8 tail's operands for x, in x's dtype: the kept fold, folded
+        again first if x's dtype or device or a source changed since; a fresh
+        fold, unpacked and not kept, when autograd wants the tail's
+        gradients."""
+        if torch.is_grad_enabled() and any(t.requires_grad for t in self._tail_sources()):
+            return self._fold(x.dtype, pack=False)
+        return self._kept_fold(x.dtype, x.device)
 
     def forward(self, latent: torch.Tensor, skips, train: bool = False) -> torch.Tensor:
         """latent (B, D), skips (skip1, skip2, skip3) NCHW -> (B, C, H, W) in
@@ -135,24 +140,16 @@ class Generator(nn.Module):
             x = getattr(self, f"bn{i + 1}")(getattr(self, f"deconv{i + 1}")(x), train)
             x = torch.cat([leaky_relu(x, s), skip.to(x.dtype)], dim=1)
         if self.packed_tail and not train:
-            ops = self._prepared_tail(x) if self.packed_tail_int8 else None
-            if ops is not None:
-                return int8_tail_forward(x, ops)
+            if self.packed_tail_int8:
+                return int8_tail_forward(x, self._int8_operands(x))
             bn = self.bn4
             return packed_tail_forward(
                 x, used(self.deconv4, "weight").to(x.dtype),
                 used(self.deconv4, "bias").to(x.dtype),
                 used(bn, "weight"), used(bn, "bias"), bn.running_mean, bn.running_var,
                 used(self.out_conv, "weight"), used(self.out_conv, "bias").to(x.dtype),
-                bn_eps=bn.eps, leaky_slope=s, int8_planar=self.packed_tail_int8,
+                bn_eps=bn.eps, leaky_slope=s,
             )
         x = leaky_relu(self.bn4(self.deconv4(x), train), s)
         return torch.tanh(self.out_conv(x))
 
-
-def prepare_int8_tails(model: nn.Module) -> None:
-    """`prepare_tail()` on every generator of `model` with the packed int8
-    tail (serving set-up, after the weights are final and cast)."""
-    for mod in model.modules():
-        if isinstance(mod, Generator):
-            mod.prepare_tail()

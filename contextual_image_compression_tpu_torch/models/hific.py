@@ -39,7 +39,7 @@ Choices the paper leaves open, taken here:
 Precision: the convolutions in the compute dtype (bfloat16 serving: the
 tensor cores with float32 accumulation, each result rounded to bfloat16,
 then the bias added and rounded); CN's statistics, mu, sigma, the roundings
-and the likelihoods in float32. `cast_compute` casts every layer but the
+and the likelihoods in float32. `prepare_serving` casts every layer but the
 prior of z, whose parameters and offsets stay float32.
 
 Spans (utils/profiling.py): `hific.analysis` (E), `hific.hyper` (h_a,
@@ -273,12 +273,14 @@ class HiFiCCodec(nn.Module):
         self.hyper_scale = HyperSynthesis(cfg)
         self.z_prior = FactorizedPrior(cfg.hyper_channels, cfg.factorized_filters)
 
-    def reset_parameters(self, gen: torch.Generator) -> None:
-        """Seed every weight: He-uniform kernels and zero biases; CN's alpha
-        1 and beta 0; the image head scaled by IMAGE_HEAD_GAIN with bias 0.5
-        and the sigma head by SCALE_HEAD_GAIN with bias 1, so that a seeded
-        codec's images and scales sit inside their clamps; the prior of z
-        as FactorizedPrior.reset_parameters."""
+    def reset_parameters(self, seed: int = 0) -> None:
+        """Seed every weight from one seeded generator on the parameters'
+        device: He-uniform kernels and zero biases; CN's alpha 1 and beta 0;
+        the image head scaled by IMAGE_HEAD_GAIN with bias 0.5 and the sigma
+        head by SCALE_HEAD_GAIN with bias 1, so that a seeded codec's images
+        and scales sit inside their clamps; the prior of z as
+        FactorizedPrior.reset_parameters."""
+        gen = torch.Generator(device=next(self.parameters()).device).manual_seed(seed)
         for mod in self.modules():
             if isinstance(mod, (KConv, KConvT)):
                 _seed_conv(mod, gen)
@@ -289,13 +291,14 @@ class HiFiCCodec(nn.Module):
         _seed_conv(self.hyper_scale.out, gen, SCALE_HEAD_GAIN, 1.0)
         self.z_prior.reset_parameters(gen)
 
-    def cast_compute(self) -> "HiFiCCodec":
-        """Every layer in the config's compute dtype but the prior of z."""
+    def prepare_serving(self) -> "HiFiCCodec":
+        """The serving form: every layer in the config's compute dtype but the
+        prior of z; then eval mode, no gradients."""
         dtype = self.cfg.compute_dtype()
         for part in (self.analysis, self.synthesis, self.hyper_analysis, self.hyper_mean,
                      self.hyper_scale):
             cast_floats(part, dtype)
-        return self
+        return self.eval().requires_grad_(False)
 
     def apply(self, x: torch.Tensor) -> HiFiCOutput:
         """x (B, 3, H, W) in [0, 1], the compute dtype, H and W multiples of

@@ -23,12 +23,12 @@ The int8 form's operands (the folded deconv weight, shift, 127 / amax, the
 scaled out-conv weight, the bias) are `fold_int8_tail`'s `Int8Tail`;
 `packed_tail_forward(int8_planar=True)` folds them on every call and runs
 `int8_tail_plain` (cuDNN's transposed conv and conv, elementwise passes
-between them). A serving generator folds them once (`Generator.prepare_tail`)
-and calls `int8_tail_forward`, which takes K8's int8 route
-(`ops/generator_tail.py::int8_tail`: one launch, the deconv rounded to bf16
-once as in the XLA path) for a square bf16 CUDA input within the kernel's
-widths (Cin <= 128, Cmid <= 32, Co <= 4), and `int8_tail_plain`, its eager
-twin, for anything else.
+between them). A generator folds them once and keeps them
+(`Generator._int8_operands`) and calls `int8_tail_forward`, which takes K8's
+int8 route (`ops/generator_tail.py::int8_tail`: one launch, the deconv
+rounded to bf16 once as in the XLA path) for a square bf16 CUDA input within
+the kernel's widths (Cin <= 128, Cmid <= 32, Co <= 4), and
+`int8_tail_plain`, its eager twin, for anything else.
 """
 
 from __future__ import annotations

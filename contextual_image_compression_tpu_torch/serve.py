@@ -6,7 +6,7 @@ contextual mask (K1) -> adaptive GAN codec (K2 in the HQ encoder, K3 on both lat
 uint8, plus the fp32 bitstream symbols computed from the latents before
 quantization. The serving configuration is the JAX package's: bfloat16
 compute, the folded generator tail with int8 storage, and weight-only int8
-latent/fc projections.
+latent/fc projections; each codec makes its serving form in `prepare_serving`.
 
 The storable codec: `serialize_latents` range-codes the symbols into
 per-image latent streams, `encode_to_bitstream` packs them with the
@@ -53,14 +53,8 @@ from contextual_image_compression_tpu_torch.config import (
     resolve_device,
 )
 from contextual_image_compression_tpu_torch.models.adaptive import AdaptiveCodec
-from contextual_image_compression_tpu_torch.models.generator import prepare_int8_tails
 from contextual_image_compression_tpu_torch.models.hific import HiFiCCodec
-from contextual_image_compression_tpu_torch.models.layers import (
-    cast_floats,
-    const,
-    prepare_w8,
-    quantize_dense_w8,
-)
+from contextual_image_compression_tpu_torch.models.layers import const
 from contextual_image_compression_tpu_torch.ops import bitstream as bs
 from contextual_image_compression_tpu_torch.ops import masks as mask_ops
 from contextual_image_compression_tpu_torch.ops.saliency import (
@@ -132,13 +126,14 @@ class CompressionPipeline:
         self._world = mesh.world.size if mesh is not None else 1
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self._seen_batches: set = set()
-        if isinstance(model_config, HiFiCConfig):
-            self._init_hific(model_config, state_dict, seed, model_dir)
-            return
-        self.mcfg = _serving_model_config(model_config or ModelConfig())
+        hific = isinstance(model_config, HiFiCConfig)
+        if hific and (mesh is not None or model_dir is not None):
+            raise ValueError("HiFiC serves on one device from a state_dict or the seeded "
+                             "init: no mesh, no checkpoint directory")
+        self.mcfg = model_config if hific else _serving_model_config(model_config or ModelConfig())
         self.scfg = saliency_config or SaliencyConfig()
         with torch.device(self.device):
-            codec = AdaptiveCodec(self.mcfg)
+            codec = (HiFiCCodec if hific else AdaptiveCodec)(self.mcfg)
         if state_dict is not None:
             codec.load_state_dict(state_dict)
             self.provenance = {"all": "provided"}
@@ -148,31 +143,7 @@ class CompressionPipeline:
                 self.provenance = load_codec_checkpoint(codec, model_dir)
             else:
                 self.provenance = {"all": "init"}
-        # Quantize the giant projections once from float32, then cast to
-        # bf16 (w8 scale rows stay float32), then quantize the smaller w8
-        # layers from their bf16 weights, as the JAX layer does at trace time.
-        # The generators' int8 tails fold their operands once, from the bf16
-        # weights, as their per-call fold would (K8's int8 route on the card).
-        quantize_dense_w8(codec)
-        cast_floats(codec, self.mcfg.compute_dtype())
-        prepare_w8(codec)
-        prepare_int8_tails(codec)
-        self.codec = codec.eval().requires_grad_(False)
-
-    def _init_hific(self, cfg: HiFiCConfig, state_dict, seed: int, model_dir) -> None:
-        if self.mesh is not None or model_dir is not None:
-            raise ValueError("HiFiC serves on one device from a state_dict or the seeded "
-                             "init: no mesh, no checkpoint directory")
-        self.mcfg = cfg
-        with torch.device(self.device):
-            codec = HiFiCCodec(cfg)
-        if state_dict is not None:
-            codec.load_state_dict(state_dict)
-            self.provenance = {"all": "provided"}
-        else:
-            codec.reset_parameters(torch.Generator(device=self.device).manual_seed(seed))
-            self.provenance = {"all": "init"}
-        self.codec = codec.cast_compute().eval().requires_grad_(False)
+        self.codec = codec.prepare_serving()
 
     @property
     def hific(self) -> bool:

@@ -243,8 +243,8 @@ def test_k9_reads_bf16_parameters_and_float32_input(dev):
 @pytest.mark.cuda
 def test_hific_call_launches_k9_29_times(dev):
     codec = HiFiCCodec(HiFiCConfig())
-    codec.reset_parameters(torch.Generator().manual_seed(0))
-    codec = codec.to(dev).cast_compute().eval().requires_grad_(False)
+    codec.reset_parameters(0)
+    codec = codec.to(dev).prepare_serving()
     x = torch.rand(1, 3, 192, 256, device=dev).to(torch.bfloat16)
     n = cn.channel_norm.launches
     with torch.no_grad():

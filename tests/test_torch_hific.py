@@ -5,6 +5,7 @@ width, on seeded weights; the stride-2 SAME transposed convolutions of
 `KConvT`; the five hific spans. No JAX."""
 
 import contextlib
+import dataclasses
 import json
 import os
 
@@ -224,6 +225,23 @@ def test_hific_spans_open_only_under_a_profiler(pipe, monkeypatch, tmp_path):
     assert all(top["hific.hyper"][2] <= s[1] or s[2] <= top["hific.hyper"][1]
                for s in spans if s[0] == "hific.norm")
     assert set(HIFIC_SPANS) <= set(profiling.SPANS)
+
+
+def test_pipeline_codec_is_the_seeded_codec_in_its_serving_form():
+    """A pipeline's HiFiC codec equals HiFiCCodec seeded by the same seed
+    and passed through prepare_serving, bit for bit: in bf16 every layer but
+    the prior of z cast, in eval mode, no gradients."""
+    cfg = dataclasses.replace(SMALL, dtype="bfloat16")
+    got = CompressionPipeline(model_config=cfg, device="cpu", seed=7).codec
+    want = HiFiCCodec(cfg)
+    want.reset_parameters(7)
+    want = want.prepare_serving()
+    got_sd, want_sd = got.state_dict(), want.state_dict()
+    assert list(got_sd) == list(want_sd)
+    for k, v in want_sd.items():
+        assert got_sd[k].dtype == v.dtype and torch.equal(got_sd[k], v), k
+        assert v.dtype == (torch.float32 if k.startswith("z_prior.") else torch.bfloat16), k
+    assert not got.training and not any(p.requires_grad for p in got.parameters())
 
 
 def test_hific_pipeline_refuses_what_it_does_not_serve(pipe):

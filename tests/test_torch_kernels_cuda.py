@@ -906,17 +906,20 @@ def test_k8_int8_matches_the_pytorch_path(dev, b, h, cin, cmid, co):
     assert (err == 0).float().mean().item() >= 0.99
 
 
-def test_k8_int8_route_once_a_generator_call(dev):
-    """A prepared packed-int8 generator on the card launches K8's int8 route
-    once a call (its tail Cin 24, Cmid 8, Co 3), within the bars of its
-    unprepared (PyTorch) call; train=True takes the native tail, no K8."""
-    from contextual_image_compression_tpu_torch.models.generator import Generator
+def test_k8_int8_route_once_a_generator_call(dev, monkeypatch):
+    """A packed-int8 generator on the card launches K8's int8 route once a
+    call (its tail Cin 24, Cmid 8, Co 3), from its first call on, never
+    prepared: the first call folds and keeps the operands, which
+    `prepare_tail` then finds kept. Within the bars of the PyTorch path on
+    the same operands and input; train=True takes the native tail, no K8."""
+    from contextual_image_compression_tpu_torch.models import generator as gmod
     from contextual_image_compression_tpu_torch.models.layers import cast_floats
-    from contextual_image_compression_tpu_torch.models.packed_tail import fold_int8_tail
+    from contextual_image_compression_tpu_torch.models.packed_tail import (
+        fold_int8_tail, int8_tail_plain)
 
     with torch.device(dev):
-        g = Generator(8, channels=(16, 16, 16, 8), skip_channels=(8, 8, 8), base_hw=4,
-                      base_ch=16, packed_tail=True, packed_tail_int8=True)
+        g = gmod.Generator(8, channels=(16, 16, 16, 8), skip_channels=(8, 8, 8), base_hw=4,
+                           base_ch=16, packed_tail=True, packed_tail_int8=True)
     g.reset_parameters(torch.Generator(device=dev).manual_seed(3))
     w = _int8_tail_weights(dev, 24, 8, 3, 5)
     with torch.no_grad():
@@ -928,18 +931,22 @@ def test_k8_int8_route_once_a_generator_call(dev):
     latent = torch.randn(2, 8, device=dev, generator=gen).to(torch.bfloat16)
     skips = tuple(torch.randn(2, 8, s, s, device=dev, generator=gen).to(torch.bfloat16)
                   for s in (32, 16, 8))
+    inputs = []
+    tail = gmod.int8_tail_forward
+    monkeypatch.setattr(gmod, "int8_tail_forward", lambda x, t: inputs.append(x) or tail(x, t))
     with torch.no_grad():
         before = dict(fused_tail.route_launches)
-        want = g(latent, skips)
-        assert fused_tail.route_launches == before
-        g.prepare_tail()
-        assert torch.equal(g._int8_tail[1].taps, fold_int8_tail(
-            *g._tail_sources(), torch.bfloat16, pack=True).taps)
         for n in (1, 2):
             got = g(latent, skips)
             assert fused_tail.route_launches == {**before, "int8": before["int8"] + n}
+        kept = g._int8_tail
+        assert torch.equal(kept[1].taps, fold_int8_tail(
+            *g._tail_sources(), torch.bfloat16, pack=True).taps)
+        g.prepare_tail()
+        assert g._int8_tail is kept
         g(latent, skips, train=True)
         assert fused_tail.route_launches["int8"] == before["int8"] + 2
+        want = int8_tail_plain(inputs[0], kept[1])
     err = (got.float() - want.float()).abs()
     assert err.max().item() <= 6.25e-2 and err.mean().item() <= 4e-3
     assert (err == 0).float().mean().item() >= 0.99

@@ -364,19 +364,31 @@ def test_prepared_int8_operands_equal_the_per_call_fold(dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_prepared_int8_generator_matches_unprepared_on_cpu(dtype):
-    """On the CPU a prepared generator runs the PyTorch path on its folded
-    operands: the output equals the per-call fold's bit for bit, and no
-    kernel is launched."""
+def test_prepared_int8_generator_matches_unprepared_on_cpu(dtype, monkeypatch):
+    """A generator's first call, never prepared, equals its twin's call
+    after prepare_tail and the per-call fold of
+    packed_tail_forward(int8_planar=True) on the same input, bit for bit;
+    on the CPU no kernel is launched."""
+    from contextual_image_compression_tpu_torch.models import generator as gmod
+    from contextual_image_compression_tpu_torch.models.packed_tail import packed_tail_forward
+
+    inputs = []
+    tail = gmod.int8_tail_forward
+    monkeypatch.setattr(gmod, "int8_tail_forward", lambda x, t: inputs.append(x) or tail(x, t))
     g, latent, skips = _int8_generator(21, dtype)
+    twin, _, _ = _int8_generator(21, dtype)
+    before = tops.launch_counts()
     with torch.no_grad():
-        want = g(latent, skips)
-        g.prepare_tail()
-        before = tops.launch_counts()
-        got = g(latent, skips)
+        first = g(latent, skips)
+        twin.prepare_tail()
+        got = twin(latent, skips)
+        bn = g.bn4
+        per_call = packed_tail_forward(
+            inputs[0], g.deconv4.weight, g.deconv4.bias, bn.weight, bn.bias, bn.running_mean,
+            bn.running_var, g.out_conv.weight, g.out_conv.bias, bn_eps=bn.eps, int8_planar=True)
     assert tops.launch_counts() == before
     assert got.shape == (2, 3, 64, 64) and got.dtype == dtype
-    assert torch.equal(got, want)
+    assert torch.equal(first, got) and torch.equal(first, per_call)
 
 
 def test_int8_tail_prepares_under_inference_mode():
@@ -421,8 +433,11 @@ def test_int8_route_dispatch(case, want):
 
 
 def test_int8_route_is_not_taken_on_cpu_or_unprepared(monkeypatch):
-    """A prepared generator on the CPU, and an unprepared one, never reach
-    the kernel wrapper; only prepared generators look for operands."""
+    """A generator on the CPU, never prepared or prepared, never reaches the
+    kernel wrapper: its first call folds and keeps the operands, which
+    prepare_tail then finds kept, and x in another dtype folds them again.
+    Under autograd every call folds afresh, unpacked and not kept, and the
+    gradients reach the tail's weights."""
     from contextual_image_compression_tpu_torch.ops import generator_tail
 
     def refuse(*args, **kwargs):
@@ -431,13 +446,19 @@ def test_int8_route_is_not_taken_on_cpu_or_unprepared(monkeypatch):
     monkeypatch.setattr(generator_tail, "int8_tail", refuse)
     g, latent, skips = _int8_generator(22)
     with torch.no_grad():
-        assert g._prepared_tail(latent) is None
         g(latent, skips)
+        kept = g._int8_tail
+        assert kept is not None and kept[1].taps is not None
         g.prepare_tail()
         g(latent, skips)
-        assert g._prepared_tail(latent.float()) is None  # another dtype: the per-call fold
-    g.requires_grad_(True)  # autograd wants the tail's gradients: the per-call fold
-    assert g._prepared_tail(latent) is None
+        assert g._int8_tail is kept
+        ops = g._int8_operands(latent.float())
+        assert ops.folded.dtype == torch.float32 and g._int8_tail[1] is ops
+    g.requires_grad_(True)
+    ops = g._int8_operands(latent)
+    assert ops.taps is None and ops.folded.requires_grad and g._int8_tail[1] is not ops
+    g(latent, skips).float().sum().backward()
+    assert g.deconv4.weight.grad is not None and g.out_conv.weight.grad is not None
 
 
 @pytest.mark.parametrize("how", ["load_state_dict", "load_assign", "in_place"])

@@ -21,6 +21,13 @@ from contextual_image_compression_tpu.serve import CompressionPipeline as JPipel
 from contextual_image_compression_tpu.serve import _serving_model_config as j_serving
 from contextual_image_compression_tpu_torch.config import ModelConfig
 from contextual_image_compression_tpu_torch.convert import convert_codec_variables
+from contextual_image_compression_tpu_torch.measure import randomize_stats
+from contextual_image_compression_tpu_torch.models.adaptive import AdaptiveCodec
+from contextual_image_compression_tpu_torch.models.layers import (
+    cast_floats,
+    prepare_w8,
+    quantize_dense_w8,
+)
 from contextual_image_compression_tpu_torch.serve import CompressionPipeline
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -97,6 +104,57 @@ def test_pipeline_seeded_init_and_provenance():
     assert sd["hq_encoder.latent_dense.weight_q"].dtype == torch.int8
     assert sd["hq_encoder.latent_dense.w8_scale"].dtype == torch.float32
     assert sd["hq_encoder.conv1.weight"].dtype == torch.bfloat16
+
+
+# Both generators' fc (2048 and 1024 -> 4 x 4 x 512) reach quantize_dense_w8's
+# 2^23 weights and are quantized from float32; the encoders' latent
+# projections (4 x 4 x 32 -> 2048 and 1024) are quantized from bf16.
+W8_SPLIT_KW = dict(SERVE_KW, base_latent_dim=1024, encoder_channels=(8, 16, 24, 32),
+                   generator_channels=(24, 16, 8, 8))
+
+
+@pytest.mark.parametrize("case", ["pipeline", "dense_int8"])
+def test_prepare_serving_equals_the_written_out_setup(case):
+    """The serving form made by `prepare_serving` equals, bit for bit, the
+    set-up steps written out as the pipeline and chip_smoke.py's W8A8
+    pipeline ran them: every parameter and buffer (the int8 rows and the w8
+    scales among them) and both generators' folded int8-tail operands."""
+    sd = AdaptiveCodec(ModelConfig(**W8_SPLIT_KW))
+    sd.reset_parameters(4)
+    randomize_stats(sd, 4)
+    sd = sd.state_dict()
+    if case == "pipeline":
+        got = CompressionPipeline(state_dict=sd, model_config=ModelConfig(**W8_SPLIT_KW),
+                                  device="cpu").codec
+        cfg = got.cfg
+    else:
+        cfg = ModelConfig(**W8_SPLIT_KW, dtype="bfloat16", generator_packed_tail=True,
+                          packed_tail_int8=True, dense_int8=True)
+        got = AdaptiveCodec(cfg)
+        got.load_state_dict(sd)
+        got = got.prepare_serving()
+    want = AdaptiveCodec(cfg)
+    want.load_state_dict(sd)
+    if case == "pipeline":
+        assert quantize_dense_w8(want) == 2
+    cast_floats(want, torch.bfloat16)
+    if case == "pipeline":
+        prepare_w8(want)
+    want.hq_generator.prepare_tail()
+    want.lq_generator.prepare_tail()
+    want.eval().requires_grad_(False)
+
+    got_sd, want_sd = got.state_dict(), want.state_dict()
+    assert list(got_sd) == list(want_sd)
+    assert any(k.endswith("weight_q") for k in got_sd) is (case == "pipeline")
+    for k, v in want_sd.items():
+        assert got_sd[k].dtype == v.dtype and torch.equal(got_sd[k], v), k
+    for name in ("hq_generator", "lq_generator"):
+        g, w = getattr(got, name)._int8_tail[1], getattr(want, name)._int8_tail[1]
+        for field, v in w._asdict().items():
+            assert torch.equal(getattr(g, field), v) if torch.is_tensor(v) else \
+                getattr(g, field) == v, (name, field)
+    assert not got.training and not any(p.requires_grad for p in got.parameters())
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
