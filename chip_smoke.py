@@ -249,12 +249,14 @@ launches in the kernels line's `launches_mesh`:
 
 (i) K9, HiFiC's ChannelNorm, at the HiFiC cell's seven norm shapes (4
    photos of 2048x1536: C = 60 at 1536 x 2048 down to 960 and 220 at 96 x
-   128), bf16, against its twin on the card (>= 99.9% identical, the rest
-   within one bf16 ulp or 1e-4), timed host-inclusive, on the device alone
-   and beside the twin and its bound (one read and one write, bytes at
-   3.35 TB/s), with the sum over a call's 29 norms; then HiFiC served at
-   its published widths (seeded weights) on photos of 192x256 and 200x300:
-   29 K9 launches a call and no other kernel.
+   128), bf16, on both routes (NCHW x; its channels_last copy, the served
+   layout) against its twin on the card (>= 99.9% identical, the rest
+   within one bf16 ulp or 1e-4), each timed host-inclusive, on the device
+   alone and beside the twin and its bound (one read and one write, bytes
+   at 3.35 TB/s), with the sums over a call's 29 norms; then HiFiC served
+   at its published widths (seeded weights) on photos of 192x256 and
+   200x300: 29 K9 launches a call, all on the NHWC route, and no other
+   kernel.
 
 K1's bf16 launches are counted apart (`launch_counts()`: 'K1' float32,
 'K1bf16' bf16) and K1bf16 has its own line in the kernels JSON.
@@ -2397,78 +2399,99 @@ HIFIC_NORM_SHAPES = ((60, True, 1536, 2048, 2), (120, True, 768, 1024, 2),
 def check_k9(dev):
     """K9 against its twin (channel_norm_plain on the card) at each of the
     HiFiC cell's norm shapes, B = 4, bf16, alpha in [0.75, 1.25] and beta
-    in +-0.1 as the benchmark draws them; K9 host-inclusive and on the
-    device alone, the twin, and the bound: x read once and y written once
-    at 3.35 TB/s (about ten float32 operations an element, far below the
-    bf16 line). The record's fields are the two extremes, C = 960 at 96 x
-    128 and C = 60 at 1536 x 2048; `call_ms` sums the device times over a
-    call's 29 norms."""
+    in +-0.1 as the benchmark draws them, on the NCHW route (x contiguous)
+    and the NHWC route (its channels_last copy in the served rows: C = 60
+    padded to 64 channels, models/hific.py, 220 as it is); each
+    host-inclusive and on the device alone, the twin, and the bound: x read
+    once and y written once at 3.35 TB/s (about ten float32 operations an
+    element, far below the bf16 line). The record's fields are the two
+    extremes, C = 960 at 96 x 128 and C = 60 at 1536 x 2048 (`_nhwc` the
+    NHWC route's); `call_ms` sums the device times over a call's 29 norms."""
+    from contextual_image_compression_tpu_torch.config import HiFiCConfig
     from contextual_image_compression_tpu_torch.measure import device_ms, event_ms
+    from contextual_image_compression_tpu_torch.models.hific import ROW_CHANNELS
     from contextual_image_compression_tpu_torch.ops.channel_norm import (
-        channel_norm, channel_norm_plain, tile_pixels)
+        channel_norm, channel_norm_plain, nhwc_plan, tile_pixels)
 
     gen = torch.Generator(device=dev).manual_seed(21)
     bf, eps, B = torch.bfloat16, 1e-3, 4
-    rows, call = {}, dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, norms=0)
+    routes = {"": torch.contiguous_format, "_nhwc": torch.channels_last}
+    rows = {}
+    call = {f"{k}{r}": 0.0 for k in ("ms", "device_ms", "plain_ms", "bound_ms") for r in routes}
+    call["norms"] = 0
     for c, relu, h, w, count in HIFIC_NORM_SHAPES:
         offset = torch.rand(1, c, 1, 1, device=dev, generator=gen) * 2 - 1
-        x = (torch.randn(B, c, h, w, device=dev, generator=gen) + offset).to(bf)
+        x0 = (torch.randn(B, c, h, w, device=dev, generator=gen) + offset).to(bf)
         alpha = (0.75 + 0.5 * torch.rand(c, device=dev, generator=gen)).to(bf)
         beta = (0.2 * torch.rand(c, device=dev, generator=gen) - 0.1).to(bf)
-        k9 = lambda: channel_norm(x, alpha, beta, eps, relu)  # noqa: E731
-        twin = lambda: channel_norm_plain(x, alpha, beta, eps, relu)  # noqa: E731
-        n = channel_norm.launches
-        got, want = k9(), twin()
-        if channel_norm.launches != n + 1:
-            raise AssertionError("K9: one launch a call")
-        d = (got.float() - want.float()).abs()
-        ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(1e-30))) - 7)
-        same = (d == 0).float().mean().item()
-        worst = d.max().item()
-        if same < 0.999 or not bool((d <= ulp.clamp_min(1e-4)).all()):
-            raise AssertionError(f"K9 at C = {c}, {h}x{w}: identical {same:.5f}, largest "
-                                 f"difference {worst:.3e}")
-        del got, want, d, ulp
-        b_ms, b_by = bound_ms(2 * x.numel() * x.element_size(), 10.0 * x.numel(),
-                              H100_FP32_TFLOPS)
-        t = dict(ms=event_ms(k9, reps=10), device_ms=device_ms(k9, reps=10),
-                 plain_ms=event_ms(twin, reps=5), bound_ms=b_ms)
-        rows[(c, relu)] = dict(t, identical=same, max_abs_err=worst, bound_by=b_by,
-                               tile=tile_pixels(c, 2))
-        for key in t:
-            call[key] += count * t[key]
+        # the served row: E's and G's rows padded to a multiple of ROW_CHANNELS,
+        # G's first norm on y_hat's 220 channels as they are
+        served = c if c == HiFiCConfig().latent_channels else -(-c // ROW_CHANNELS) * ROW_CHANNELS
+        row = dict(tile=tile_pixels(c, 2), tile_nhwc=nhwc_plan(served, 2)[0])
+        for r, fmt in routes.items():
+            x = x0 if not r else torch.nn.functional.pad(
+                x0, (0, 0, 0, 0, 0, served - c)).contiguous(memory_format=fmt)
+            k9 = lambda: channel_norm(x, alpha, beta, eps, relu)  # noqa: E731
+            twin = lambda: channel_norm_plain(x, alpha, beta, eps, relu)  # noqa: E731
+            n, n_nhwc = channel_norm.launches, channel_norm.launches_nhwc
+            got, want = k9(), twin()
+            if (channel_norm.launches, channel_norm.launches_nhwc) != (n + 1, n_nhwc + bool(r)):
+                raise AssertionError(f"K9{r}: one launch a call, on the route of x's layout")
+            if not got.is_contiguous(memory_format=fmt):
+                raise AssertionError(f"K9{r}: the output keeps x's layout")
+            d = (got.float() - want.float()).abs()
+            ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(1e-30))) - 7)
+            same = (d == 0).float().mean().item()
+            worst = d.max().item()
+            if same < 0.999 or not bool((d <= ulp.clamp_min(1e-4)).all()):
+                raise AssertionError(f"K9{r} at C = {c}, {h}x{w}: identical {same:.5f}, largest "
+                                     f"difference {worst:.3e}")
+            del got, want, d, ulp
+            b_ms, b_by = bound_ms(2 * x.numel() * x.element_size(), 10.0 * x.numel(),
+                                  H100_FP32_TFLOPS)
+            t = dict(ms=event_ms(k9, reps=10), device_ms=device_ms(k9, reps=10),
+                     plain_ms=event_ms(twin, reps=5), bound_ms=b_ms)
+            row.update({f"{k}{r}": v for k, v in t.items()},
+                       **{f"identical{r}": same, f"max_abs_err{r}": worst, "bound_by": b_by})
+            for key in t:
+                call[f"{key}{r}"] += count * t[key]
+            log(f"K9{r} x {tuple(x.shape)} relu {relu} (P = {row['tile' + r]}): identical "
+                f"{same:.6f}, max {worst:.3e}; {t['ms']:.4f} ms (device alone "
+                f"{t['device_ms']:.4f}), twin {t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}), {100 * b_ms / t['device_ms']:.1f}% of it; {count} a call")
+            del x
+        rows[(c, relu)] = row
         call["norms"] += count
-        log(f"K9 x {(B, c, h, w)} relu {relu} (P = {rows[(c, relu)]['tile']}): identical "
-            f"{same:.6f}, max {worst:.3e}; {t['ms']:.4f} ms (device alone {t['device_ms']:.4f}), "
-            f"twin {t['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"{100 * b_ms / t['device_ms']:.1f}% of it; {count} a call")
-        del x
+        del x0
     if call["norms"] != 29:
         raise AssertionError("the HiFiC cell's call has 29 norms")
-    log(f"K9 over a HiFiC call's 29 norms: {call['ms']:.3f} ms (device alone "
-        f"{call['device_ms']:.3f}), twin {call['plain_ms']:.3f} ms, bound "
-        f"{call['bound_ms']:.3f} ms")
+    for r in routes:
+        log(f"K9{r} over a HiFiC call's 29 norms: {call['ms' + r]:.3f} ms (device alone "
+            f"{call['device_ms' + r]:.3f}), twin {call['plain_ms' + r]:.3f} ms, bound "
+            f"{call['bound_ms' + r]:.3f} ms")
     big, small = rows[(960, True)], rows[(60, True)]
+    extremes = {f"{k}{r}": big[f"{k}{r}"] for k in ("ms", "device_ms", "plain_ms", "bound_ms")
+                for r in routes}
+    extremes.update({f"{k}_c60{r}": small[f"{k}{r}"]
+                     for k in ("ms", "device_ms", "plain_ms", "bound_ms") for r in routes})
     return dict(name="K9 channel_norm", route="cuda",
                 source="contextual_image_compression_tpu_torch/csrc/channel_norm.cu",
                 replaces="none (the JAX package has no HiFiC): ChannelNorm.forward's eager body",
-                max_abs_err=max(r["max_abs_err"] for r in rows.values()),
-                identical=min(r["identical"] for r in rows.values()), ms=big["ms"],
-                device_ms=big["device_ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
-                bound_by=big["bound_by"], library_ms=None, ms_c60=small["ms"],
-                device_ms_c60=small["device_ms"], plain_ms_c60=small["plain_ms"],
-                bound_ms_c60=small["bound_ms"], call_ms=call["ms"],
-                call_device_ms=call["device_ms"], call_plain_ms=call["plain_ms"],
-                call_bound_ms=call["bound_ms"],
+                max_abs_err=max(r[f"max_abs_err{k}"] for r in rows.values() for k in routes),
+                identical=min(r[f"identical{k}"] for r in rows.values() for k in routes),
+                bound_by=big["bound_by"], library_ms=None, **extremes,
+                **{f"call_{k}": v for k, v in call.items() if k != "norms"},
                 design="a tile of P pixels x all channels staged once in shared memory by "
-                       "cp.async, three tiles in flight, persistent grid")
+                       "cp.async, three tiles in flight, persistent grid; NCHW: C rows of P "
+                       "pixels; NHWC: one span of P x C, a pixel's quads over its lanes")
 
 
 def run_hific_serving(dev, card):
     """HiFiC at its published widths (seeded weights, bf16) served on two
     photos of 192x256 and on one of 200x300 (padded by reflection to
-    256x320): each call launches K9 29 times and no other kernel of the
-    port; returns the launch counts."""
+    256x320): each call launches K9 29 times, all on the NHWC route (the
+    served form is channels_last), and no other kernel of the port; returns
+    the launch counts."""
     from contextual_image_compression_tpu_torch import ops
     from contextual_image_compression_tpu_torch.config import HiFiCConfig
     from contextual_image_compression_tpu_torch.serve import CompressionPipeline
@@ -2479,13 +2502,15 @@ def run_hific_serving(dev, card):
                rng.randint(0, 256, (1, 200, 300, 3), dtype=np.uint8)]
     torch.cuda.synchronize()
     ops.reset_launch_counts()
+    norm = ops.KERNEL_WRAPPERS["K9"]
     for u8 in batches:
-        before = launch_counts()
+        before, nhwc = launch_counts(), norm.launches_nhwc
         dec, info = pipe(u8)
         after = launch_counts()
         delta = {k: after[k] - before[k] for k in after}
-        if delta != expect(K9=29):
-            raise AssertionError(f"HiFiC call: kernel launches {delta}, want K9 29 and no other")
+        if delta != expect(K9=29) or norm.launches_nhwc - nhwc != 29:
+            raise AssertionError(f"HiFiC call: kernel launches {delta}, NHWC "
+                                 f"{norm.launches_nhwc - nhwc}; want K9 29, all NHWC, no other")
         if dec.shape != u8.shape or dec.dtype != np.uint8 or not np.isfinite(
                 info["bits"].cpu().numpy()).all():
             raise AssertionError(f"HiFiC decoded {dec.shape} {dec.dtype} or non-finite bits")

@@ -42,6 +42,21 @@ then the bias added and rounded); CN's statistics, mu, sigma, the roundings
 and the likelihoods in float32. `prepare_serving` casts every layer but the
 prior of z, whose parameters and offsets stay float32.
 
+Layout: the activations are channels_last (NHWC strides on the logical
+(B, C, H, W) shapes). `apply` takes x in either layout and turns an NCHW x
+to channels_last once; `prepare_serving` turns every convolution weight to
+channels_last once. The shared `KConv` / `KConvT` follow the layout they are
+given (cuDNN's NHWC kernels read and write the tensors as they are, with no
+layout conversion inside a call; the bias add, the padding and KConvT's crop
+keep it), and ChannelNorm takes K9's NHWC route. A pixel's row between two
+convolutions with a ChannelNorm between them is padded to a multiple of
+ROW_CHANNELS channels in the serving form (E's and G's 60-channel rows to
+64): zero filters and biases on the producing convolution, zero taps on the
+consuming one, and ChannelNorm leaves the padding out and writes it 0. The
+values are those of the unpadded network; cuDNN's NHWC kernels take such a
+row as it is, where they put a 60-channel one through a padding pass of
+their own at each of those four convolutions.
+
 Spans (utils/profiling.py): `hific.analysis` (E), `hific.hyper` (h_a,
 z_hat, both syntheses, y_hat, the likelihoods), `hific.synthesis` (G),
 `hific.resblocks` (the blocks and the long skip, inside G) and `hific.norm`
@@ -64,11 +79,12 @@ from contextual_image_compression_tpu_torch.utils.profiling import annotate
 from contextual_image_compression_tpu_torch.utils.tree import cast_floats
 
 IMAGE_HEAD_GAIN = 0.15  # image head: x_hat's spread around its bias of 0.5
+ROW_CHANNELS = 8        # the served rows' channel multiple: 16 bytes of bf16
 SCALE_HEAD_GAIN = 0.15  # sigma head: sigma's spread around its bias of 1
 
 
 class HiFiCOutput(NamedTuple):
-    x_hat: torch.Tensor     # (B, 3, H, W), compute dtype
+    x_hat: torch.Tensor     # (B, 3, H, W), compute dtype, channels_last
     y_symbols: torch.Tensor  # (B, C_y, H / 16, W / 16) float32 integers
     z_symbols: torch.Tensor  # (B, N, H / 64, W / 64) float32 integers
     bits: torch.Tensor      # (B,) float32
@@ -251,6 +267,26 @@ class FactorizedPrior(nn.Module):
         return lik.reshape(c, b, h, w).transpose(0, 1)
 
 
+def _widen(t: torch.Tensor, dim: int, width: int) -> torch.Tensor:
+    """t with zeros appended along dim up to width."""
+    shape = list(t.shape)
+    shape[dim] = width - t.shape[dim]
+    return torch.cat([t, t.new_zeros(shape)], dim)
+
+
+def _pad_row(producer: nn.Module, consumer: nn.Module) -> None:
+    """Pad the channels between two convolutions to a multiple of
+    ROW_CHANNELS: zero filters and biases on the producer (a KConvT's weight
+    is (Cin, Cout, k, k)), zero taps on the consumer."""
+    c = producer.bias.shape[0]
+    width = -(-c // ROW_CHANNELS) * ROW_CHANNELS
+    if width == c:
+        return
+    producer.weight.data = _widen(producer.weight.data, int(isinstance(producer, KConvT)), width)
+    producer.bias.data = _widen(producer.bias.data, 0, width)
+    consumer.weight.data = _widen(consumer.weight.data, int(isinstance(consumer, KConv)), width)
+
+
 def gaussian_likelihood(symbols: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     """Phi((0.5 - |s|) / sigma) - Phi((-0.5 - |s|) / sigma), float32."""
     v = torch.abs(symbols)
@@ -293,17 +329,29 @@ class HiFiCCodec(nn.Module):
 
     def prepare_serving(self) -> "HiFiCCodec":
         """The serving form: every layer in the config's compute dtype but the
-        prior of z; then eval mode, no gradients."""
+        prior of z; the rows between E's and G's convolutions padded to a
+        multiple of ROW_CHANNELS channels (module docstring); each
+        convolution weight channels_last; then eval mode, no gradients."""
         dtype = self.cfg.compute_dtype()
+        e, g = self.analysis, self.synthesis
+        e_convs, g_convs = [e.conv0, *e.down, e.out], [*g.up, g.out]
+        for convs in (e_convs, g_convs):  # each but the last is followed by a ChannelNorm
+            for producer, consumer in zip(convs, convs[1:]):
+                _pad_row(producer, consumer)
         for part in (self.analysis, self.synthesis, self.hyper_analysis, self.hyper_mean,
                      self.hyper_scale):
             cast_floats(part, dtype)
+            for mod in part.modules():
+                if isinstance(mod, (KConv, KConvT)):
+                    mod.weight.data = mod.weight.data.contiguous(memory_format=torch.channels_last)
         return self.eval().requires_grad_(False)
 
     def apply(self, x: torch.Tensor) -> HiFiCOutput:
         """x (B, 3, H, W) in [0, 1], the compute dtype, H and W multiples of
-        64 -> x_hat, the symbols of y and z, bits per image."""
+        64, in either layout -> x_hat (channels_last), the symbols of y and z,
+        bits per image."""
         cfg = self.cfg
+        x = x.contiguous(memory_format=torch.channels_last)
         with annotate("hific.analysis"):
             y = self.analysis(x)
         with annotate("hific.hyper"):

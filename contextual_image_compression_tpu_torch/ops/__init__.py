@@ -3,7 +3,8 @@
 Each kernel wrapper counts its launches in a plain integer attribute,
 `<wrapper>.launches`; `launch_counts()` reads them and `reset_launch_counts()`
 sets them to 0. The mask kernels K1 and K4 also count them per route
-(`.route_launches`, read by `route_counts()`).
+(`.route_launches`, read by `route_counts()`); K9 counts its NHWC route's
+launches in `.launches_nhwc`.
 """
 
 from contextual_image_compression_tpu_torch.ops.attention import (
@@ -51,5 +52,7 @@ def route_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "launches_nhwc"):
+            fn.launches_nhwc = 0
         if hasattr(fn, "route_launches"):
             fn.route_launches = {route: 0 for route in fn.route_launches}

@@ -134,6 +134,11 @@ _SIGNATURES = {
         _P, _I, _I, _I, _I,          # out, B, C, H, W
         _I, _F, _I, _P,              # pixels a tile, eps, relu, stream
     ],
+    "cic_channel_norm_nhwc": [       # x and out channels_last
+        _I, _P, _P, _P, _I,          # dtype code of x, x, alpha, beta, their dtype code
+        _P, _I, _I, _I, _I, _I,      # out, B, C, S (elements a pixel's row), H, W
+        _I, _I, _F, _I, _P,          # pixels a tile, lanes a pixel, eps, relu, stream
+    ],
     "cic_adaptive_quantize": [
         _I,                          # dtype code of the latent
         _P, _P, _I, _P, _I,          # latent, score, its dtype code, strength, its dtype code

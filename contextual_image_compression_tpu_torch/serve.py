@@ -194,11 +194,13 @@ class CompressionPipeline:
         cfg = self.mcfg
         _, h, w, _ = imgs_u8.shape
         with annotate("pipeline.codec"):
-            x = imgs_u8.permute(0, 3, 1, 2).float().contiguous() / 255.0
+            # the (B, H, W, 3) upload viewed as (B, 3, H, W) is channels_last,
+            # the codec's layout: no copy in, and none out
+            x = (imgs_u8.permute(0, 3, 1, 2) / 255.0).to(cfg.compute_dtype())
             k = cfg.stride
             if h % k or w % k:
                 x = F.pad(x, (0, -w % k, 0, -h % k), mode="reflect")
-            out = self.codec.apply(x.to(cfg.compute_dtype()))
+            out = self.codec.apply(x)
             decoded = torch.round(out.x_hat[:, :, :h, :w].float() * 255.0)
             decoded = torch.clamp(decoded, 0, 255).to(torch.uint8).permute(0, 2, 3, 1)
         return decoded.contiguous(), {"y_symbols": out.y_symbols, "z_symbols": out.z_symbols,

@@ -2,9 +2,10 @@
 `HiFiCConfig`) against the plain reference (tests/reference_hific.py, which
 is the benchmark's portbench/reference/hific.py), on the CPU at a small
 width, on seeded weights; the stride-2 SAME transposed convolutions of
-`KConvT`; the five hific spans. No JAX."""
+`KConvT`; the five hific spans; the served channels_last layout. No JAX."""
 
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -15,8 +16,8 @@ import torch
 
 import reference_hific as ref
 from contextual_image_compression_tpu_torch.config import HiFiCConfig
-from contextual_image_compression_tpu_torch.models.hific import HiFiCCodec
-from contextual_image_compression_tpu_torch.models.layers import KConvT
+from contextual_image_compression_tpu_torch.models.hific import ChannelNorm, HiFiCCodec
+from contextual_image_compression_tpu_torch.models.layers import KConv, KConvT
 from contextual_image_compression_tpu_torch.serve import CompressionPipeline
 from contextual_image_compression_tpu_torch.utils import profiling
 
@@ -253,3 +254,156 @@ def test_hific_pipeline_refuses_what_it_does_not_serve(pipe):
         pipe.encode_to_bitstream(_images(1, 64, 64))
     with pytest.raises(TypeError):
         pipe.decode_from_bitstream(b"")
+
+
+# ---- the served layout: channels_last ---------------------------------------
+
+SERVED_PARTS = ("analysis", "synthesis", "hyper_analysis", "hyper_mean", "hyper_scale")
+CL = torch.channels_last
+# widths that are no multiple of 8, as the published 60: the serving form
+# pads E's rows of 6, 12, 20 and G's of 20, 12, 6 channels to 8, 16, 24
+ODD = HiFiCConfig(encoder_filters=(6, 12, 16, 20, 32), latent_channels=8, hyper_channels=8,
+                  residual_blocks=2, dtype="float32")
+
+
+def _nchw_network(codec):
+    """A copy of the codec held in NCHW, the layout it was served in before
+    channels_last: contiguous weights, and hooks that turn every layer's
+    input back to contiguous NCHW."""
+    old = copy.deepcopy(codec)
+    for mod in old.modules():
+        if isinstance(mod, (KConv, KConvT)):
+            mod.weight.data = mod.weight.data.contiguous()
+        if isinstance(mod, (KConv, KConvT, ChannelNorm)):
+            mod.register_forward_pre_hook(lambda m, args: (args[0].contiguous(), *args[1:]))
+    return old
+
+
+def _upload_before(u8, cfg):
+    """`_run_hific`'s input as it was before: an NCHW copy in float32, /
+    255, padded by reflection, cast to the compute dtype."""
+    _, h, w, _ = u8.shape
+    x = torch.from_numpy(u8).permute(0, 3, 1, 2).float().contiguous() / 255.0
+    k = cfg.stride
+    if h % k or w % k:
+        x = torch.nn.functional.pad(x, (0, -w % k, 0, -h % k), mode="reflect")
+    return x.to(cfg.compute_dtype())
+
+
+@pytest.mark.parametrize("part", SERVED_PARTS)
+def test_serving_form_holds_channels_last_weights(part):
+    cfg = dataclasses.replace(SMALL, dtype="bfloat16")
+    codec = HiFiCCodec(cfg)
+    codec.reset_parameters(7)
+    convs = [m for m in getattr(codec, part).modules() if isinstance(m, (KConv, KConvT))]
+    assert convs and not any(m.weight.is_contiguous(memory_format=CL) for m in convs)
+    codec = codec.prepare_serving()
+    for mod in convs:
+        assert mod.weight.is_contiguous(memory_format=CL) and not mod.weight.is_contiguous()
+        assert mod.weight.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+def test_serving_apply_keeps_every_layer_channels_last(pipe, layout):
+    """Every KConv / KConvT and ChannelNorm of a serving call gets a
+    channels_last input, whatever x's layout: a layer that fell back to NCHW
+    would bring cuDNN's layout transposes back on the card."""
+    x = torch.from_numpy(_images(2, 128, 192)).permute(0, 3, 1, 2).float() / 255.0
+    x = x.contiguous(memory_format=CL if layout == "channels_last" else torch.contiguous_format)
+    seen, handles = [], []
+    for name, mod in pipe.codec.named_modules():
+        if isinstance(mod, (KConv, KConvT, ChannelNorm)):
+            handles.append(mod.register_forward_pre_hook(
+                lambda m, args, name=name: seen.append(
+                    (name, args[0].is_contiguous(memory_format=CL)))))
+    try:
+        with torch.no_grad():
+            out = pipe.codec.apply(x)
+    finally:
+        for h in handles:
+            h.remove()
+    assert len(seen) == len(handles)  # each layer once a call
+    assert [name for name, ok in seen if not ok] == []
+    assert out.x_hat.is_contiguous(memory_format=CL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_in_either_layout_matches_the_nchw_network(dtype):
+    """An NCHW x and a channels_last copy of it give the same bits (apply
+    turns NCHW to channels_last once at entry), and both match the network
+    held in NCHW, the form served before: the same symbols; x_hat within
+    1e-5 in float32 (the CPU's convolutions sum in another order in each
+    layout; measured 4.8e-7) and within a bf16 ulp at 1.0 in bfloat16
+    (measured 0); bits within 1e-5 relative (measured 1.2e-7)."""
+    cfg = dataclasses.replace(SMALL, dtype=dtype)
+    codec = HiFiCCodec(cfg)
+    codec.reset_parameters(7)
+    codec = codec.prepare_serving()
+    x = _upload_before(_images(2, 128, 192), cfg)
+    with torch.no_grad():
+        a = codec.apply(x)
+        b = codec.apply(x.contiguous(memory_format=CL))
+        before = _nchw_network(codec).apply(x)
+    for k in a._fields:
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+    assert torch.equal(a.y_symbols, before.y_symbols)
+    assert torch.equal(a.z_symbols, before.z_symbols)
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    assert float((a.x_hat.float() - before.x_hat.float()).abs().max()) <= tol
+    assert float(((a.bits - before.bits).abs() / before.bits).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("size", [(128, 192), (130, 200)])
+def test_pipeline_output_is_unchanged_and_c_contiguous(pipe, size):
+    """The pipeline reads the upload as a channels_last view and hands back
+    the permuted channels_last x_hat without a copy: the same uint8 images
+    as the NCHW copy in and the transposing copy out gave, as a C-contiguous
+    (B, H, W, 3) array."""
+    u8 = _images(2, *size, seed=5)
+    decoded, _ = pipe(u8)
+    with torch.no_grad():
+        x_hat = pipe.codec.apply(_upload_before(u8, SMALL)).x_hat
+    want = torch.clamp(torch.round(x_hat[:, :, :size[0], :size[1]].float() * 255.0), 0, 255)
+    want = want.to(torch.uint8).permute(0, 2, 3, 1).contiguous().numpy()
+    assert decoded.shape == (2,) + size + (3,) and decoded.flags["C_CONTIGUOUS"]
+    np.testing.assert_array_equal(decoded, want)
+
+
+def test_serving_form_pads_rows_to_whole_16_bytes():
+    codec = HiFiCCodec(ODD)
+    codec.reset_parameters(7)
+    before = {k: v.clone() for k, v in codec.state_dict().items()}
+    served = codec.prepare_serving().state_dict()
+    widths = {"analysis.conv0.weight": (8, 3), "analysis.down.0.weight": (16, 8),
+              "analysis.down.1.weight": (16, 16), "analysis.down.2.weight": (24, 16),
+              "analysis.down.3.weight": (32, 24), "synthesis.up.0.weight": (32, 24),
+              "synthesis.up.1.weight": (24, 16), "synthesis.up.2.weight": (16, 16),
+              "synthesis.up.3.weight": (16, 8), "synthesis.out.weight": (3, 8)}
+    biases = {"analysis.conv0.bias": 8, "analysis.down.0.bias": 16, "analysis.down.2.bias": 24,
+              "synthesis.up.0.bias": 24, "synthesis.up.2.bias": 16, "synthesis.up.3.bias": 8}
+    for k, v in before.items():
+        got = served[k]
+        if k in widths:
+            assert tuple(got.shape[:2]) == widths[k], k
+        elif k in biases:
+            assert tuple(got.shape) == (biases[k],), k
+        else:
+            assert got.shape == v.shape, k
+        inner = tuple(slice(0, n) for n in v.shape)
+        assert torch.equal(got[inner], v), k
+        rest = got.clone()
+        rest[inner] = 0
+        assert not rest.any(), k  # the padding is zeros
+
+
+def test_padded_rows_match_the_reference():
+    """A pipeline at widths that pad (ODD) against the plain reference on
+    the unpadded weights, at the bars of test_port_matches_reference."""
+    pipe = CompressionPipeline(model_config=ODD, device="cpu", seed=7)
+    codec = HiFiCCodec(ODD)
+    codec.reset_parameters(7)
+    params = {k: v.detach().clone() for k, v in codec.state_dict().items()}
+    u8 = _images(2, 128, 192)
+    decoded, info = pipe(u8)
+    gaps = _gaps(decoded, info, ref.serve(params, _model(ODD), torch.from_numpy(u8)))
+    assert _within(gaps), gaps
