@@ -181,6 +181,49 @@ class HiFiCConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TCMConfig:
+    """TCM, the mixed Transformer-CNN codec (Liu, Sun, Katto, CVPR 2023,
+    arXiv:2303.14978; jmliu206/LIC_TCM `models/tcm.py`), served by
+    models/tcm.py: N (each CTB's conv and Swin halves, 2N between them), M
+    (y's channels), the CTB pairs of each stage (g_a's three, g_s's three),
+    their Swin head widths, the windows of g_a / g_s / the slices (8) and
+    of the hyperprior (4), the slices of y and their support, SWAtten's
+    width and head, z's channels, the factorized prior's filters, the
+    Gaussian conditional's lower bounds and the compute dtype. It has no
+    JAX counterpart."""
+
+    channels: int = 3
+    n: int = 128
+    m: int = 320
+    stage_blocks: Tuple[int, ...] = (2, 2, 2, 2, 2, 2)
+    head_dims: Tuple[int, ...] = (8, 16, 32, 32, 16, 8)
+    window: int = 8
+    hyper_window: int = 4
+    hyper_head_dim: int = 32
+    num_slices: int = 5
+    max_support_slices: int = 5
+    swatten_dim: int = 128
+    swatten_head_dim: int = 16
+    cc_widths: Tuple[int, ...] = (224, 128)
+    z_channels: int = 192
+    factorized_filters: Tuple[int, ...] = (3, 3, 3, 3)
+    scale_lower_bound: float = 0.11
+    likelihood_lower_bound: float = 1e-9
+    dtype: str = "bfloat16"
+
+    @property
+    def stride(self) -> int:
+        """Each image is padded to a multiple of it: y sits at 1/16 and
+        holds whole windows of `window`, the hyperprior's blocks at 1/32
+        whole windows of `hyper_window`, z at 1/64 (128 at the published
+        windows)."""
+        return max(16 * self.window, 32 * self.hyper_window, 64)
+
+    def compute_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
 class AutoencoderConfig:
     """The baseline skip-connection autoencoder and its training run."""
 

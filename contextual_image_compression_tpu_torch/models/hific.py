@@ -66,13 +66,19 @@ z_hat, both syntheses, y_hat, the likelihoods), `hific.synthesis` (G),
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from contextual_image_compression_tpu_torch.config import HiFiCConfig
+from contextual_image_compression_tpu_torch.models.entropy import (
+    FactorizedPrior,
+    PhotoOutput,
+    bits,
+    gaussian_likelihood,
+    quantize,
+    uniform_,
+)
 from contextual_image_compression_tpu_torch.models.layers import KConv, KConvT
 from contextual_image_compression_tpu_torch.ops.channel_norm import channel_norm
 from contextual_image_compression_tpu_torch.utils.profiling import annotate
@@ -81,23 +87,6 @@ from contextual_image_compression_tpu_torch.utils.tree import cast_floats
 IMAGE_HEAD_GAIN = 0.15  # image head: x_hat's spread around its bias of 0.5
 ROW_CHANNELS = 8        # the served rows' channel multiple: 16 bytes of bf16
 SCALE_HEAD_GAIN = 0.15  # sigma head: sigma's spread around its bias of 1
-
-
-class HiFiCOutput(NamedTuple):
-    x_hat: torch.Tensor     # (B, 3, H, W), compute dtype, channels_last
-    y_symbols: torch.Tensor  # (B, C_y, H / 16, W / 16) float32 integers
-    z_symbols: torch.Tensor  # (B, N, H / 64, W / 64) float32 integers
-    bits: torch.Tensor      # (B,) float32
-
-
-def _uniform_(t: torch.Tensor, std: float, gen: torch.Generator, mean: float = 0.0):
-    """Uniform values of the given mean and standard deviation, drawn in
-    float32 and rounded to t's dtype."""
-    half = std * math.sqrt(3.0)
-    with torch.no_grad():
-        draw = torch.empty(t.shape, dtype=torch.float32, device=t.device)
-        t.copy_(draw.uniform_(mean - half, mean + half, generator=gen))
-    return t
 
 
 def _seed_conv(layer: nn.Module, gen: torch.Generator, gain: float = 1.0,
@@ -109,7 +98,7 @@ def _seed_conv(layer: nn.Module, gen: torch.Generator, gain: float = 1.0,
         fan_in = w.shape[0] * w.shape[2] * w.shape[3] / 4.0
     else:
         fan_in = w.shape[1] * w.shape[2] * w.shape[3]
-    _uniform_(w, gain * math.sqrt(2.0 / fan_in), gen)
+    uniform_(w, gain * math.sqrt(2.0 / fan_in), gen)
     nn.init.constant_(layer.bias, bias)
 
 
@@ -215,58 +204,6 @@ class HyperSynthesis(nn.Module):
         return self.out(torch.relu(self.up2(torch.relu(self.up1(z_hat)))))
 
 
-class FactorizedPrior(nn.Module):
-    """Balle et al. 2018's factorized density of z, one per channel: the
-    cumulative's logits f(v) through layers of widths 1 -> filters -> 1,
-    v <- softplus(H_k) v + b_k, then v <- v + tanh(a_k) tanh(v) but after
-    the last; the likelihood of an integer-offset value v is
-    sigmoid(f(v + 0.5)) - sigmoid(f(v - 0.5)), taken on the side where the
-    sigmoids are small. `offset` holds the quantization offsets m."""
-
-    def __init__(self, channels: int, filters=(3, 3, 3)):
-        super().__init__()
-        self.dims = (1,) + tuple(filters) + (1,)
-        c = channels
-        for k in range(len(self.dims) - 1):
-            a, b = self.dims[k], self.dims[k + 1]
-            self.register_parameter(f"matrix{k}", nn.Parameter(torch.zeros(c, b, a)))
-            self.register_parameter(f"bias{k}", nn.Parameter(torch.zeros(c, b, 1)))
-            if k < len(self.dims) - 2:
-                self.register_parameter(f"factor{k}", nn.Parameter(torch.zeros(c, b, 1)))
-        self.offset = nn.Parameter(torch.zeros(c))
-
-    def reset_parameters(self, gen: torch.Generator, init_scale: float = 10.0) -> None:
-        """TF-Compression's initial density (init_scale 10), biases and the
-        offsets uniform in +-0.5, small seeded factors."""
-        layers = len(self.dims) - 1
-        scale = init_scale ** (1.0 / layers)
-        for k in range(layers):
-            init = math.log(math.expm1(1.0 / scale / self.dims[k + 1]))
-            _uniform_(getattr(self, f"matrix{k}"), 0.05, gen, mean=init)
-            _uniform_(getattr(self, f"bias{k}"), 1.0 / math.sqrt(12.0), gen)
-            if k < layers - 1:
-                _uniform_(getattr(self, f"factor{k}"), 0.05, gen)
-        _uniform_(self.offset, 1.0 / math.sqrt(12.0), gen)
-
-    def _logits(self, v: torch.Tensor) -> torch.Tensor:
-        layers = len(self.dims) - 1
-        for k in range(layers):
-            v = torch.matmul(F.softplus(getattr(self, f"matrix{k}").float()), v)
-            v = v + getattr(self, f"bias{k}").float()
-            if k < layers - 1:
-                v = v + torch.tanh(getattr(self, f"factor{k}").float()) * torch.tanh(v)
-        return v
-
-    def likelihood(self, z_hat: torch.Tensor) -> torch.Tensor:
-        """Likelihood of each value of z_hat (B, C, h, w), float32."""
-        b, c, h, w = z_hat.shape
-        v = z_hat.float().transpose(0, 1).reshape(c, 1, -1)
-        lower, upper = self._logits(v - 0.5), self._logits(v + 0.5)
-        sign = -torch.sign(lower + upper)
-        lik = torch.abs(torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower))
-        return lik.reshape(c, b, h, w).transpose(0, 1)
-
-
 def _widen(t: torch.Tensor, dim: int, width: int) -> torch.Tensor:
     """t with zeros appended along dim up to width."""
     shape = list(t.shape)
@@ -285,15 +222,6 @@ def _pad_row(producer: nn.Module, consumer: nn.Module) -> None:
     producer.weight.data = _widen(producer.weight.data, int(isinstance(producer, KConvT)), width)
     producer.bias.data = _widen(producer.bias.data, 0, width)
     consumer.weight.data = _widen(consumer.weight.data, int(isinstance(consumer, KConv)), width)
-
-
-def gaussian_likelihood(symbols: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
-    """Phi((0.5 - |s|) / sigma) - Phi((-0.5 - |s|) / sigma), float32."""
-    v = torch.abs(symbols)
-    c = -math.sqrt(0.5)
-    upper = 0.5 * torch.erfc(c * (0.5 - v) / sigma)
-    lower = 0.5 * torch.erfc(c * (-0.5 - v) / sigma)
-    return upper - lower
 
 
 class HiFiCCodec(nn.Module):
@@ -346,7 +274,7 @@ class HiFiCCodec(nn.Module):
                     mod.weight.data = mod.weight.data.contiguous(memory_format=torch.channels_last)
         return self.eval().requires_grad_(False)
 
-    def apply(self, x: torch.Tensor) -> HiFiCOutput:
+    def apply(self, x: torch.Tensor) -> PhotoOutput:
         """x (B, 3, H, W) in [0, 1], the compute dtype, H and W multiples of
         64, in either layout -> x_hat (channels_last), the symbols of y and z,
         bits per image."""
@@ -356,18 +284,13 @@ class HiFiCCodec(nn.Module):
             y = self.analysis(x)
         with annotate("hific.hyper"):
             z = self.hyper_analysis(y).float()
-            m = self.z_prior.offset.float()[:, None, None]
-            z_sym = torch.round(z - m)
-            z_hat = z_sym + m
+            z_sym, z_hat = quantize(z, self.z_prior.offset.float()[:, None, None])
             zc = z_hat.to(y.dtype)
             mu = self.hyper_mean(zc).float()
             sigma = torch.clamp(self.hyper_scale(zc).float(), min=cfg.scale_lower_bound)
-            y_sym = torch.round(y.float() - mu)
-            y_hat = y_sym + mu
-            floor = cfg.likelihood_lower_bound
-            lik_y = torch.clamp(gaussian_likelihood(y_sym, sigma), min=floor)
-            lik_z = torch.clamp(self.z_prior.likelihood(z_hat), min=floor)
-            bits = -(torch.log2(lik_y).sum(dim=(1, 2, 3)) + torch.log2(lik_z).sum(dim=(1, 2, 3)))
+            y_sym, y_hat = quantize(y.float(), mu)
+            bits_ = bits(gaussian_likelihood(y_sym, sigma), self.z_prior.likelihood(z_hat),
+                         cfg.likelihood_lower_bound)
         with annotate("hific.synthesis"):
             x_hat = self.synthesis(y_hat.to(y.dtype))
-        return HiFiCOutput(x_hat, y_sym, z_sym, bits)
+        return PhotoOutput(x_hat, y_sym, z_sym, bits_)

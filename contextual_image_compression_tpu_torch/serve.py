@@ -28,11 +28,17 @@ slice, and gathers the decoded images and the info from the others, so
 each rank returns the whole answer. `decode_from_bitstream` pads a ragged
 batch of containers the same way.
 
-`model_config=HiFiCConfig(...)` serves HiFiC (models/hific.py) instead, on
-one device: no mask stage; each image, of any size, as u8 / 255 padded by
-reflection to a multiple of `HiFiCConfig.stride` and cropped back; the decoded
-uint8 images and, per image, the symbols of y and z and the bits of both.
-Upload, batch padding and download are the GAN codec's.
+`model_config=HiFiCConfig(...)` or `TCMConfig(...)` serves a photo codec
+instead (HiFiC, models/hific.py; TCM, models/tcm.py; `PHOTO_CODECS`), on one
+device, through one path (`_run_photo`): no mask stage; each image, of any
+size, as u8 / 255 padded by reflection to a multiple of the config's
+`stride` and cropped back; the decoded uint8 images and, per image, the
+symbols of y and z and the bits of both. Upload, batch padding and download
+are the GAN codec's.
+
+Counters (`counts()`, `reset_counts()`): the images served, the padding
+images `_padded_batch` added to them, and the padded batch sizes run for the
+first time, since the pipeline was built or last reset.
 """
 
 from __future__ import annotations
@@ -50,11 +56,13 @@ from contextual_image_compression_tpu_torch.config import (
     HiFiCConfig,
     ModelConfig,
     SaliencyConfig,
+    TCMConfig,
     resolve_device,
 )
 from contextual_image_compression_tpu_torch.models.adaptive import AdaptiveCodec
 from contextual_image_compression_tpu_torch.models.hific import HiFiCCodec
 from contextual_image_compression_tpu_torch.models.layers import const
+from contextual_image_compression_tpu_torch.models.tcm import TCMCodec
 from contextual_image_compression_tpu_torch.ops import bitstream as bs
 from contextual_image_compression_tpu_torch.ops import masks as mask_ops
 from contextual_image_compression_tpu_torch.ops.saliency import (
@@ -63,6 +71,12 @@ from contextual_image_compression_tpu_torch.ops.saliency import (
 )
 from contextual_image_compression_tpu_torch.parallel import sharding
 from contextual_image_compression_tpu_torch.utils.profiling import annotate
+
+
+# the photo codecs by their config's type: each codec's apply(x) takes x = u8
+# / 255 (B, 3, H, W), H and W multiples of cfg.stride, and returns a
+# models.entropy.PhotoOutput
+PHOTO_CODECS = {HiFiCConfig: HiFiCCodec, TCMConfig: TCMCodec}
 
 
 def load_codec_checkpoint(codec: AdaptiveCodec, model_dir: str) -> Dict[str, str]:
@@ -108,14 +122,15 @@ class CompressionPipeline:
     that falls to "init" keeps the port's seeded init (`seed`), whose
     values differ from the JAX package's PRNGKey(0) init.
 
-    A `HiFiCConfig` serves HiFiC (module docstring) from `state_dict` or
-    the port's seeded init; its info holds `y_symbols`, `z_symbols` and
-    `bits`, and it takes no mesh, checkpoint directory or bitstream."""
+    A photo codec's config (`HiFiCConfig`, `TCMConfig`) serves that codec
+    (module docstring) from `state_dict` or the port's seeded init; its info
+    holds `y_symbols`, `z_symbols` and `bits`, and it takes no mesh,
+    checkpoint directory or bitstream."""
 
     def __init__(
         self,
         state_dict: Optional[Dict[str, torch.Tensor]] = None,
-        model_config: Optional[Union[ModelConfig, HiFiCConfig]] = None,
+        model_config: Optional[Union[ModelConfig, HiFiCConfig, TCMConfig]] = None,
         saliency_config: Optional[SaliencyConfig] = None,
         device="cuda",
         seed: int = 0,
@@ -126,14 +141,15 @@ class CompressionPipeline:
         self._world = mesh.world.size if mesh is not None else 1
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self._seen_batches: set = set()
-        hific = isinstance(model_config, HiFiCConfig)
-        if hific and (mesh is not None or model_dir is not None):
-            raise ValueError("HiFiC serves on one device from a state_dict or the seeded "
-                             "init: no mesh, no checkpoint directory")
-        self.mcfg = model_config if hific else _serving_model_config(model_config or ModelConfig())
+        self.reset_counts()
+        photo = PHOTO_CODECS.get(type(model_config))
+        if photo is not None and (mesh is not None or model_dir is not None):
+            raise ValueError(f"{photo.__name__} serves on one device from a state_dict or the "
+                             "seeded init: no mesh, no checkpoint directory")
+        self.mcfg = model_config if photo else _serving_model_config(model_config or ModelConfig())
         self.scfg = saliency_config or SaliencyConfig()
         with torch.device(self.device):
-            codec = (HiFiCCodec if hific else AdaptiveCodec)(self.mcfg)
+            codec = (photo or AdaptiveCodec)(self.mcfg)
         if state_dict is not None:
             codec.load_state_dict(state_dict)
             self.provenance = {"all": "provided"}
@@ -146,17 +162,27 @@ class CompressionPipeline:
         self.codec = codec.prepare_serving()
 
     @property
-    def hific(self) -> bool:
-        return isinstance(self.mcfg, HiFiCConfig)
+    def photo(self) -> bool:
+        """Whether the pipeline serves a photo codec (PHOTO_CODECS)."""
+        return type(self.mcfg) in PHOTO_CODECS
 
     def _gan_only(self, what: str) -> None:
-        if self.hific:
+        if self.photo:
             raise TypeError(f"{what} is the GAN codec's (a fixed image size, CICZ containers)")
+
+    def counts(self) -> Dict[str, int]:
+        """Images served, padding images added by `_padded_batch`, and
+        padded batch sizes run for the first time, since the last reset."""
+        return {"images": self.images_served, "padding": self.padding_added,
+                "new_batches": self.new_batches}
+
+    def reset_counts(self) -> None:
+        self.images_served = self.padding_added = self.new_batches = 0
 
     @torch.no_grad()
     def _run(self, imgs_u8: torch.Tensor, bpp: torch.Tensor):
-        if self.hific:
-            return self._run_hific(imgs_u8)
+        if self.photo:
+            return self._run_photo(imgs_u8)
         ct = self.mcfg.compute_dtype()
         dev = imgs_u8.device
         coeff = float(self.mcfg.quantizer.scale_coeff)
@@ -190,7 +216,7 @@ class CompressionPipeline:
         }
 
     @torch.no_grad()
-    def _run_hific(self, imgs_u8: torch.Tensor):
+    def _run_photo(self, imgs_u8: torch.Tensor):
         cfg = self.mcfg
         _, h, w, _ = imgs_u8.shape
         with annotate("pipeline.codec"):
@@ -238,13 +264,19 @@ class CompressionPipeline:
                 raise TypeError("images_u8 must be a (B, H, W, C) uint8 array")
             b = imgs.shape[0]
             bp = self._padded_batch(b)
-            if bp != b:
-                pad = torch.zeros((bp - b,) + tuple(imgs.shape[1:]), dtype=imgs.dtype)
-                imgs = torch.cat([imgs.cpu(), pad], dim=0)
-            imgs = imgs.to(self.device)
+            if bp != b:  # padded on the device: the b images into a zeroed batch of bp
+                full = torch.zeros((bp,) + tuple(imgs.shape[1:]), dtype=imgs.dtype,
+                                   device=self.device)
+                full[:b].copy_(imgs)
+                imgs = full
+            else:
+                imgs = imgs.to(self.device)
             bpp = torch.full((bp, 1), float(target_bpp), dtype=self.mcfg.compute_dtype(),
                              device=self.device)
         decoded, info = self._on_mesh(self._run, imgs, bpp)
+        self.images_served += b
+        self.padding_added += bp - b
+        self.new_batches += bp not in self._seen_batches
         self._seen_batches.add(bp)
         with annotate("pipeline.download"):
             if bp != b:

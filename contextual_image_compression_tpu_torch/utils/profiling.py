@@ -55,6 +55,9 @@ SPANS = (
     # models/hific.py, HiFiCCodec.apply: E, the hyperprior, G; the residual
     # blocks inside G; each ChannelNorm
     "hific.analysis", "hific.hyper", "hific.synthesis", "hific.resblocks", "hific.norm",
+    # models/tcm.py, TCMCodec.apply: g_a, the hyperprior, the slice chain, g_s;
+    # each windowed attention Block wherever it sits
+    "tcm.analysis", "tcm.hyper", "tcm.slices", "tcm.synthesis", "tcm.swin",
 )
 
 _OFF = contextlib.nullcontext()

@@ -7,6 +7,7 @@ itself: bfloat16 compute, w8 latent/fc projections, the folded int8 tail.
 """
 
 import ast
+import copy
 import pathlib
 
 import jax
@@ -91,6 +92,29 @@ def test_pipeline_ragged_batch_pads_to_bucket(pipelines):
     dec4, _ = tpipe(u8, target_bpp=1.0)
     np.testing.assert_array_equal(dec3, dec4[:3])
     assert tpipe._padded_batch(5) == 8
+
+
+def test_pipeline_counts_padding_and_new_batch_sizes(pipelines):
+    """After warm-up at 4, a call of 3 counts 3 images, 1 padding image and
+    no new batch size; its output equals the same call run unpadded (a
+    pipeline that has run a batch of 3), whose counts hold no padding."""
+    _, tpipe = pipelines
+    u8 = _images(14, b=3)
+    tpipe.warmup(4)
+    tpipe.reset_counts()
+    padded, info = tpipe(u8, target_bpp=1.0)
+    assert tpipe.counts() == {"images": 3, "padding": 1, "new_batches": 0}
+    unpadded = copy.copy(tpipe)
+    unpadded._seen_batches = {3}
+    unpadded.reset_counts()
+    want, want_info = unpadded(u8, target_bpp=1.0)
+    assert unpadded.counts() == {"images": 3, "padding": 0, "new_batches": 0}
+    np.testing.assert_array_equal(padded, want)
+    for k, v in want_info.items():
+        torch.testing.assert_close(info[k], v, rtol=0, atol=0)
+    tpipe.reset_counts()
+    tpipe(_images(15, b=5), target_bpp=1.0)
+    assert tpipe.counts() == {"images": 5, "padding": 3, "new_batches": 1}
 
 
 def test_pipeline_seeded_init_and_provenance():
